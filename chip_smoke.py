@@ -3,19 +3,37 @@
 
     python3 chip_smoke.py
 
-Phases, one line of output each:
+Phases, each ending with its seconds:
 1. environment: the card's name and power limit (nvidia-smi), torch and
-   CUDA versions, the build time of kernel K1 (nvcc, at first use);
+   CUDA versions, the build time of each kernel (one nvcc per source, all
+   started together, at first use);
 2. kernel K1 (csrc/sghmc_update.cu) against its plain PyTorch version on
    the card: exact agreement with the noise off, the statistics of its
    in-kernel Langevin noise, and both times at PreResNet-20's flat size;
 3. the slice: SGHMC on PreResNet-20 / synthetic CIFAR-10 (50,000 train and
    10,000 test images, batch 128, crop + flip), 2 draws after 1 burn-in
    epoch (3 epochs, 1,173 steps), then the BMA Prediction task with all 11
-   metrics over the test split; K1 must have run once per step.
+   metrics over the test split; K1 must have run once per step;
+4. the int8 kernels K2/K4b/K4d (csrc/int8_gemv.cu, variants mma, mma_row,
+   dp4a) and K4a/K4c (csrc/stream_probe.cu, outputs (G, 1) and (G, 128))
+   against their plain versions, bit for bit, at 512x256, 3072x3072,
+   6144x6144 and a ragged 1000x384 (GEMV only);
+5. the int8 microbench entry point (profiling/int8_microbench.run) at
+   6144x6144, the weights rotating over a 113 MB working set: every
+   variant's device time beside its plain version's, the stream speed of
+   light and the share of it; each new kernel must have been launched there;
+6. the latency path (profiling/latency.profile_config): PreResNet-20 /
+   CIFAR-10, fp32, bf16 and int8 engines, S=6, batch 1 and 128, per-call
+   and CUDA-graph device times, both member strategies for bf16; a graph
+   replay must equal the eager forward, bf16 and int8 must stay within 0.03
+   of fp32 on a fresh ensemble (and are printed for the slice's trained
+   one), and make_latex_table must render every row;
+7. profile_prediction: Prediction in latency mode, S=2, over the 10,000
+   test images; its 11 metrics must equal a plain Prediction's on the same
+   ensemble, with one latency per batch (79).
 Then a JSON line describing each kernel, and last the JSON line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
-Exits non-zero without a CUDA device. Float32 throughout, TF32 off.
+Exits non-zero without a CUDA device. TF32 off throughout.
 """
 
 from __future__ import annotations
@@ -34,6 +52,23 @@ HYP = {"lr": 0.05, "prior_std": 1.0, "num_samples": 2, "alpha": 0.1,
 BATCH = 128
 STEPS = 3 * 391  # burn_in + num_samples epochs of ceil(50000 / 128) steps
 TIMED_LAUNCHES = 2000
+GEMV_SHAPES = ((512, 256), (3072, 3072), (6144, 6144), (1000, 384))  # the last ragged
+# kernel JSON name -> (source, TPU kernel it replaces, microbench variant)
+INT8_KERNELS = {
+    "int8_gemv_mma": ("int8_gemv.cu", "benchmarks/pallas_int8.py:53", "int8_mma"),
+    "int8_gemv_mma_row": ("int8_gemv.cu",
+                          "benchmarks/pallas_matvec_probe.py:100 (_row_kernel)",
+                          "int8_mma_row"),
+    "int8_gemv_dp4a": ("int8_gemv.cu", "benchmarks/pallas_matvec_probe2.py:89; "
+                       "benchmarks/pallas_matvec_probe.py:100 (_vpu_kernel)", "int8_dp4a"),
+    "stream_probe_g1": ("stream_probe.cu", "benchmarks/pallas_matvec_probe.py:66",
+                        "stream_g1"),
+    "stream_probe_g128": ("stream_probe.cu", "benchmarks/pallas_matvec_probe2.py:65",
+                          "stream_g128"),
+}
+MICROBENCH_D = 6144
+AMORTIZE_K = 100
+LATENCY_S = 6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -145,7 +180,7 @@ def reference_probs(module_factory, ens, x):
     return total
 
 
-def slice_phase(device) -> int:
+def slice_phase(device):
     from ursabench_tpu_torch import data, inference, models, tasks
     from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN, normalize
     from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
@@ -212,7 +247,185 @@ def slice_phase(device) -> int:
           f"3 epochs incl. the first), BMA {test.n / bma_s:.0f} img/s "
           f"({ens.num_members} members, {bma_s:.2f} s); data {data_s:.1f} s; "
           f"metrics {json.dumps(metrics)}", flush=True)
-    return launches
+    return launches, splits, ens
+
+
+def int8_kernel_phase(device) -> dict:
+    """Every GEMV variant and both stream layouts against their plain
+    versions on the card; returns the largest |kernel - plain| per kernel."""
+    from ursabench_tpu_torch.kernels.int8_gemv import (
+        VARIANTS, int8_gemv, int8_gemv_reference, int8_matvec, quantize_activation)
+    from ursabench_tpu_torch.kernels.stream_probe import (LAYOUTS, stream_probe,
+                                                          stream_probe_reference)
+    from ursabench_tpu_torch.profiling.quantize import quantize_tensor
+
+    err = {name: 0.0 for name in INT8_KERNELS}
+    cases = 0
+    for n, k in GEMV_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(n + k)
+        w = torch.randn(n, k, generator=gen, device=device) / math.sqrt(k)
+        q8, scale = quantize_tensor(w, channel_axis=0)
+        scale = scale.reshape(n)
+        x = torch.randn(k, generator=gen, device=device)
+        xq, xs = quantize_activation(x)
+        want = int8_gemv_reference(q8, scale, xq, xs)
+        # every weight and activation at +-127: the accumulator's bound
+        q_max = torch.full_like(q8, 127)
+        q_max[1::2] = -127
+        x_max = torch.full_like(xq, 127)
+        want_max = int8_gemv_reference(q_max, scale, x_max, xs)
+        for v in VARIANTS:
+            got = int8_gemv(q8, scale, xq, xs, v)
+            whole = int8_matvec(q8, scale, x, v)
+            got_max = int8_gemv(q_max, scale, x_max, xs, v)
+            torch.cuda.synchronize()
+            for a, b in ((got, want), (whole, want), (got_max, want_max)):
+                check(torch.equal(a, b), f"int8_gemv {v} != plain at {n}x{k}")
+            err[f"int8_gemv_{v}"] = max(err[f"int8_gemv_{v}"],
+                                        float((got - want).abs().max()))
+            cases += 1
+        if n % 512:
+            continue
+        qs = torch.randint(-127, 128, (n, k), generator=gen, device=device,
+                           dtype=torch.int8)
+        for tile_n in (128, 512):
+            for cols in LAYOUTS:
+                out, sums = stream_probe(qs, 3, tile_n=tile_n, out_cols=cols)
+                want_out, want_sums = stream_probe_reference(qs, 3, tile_n=tile_n,
+                                                             out_cols=cols)
+                torch.cuda.synchronize()
+                check(torch.equal(out, want_out) and torch.equal(sums, want_sums),
+                      f"stream_probe g{cols} != plain at {n}x{k} tile {tile_n}")
+                name = f"stream_probe_g{cols}"
+                err[name] = max(err[name], float((out - want_out).abs().max()))
+                cases += 1
+    print(f"int8 kernels: {cases} cases bit-equal to their plain versions at "
+          f"{', '.join(f'{n}x{k}' for n, k in GEMV_SHAPES)} "
+          f"(max abs err {max(err.values())})", flush=True)
+    return err
+
+
+def microbench_phase(device) -> dict:
+    """The int8 microbench entry point at 6144x6144; every new kernel must
+    have been launched there."""
+    from ursabench_tpu_torch.kernels.int8_gemv import int8_gemv
+    from ursabench_tpu_torch.kernels.stream_probe import stream_probe
+    from ursabench_tpu_torch.profiling import int8_microbench
+
+    for counts in (int8_gemv.launches, stream_probe.launches):
+        counts.update(dict.fromkeys(counts, 0))
+    res = int8_microbench.run(MICROBENCH_D, device)
+    launches = {**{f"int8_gemv_{k}": n for k, n in int8_gemv.launches.items()},
+                **{f"stream_probe_g{k}": n for k, n in stream_probe.launches.items()}}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the microbench")
+    for name, r in res["variants"].items():
+        check(all(math.isfinite(v) and v > 0 for k, v in r.items() if k != "bytes"),
+              f"microbench {name}: {r}")
+        extra = (f", kernel {r['kernel_ms'] * 1e3:.2f} us (hot {r['kernel_hot_ms'] * 1e3:.2f})"
+                 if "kernel_ms" in r else "")
+        print(f"  microbench {res['matrix']} {name}: {r['ms'] * 1e3:.2f} us rotating, "
+              f"hot {r['hot_ms'] * 1e3:.2f} us, dispatch {r['dispatch_ms'] * 1e3:.2f} us"
+              f"{extra}, {r.get('pct_of_sol_ms', float('nan')):.1f}% of stream SoL",
+              flush=True)
+    v = res["variants"]
+    sol = res.get("speed_of_light_int8_ms")
+    check(sol is not None, "no peak bandwidth for this card in profiling/hw.py")
+    print(f"microbench {res['matrix']} ({res['copies']} copies, "
+          f"{res['working_set_bytes'] / 1e6:.1f} MB int8): stream speed of light "
+          f"{sol * 1e3:.2f} us at 3.35 TB/s; int8_mma kernel "
+          f"{v['int8_mma']['pct_of_sol_kernel_ms']:.1f}%, int8_dp4a kernel "
+          f"{v['int8_dp4a']['pct_of_sol_kernel_ms']:.1f}%, stream_g1 "
+          f"{v['stream_g1']['pct_of_sol_ms']:.1f}%, bf16 "
+          f"{v['bf16']['pct_of_sol_ms']:.1f}% (of the bf16 SoL "
+          f"{res['speed_of_light_bf16_ms'] * 1e3:.2f} us); launches {launches}",
+          flush=True)
+    return {"launches": launches, "variants": v}
+
+
+def latency_phase(device, ens, test) -> list:
+    from ursabench_tpu_torch.data.transforms import normalize
+    from ursabench_tpu_torch.profiling.latency import (ProfileConfig, build_engine,
+                                                       profile_config, random_ensemble,
+                                                       resolve_member_strategy)
+    from ursabench_tpu_torch.profiling.tables import make_latex_table
+
+    # the precision envelope of tests/test_quantize.py:60 on a real test
+    # batch: held on a freshly initialised 2-member ensemble, whose weights do
+    # not depend on the run, and printed for the slice's trained one, whose
+    # weights do (cuDNN's backward is not deterministic)
+    x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
+    x = x.permute(0, 3, 1, 2).contiguous()
+    for label, e in (("fresh", random_ensemble("PreResNet20", 10, 2, device)),
+                     ("trained", ens)):
+        probs = {prec: build_engine(e.module, e.state, BATCH, (3, 32, 32), prec)[0](x)
+                 for prec in ("fp32", "bf16", "int8")}
+        for prec in ("bf16", "int8"):
+            diff = float((probs[prec] - probs["fp32"]).abs().max())
+            if label == "fresh":
+                check(diff < 0.03, f"{prec} engine differs from fp32 by {diff}")
+            print(f"  {prec} engine vs fp32 on the {label} ensemble: max |dp| {diff:.2e}",
+                  flush=True)
+
+    # bf16 runs both member strategies, the others the 'auto' rule's choice;
+    # the table shows the 'auto' rows
+    results, cache = [], {}
+    for prec in ("fp32", "bf16", "int8"):
+        for b in (1, 128):
+            cfg = ProfileConfig("PreResNet20", "CIFAR10", prec, LATENCY_S, b)
+            auto = resolve_member_strategy("auto", LATENCY_S, b, (3, 32, 32), prec)
+            for strategy in (("scan", "vmap") if prec == "bf16" else (auto,)):
+                r = profile_config(cfg, amortize_k=AMORTIZE_K, member_strategy=strategy,
+                                   device=device)
+                results.append((strategy == auto, r))
+                if strategy == auto:
+                    cache[cfg.key()] = r
+    for is_auto, r in results:
+        check(r["graph_max_abs_diff"] == 0.0,
+              f"graph replay != eager for {r}")
+        check(all(math.isfinite(r[k]) and r[k] > 0 for k in
+                  ("latency_mean_s", "amortized_latency_s")), f"latency {r}")
+        print(f"  latency {r['precision']} S={r['ensemble_size']} bs{r['batch_size']} "
+              f"{r['amortized_member_strategy']}{' (auto)' if is_auto else ''}: "
+              f"per call {r['latency_mean_s'] * 1e3:.3f} ms, device "
+              f"{r['amortized_latency_s'] * 1e3:.4f} ms, "
+              f"{r.get('mfu_pct_of_bf16_peak')}% of bf16 peak, "
+              f"{r.get('hbm_bytes_accessed')} B counted", flush=True)
+    table = make_latex_table(cache)
+    rows = [line for line in table.splitlines() if line.startswith("PreResNet20")]
+    check(len(rows) == 2 and all("--" not in row for row in rows),
+          f"latency table rows: {rows}")
+    print(f"latency: {len(results)} engine configurations, graph replay equal to "
+          f"eager in all, table of {len(rows)} rows x 3 precisions", flush=True)
+    return results
+
+
+def prediction_phase(device, splits) -> dict:
+    from ursabench_tpu_torch import tasks
+    from ursabench_tpu_torch.profiling.latency import (ProfileConfig, profile_prediction,
+                                                       random_ensemble)
+
+    cfg = ProfileConfig("PreResNet20", "CIFAR10", "fp32", 2, BATCH)
+    res = profile_prediction(cfg, splits, 10, device=device)
+    want_batches = -(-splits["test"].n // BATCH)
+    check(res["num_batches"] == want_batches == 79,
+          f"{res['num_batches']} latencies, expected {want_batches}")
+    plain = tasks.Prediction({"in_distribution_test": splits["test"]}, 10)
+    plain.update_statistics(random_ensemble(cfg.model, 10, cfg.ensemble_size, device),
+                            output_performance=False)
+    want = plain.get_performance_metrics()
+    got = res["metrics"]
+    check(list(got) == list(want), f"metric names {list(got)}")
+    for k, v in want.items():
+        # the tolerances of tests/test_tasks.py:68-97
+        tol = 0.05 if k.endswith(("auroc", "aucpr")) else 1e-5
+        both_nan = math.isnan(v) and math.isnan(got[k])
+        check(both_nan or abs(v - got[k]) < tol, f"{k}: latency mode {got[k]} vs {v}")
+    print(f"profile_prediction S=2 over {splits['test'].n} images: {res['num_batches']} "
+          f"batches, {res['latency_mean_s'] * 1e3:.3f} +- {res['latency_std_s'] * 1e3:.3f} "
+          f"ms per batch after burn-in; metrics equal to the plain Prediction's",
+          flush=True)
+    return res
 
 
 def main() -> int:
@@ -227,25 +440,49 @@ def main() -> int:
     print(card, flush=True)
 
     from ursabench_tpu_torch import models
-    from ursabench_tpu_torch.kernels.sghmc import load_library
+    from ursabench_tpu_torch.kernels import build, int8_gemv, sghmc, stream_probe
 
-    lib = load_library()
+    t0 = time.perf_counter()
+    sources = [sghmc.SOURCE, int8_gemv.SOURCE, stream_probe.SOURCE]
+    seconds = build.build(sources)
+    for module in (sghmc, int8_gemv, stream_probe):
+        module.load_library()
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
-          f"K1 built in {lib.build_seconds:.2f} s ({lib.path.name}), TF32 off",
-          flush=True)
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, nvcc "
+          + ", ".join(f"{s.name} {t:.2f} s" for s, t in seconds.items())
+          + f" (in parallel), TF32 off; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
 
     n_slice = sum(p.numel() for p in models.get_model("PreResNet20").build(10).parameters())
-    kernel = kernel_phase(device, n_slice)
-    launches = slice_phase(device)
+    kernel = phase("K1", kernel_phase, device, n_slice)
+    launches, splits, ens = phase("slice", slice_phase, device)
+    int8_err = phase("int8 kernels", int8_kernel_phase, device)
+    bench = phase("microbench", microbench_phase, device)
+    phase("latency", latency_phase, device, ens, splits["test"])
+    phase("profile_prediction", prediction_phase, device, splits)
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "sghmc_update", "route": "cuda",
         "source": "ursabench_tpu_torch/csrc/sghmc_update.cu",
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
         "launches": launches, "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
-    }]}), flush=True)
+    }]
+    v = bench["variants"]
+    for name, (source, replaces, variant) in INT8_KERNELS.items():
+        # the GEMVs' time is the kernel's alone, without quantizing x
+        ms = v[variant].get("kernel_ms", v[variant]["ms"])
+        plain_ms = v["int8_plain" if name.startswith("int8") else "stream_plain"]["ms"]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"ursabench_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": bench["launches"][name],
+                        "max_abs_err": int8_err[name], "ms": ms, "plain_ms": plain_ms})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

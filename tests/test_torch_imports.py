@@ -2,9 +2,12 @@
 the machine with the GPU has no JAX."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "ursabench_tpu_torch"
@@ -47,3 +50,33 @@ def test_no_jax_or_reference_package_imports_in_port_sources():
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "flax", "optax", "ursabench_tpu"}, path
+
+
+_RUN_BLOCKED = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+target = sys.argv[1]
+sys.argv = sys.argv[1:]
+if target.endswith(".py"):
+    runpy.run_path(target, run_name="__main__")
+else:
+    runpy.run_module(target, run_name="__main__", alter_sys=True)
+"""
+
+
+@pytest.mark.parametrize("target", [
+    "ursabench_tpu_torch.profiling.latency",
+    "ursabench_tpu_torch.profiling.int8_microbench",
+    "chip_smoke.py",
+])
+def test_gpu_entry_points_refuse_without_a_gpu(target):
+    """The measurement entry points import no JAX, and without a CUDA device
+    they exit non-zero and print no result: no CPU run stands in for the
+    card."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", _RUN_BLOCKED, target], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode != 0
+    assert "CUDA" in out.stdout + out.stderr or "cuda" in out.stdout + out.stderr
+    assert '"ok": true' not in out.stdout and '"kernels"' not in out.stdout

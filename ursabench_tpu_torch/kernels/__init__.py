@@ -1,5 +1,5 @@
 """Hand-written GPU kernels, each beside its plain PyTorch version."""
 
-from . import sghmc
+from . import int8_gemv, sghmc, stream_probe
 
-__all__ = ["sghmc"]
+__all__ = ["int8_gemv", "sghmc", "stream_probe"]

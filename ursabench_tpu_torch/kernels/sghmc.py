@@ -5,73 +5,33 @@ Replaces the TPU kernel ``benchmarks/pallas_sgmcmc.py::sghmc_update_flat``.
 anything else; ``sghmc_update_flat_reference`` is the plain PyTorch version
 of the same step, with the normals passed in.
 
-The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``ursabench_tpu_torch/_build/`` under a name that carries the source's
-hash, and bound with ``ctypes``. Nothing is built or loaded at import.
+The library is built and loaded by ``kernels/build.py`` at first use.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "sghmc_update.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from .build import BUILD_DIR, CSRC, NVCC_FLAGS, Library, load
 
-
-@dataclass(frozen=True)
-class Library:
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float  # 0.0 when an earlier build was reused
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = Path(home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
+SOURCE = CSRC / "sghmc_update.cu"
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCE", "load_library",
+           "sghmc_update_flat", "sghmc_update_flat_reference"]
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> Library:
     """Build (if needed) and load the kernel library. Raises on failure."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    path = BUILD_DIR / f"libsghmc_update-{digest}.so"
-    seconds = 0.0
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
-    fn = lib.sghmc_update_f32
+    library = load(SOURCE)
+    fn = library.lib.sghmc_update_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return Library(lib, path, seconds)
+    return library
 
 
 def _check(p, v, g, scalars):

@@ -6,16 +6,24 @@ AUROC/AUCPR) with central smoothing where the reference applies it: the
 accumulated probabilities are not smoothed, the entropy input and the
 nll / misclassification inputs are. Metrics are computed in float32 on
 the host, as the JAX package computes them.
+
+``latency_mode=True`` takes the batches one by one, in order, the last one
+short, and records each batch's wall time in ``latencies``: the ensemble's
+forward plus the device->host copy of its logits (the batch is normalized
+before the clock starts). It is the API that trtprof's run_prediction.py
+expects of the task.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from ..inference.ensemble import Ensemble
 from ..ops import metrics as M
-from ..util import central_smoothing
+from ..util import central_smoothing, predictive_entropy, softmax_probs
 from .base import _Task, accumulate_split
 
 __all__ = ["Prediction"]
@@ -29,7 +37,8 @@ class Prediction(_Task):
         "misclass_confidence_auroc", "misclass_confidence_aucpr",
     ]
 
-    def __init__(self, dataloader, num_classes, device=None, metric_list="ALL"):
+    def __init__(self, dataloader, num_classes, device=None, metric_list="ALL",
+                 latency_mode=False):
         super().__init__(dataloader, num_classes, device)
         self.split = dataloader["in_distribution_test"]
         self.num_classes = num_classes
@@ -41,6 +50,8 @@ class Prediction(_Task):
         if unknown:
             raise ValueError(f"unsupported metrics {unknown}")
         self.targets = np.asarray(self.split.labels)
+        self.latency_mode = latency_mode
+        self.latencies: list = []
         self.reset()
 
     def reset(self):
@@ -50,11 +61,31 @@ class Prediction(_Task):
 
     def update_statistics(self, models: Ensemble, output_performance=True, smoothing=True):
         self.num_samples_collected += models.num_members
-        probs, ent = accumulate_split(models, self.split, smooth_probs=False)
+        if self.latency_mode:
+            probs, ent = self._accumulate_timed(models)
+        else:
+            probs, ent = accumulate_split(models, self.split, smooth_probs=False)
         self.ensemble_proba += probs
         self.expected_data_uncertainty += ent
         if output_performance:
             return self.get_performance_metrics(output_performance, smoothing)
+
+    @torch.no_grad()
+    def _accumulate_timed(self, models: Ensemble):
+        probs_chunks, ent_chunks = [], []
+        for x, _ in self.split.batches(models.device):
+            x = x.permute(0, 3, 1, 2).contiguous()
+            if x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            t0 = time.perf_counter()
+            logits = models.logits_all(x)
+            logits.cpu()  # the timed device->host copy; the logits stay on the device
+            self.latencies.append(time.perf_counter() - t0)
+            p = softmax_probs(logits.to(torch.float32))
+            probs_chunks.append(torch.sum(p, dim=0).cpu().numpy())
+            ent_chunks.append(torch.sum(predictive_entropy(central_smoothing(p)),
+                                        dim=0).cpu().numpy())
+        return np.concatenate(probs_chunks), np.concatenate(ent_chunks)
 
     def get_performance_metrics(self, output_performance=False, smoothing=True):
         f32 = torch.float32
