@@ -30,7 +30,26 @@ Phases, each ending with its seconds:
    one), and make_latex_table must render every row;
 7. profile_prediction: Prediction in latency mode, S=2, over the 10,000
    test images; its 11 metrics must equal a plain Prediction's on the same
-   ensemble, with one latency per batch (79).
+   ensemble, with one latency per batch (79);
+8. the 1x1-conv kernels K3a/K3b (csrc/conv1x1.cu) against their plain
+   versions at every 1x1 conv shape of ResNet-50 at 224x224 and batch 128
+   (the stride-2 ones on the top-left tap), which includes the probe's
+   (401408, 256) @ (256, 64), and at a ragged M of 1000: each element
+   within one bf16 ulp of the plain result plus 1e-3 of its largest
+   magnitude; K3b twice, bit-equal;
+9. the conv1x1 probe entry point (profiling/conv1x1_probe.run): its gates,
+   then K3a, K3b, their plain versions and cuBLAS at the probe's shape;
+   both kernels must have been launched there;
+10. the ImageNet slice (profiling/imagenet_train.run): TVResNet-50 in bf16
+   at 224x224 / 1000 classes, batch 128, SGHMC over 2,048 images (a warm-up
+   epoch, 3 timed epochs, 2 sampling epochs: K1 once per step), finite
+   losses, the BMA pass over 512 test images equal to plain per-member
+   modules within 1e-2; then K3a and K3b on the model's own layer1[1].conv1
+   (input (128, 256, 56, 56)) against cuDNN's forward and autograd's weight
+   gradient of that conv, within 2 bf16 ulps plus 1e-3 of the largest
+   magnitude.
+The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
+32, in the three precisions under both member strategies.
 Then a JSON line describing each kernel, and last the JSON line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
 Exits non-zero without a CUDA device. TF32 off throughout.
@@ -40,7 +59,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -69,6 +87,22 @@ INT8_KERNELS = {
 MICROBENCH_D = 6144
 AMORTIZE_K = 100
 LATENCY_S = 6
+TV_AMORTIZE_K = 20  # TVResNet-50 forwards take milliseconds: fewer replays
+TV_LATENCY = (2, (1, 32))  # S, batch sizes: benchmarks/rn50_latency.py:45-51
+TV_FLAT = 25557032  # TVResNet-50's parameters: K1's flat size in the ImageNet slice
+# every 1x1 conv of torchvision's ResNet-50 at 224^2 (benchmarks/
+# rn50_conv_lowering_probe.py:45-62): name, input side, C_in, C_out, stride
+RN50_1X1 = (
+    ("l1_1x1_in", 56, 64, 64, 1), ("l1_1x1_out", 56, 64, 256, 1),
+    ("l1_down", 56, 64, 256, 1), ("l1_1x1_in256", 56, 256, 64, 1),
+    ("l2_1x1_in", 56, 256, 128, 1), ("l2_down_s2", 56, 256, 512, 2),
+    ("l2_1x1_in512", 28, 512, 128, 1), ("l2_1x1_out", 28, 128, 512, 1),
+    ("l3_1x1_in", 28, 512, 256, 1), ("l3_down_s2", 28, 512, 1024, 2),
+    ("l3_1x1_in1024", 14, 1024, 256, 1), ("l3_1x1_out", 14, 256, 1024, 1),
+    ("l4_1x1_in", 14, 1024, 512, 1), ("l4_down_s2", 14, 1024, 2048, 2),
+    ("l4_1x1_in2048", 7, 2048, 512, 1), ("l4_1x1_out", 7, 512, 2048, 1),
+)
+RAGGED_M = 1000
 
 
 def check(cond: bool, msg: str) -> None:
@@ -77,33 +111,30 @@ def check(cond: bool, msg: str) -> None:
         sys.exit(1)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |t| (8 significant bits), in float32."""
+    a = t.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def time_ms(fn, launches: int) -> float:
-    """Mean device time of ``fn`` over ``launches`` back-to-back calls,
-    from CUDA events, after a warm-up."""
-    for _ in range(20):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(launches):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / launches
+def bf16_close(got: torch.Tensor, want: torch.Tensor, ulps: int) -> float:
+    """Checks |got - want| <= ulps * ulp(want) + 1e-3 * max|want| elementwise
+    (float32 sums in another order, then one rounding to bf16); returns the
+    largest |got - want|."""
+    err = (got.float() - want.float()).abs()
+    bound = ulps * bf16_ulp(want) + 1e-3 * float(want.float().abs().max())
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    check(bool((err <= bound).all()),
+          f"bf16 results differ by up to {float((err / bound).max()):.3g} x the bound")
+    return float(err.max())
 
 
 def kernel_phase(device, n_slice: int) -> dict:
     from ursabench_tpu_torch.kernels.sghmc import (sghmc_update_flat,
                                                    sghmc_update_flat_reference)
     from ursabench_tpu_torch.ops.sgmcmc import sghmc_scalars
+    from ursabench_tpu_torch.profiling.hw import event_ms
 
     gen = torch.Generator(device=device).manual_seed(0)
     max_err = 0.0
@@ -111,7 +142,7 @@ def kernel_phase(device, n_slice: int) -> dict:
     # noise off: the kernel rounds like the plain version (the _rn
     # intrinsics are never contracted into FMAs); the tolerance leaves room
     # for contraction all the same
-    for n in (1000, 8193, n_slice):
+    for n in (1000, 8193, n_slice, TV_FLAT):
         p, v, g = (torch.randn(n, generator=gen, device=device) for _ in range(3))
         for first in (False, True):
             for m in (0.9, 0.0):
@@ -157,9 +188,9 @@ def kernel_phase(device, n_slice: int) -> dict:
     p, v, g = (torch.randn(n_slice, generator=gen, device=device) for _ in range(3))
     s = sghmc_scalars(lr=0.05, momentum=0.9, wd_over_n=1.0 / 50000, n_train=50000.0,
                       noise_on=1.0, is_first_step=False, device=device)
-    ms = time_ms(lambda: sghmc_update_flat(p, v, g, s, seed=1), TIMED_LAUNCHES)
-    plain_ms = time_ms(lambda: sghmc_update_flat_reference(
-        p, v, g, s, torch.randn(n_slice, device=device)), TIMED_LAUNCHES)
+    ms = event_ms(lambda: sghmc_update_flat(p, v, g, s, seed=1), TIMED_LAUNCHES, 20)
+    plain_ms = event_ms(lambda: sghmc_update_flat_reference(
+        p, v, g, s, torch.randn(n_slice, device=device)), TIMED_LAUNCHES, 20)
     print(f"kernel K1 sghmc_update: {cases} noise-off cases equal to the plain "
           f"version (max abs err {max_err:.3g}); noise std/expected "
           f"{std / expected:.4f}, KS {ks:.4f}; n={n_slice}: {ms * 1e3:.2f} us "
@@ -380,6 +411,23 @@ def latency_phase(device, ens, test) -> list:
                 results.append((strategy == auto, r))
                 if strategy == auto:
                     cache[cfg.key()] = r
+    # TVResNet-50 / ImageNet (224^2, 1000 classes): every configuration under
+    # both member strategies, the measurement behind the 'auto' rule there
+    s, batches = TV_LATENCY
+    for prec in ("fp32", "bf16", "int8"):
+        for b in batches:
+            cfg = ProfileConfig("TVResNet50", "ImageNet", prec, s, b)
+            auto = resolve_member_strategy("auto", s, b, (3, 224, 224), prec)
+            by = {}
+            for strategy in ("scan", "vmap"):
+                r = profile_config(cfg, amortize_k=TV_AMORTIZE_K, member_strategy=strategy,
+                                   device=device)
+                results.append((strategy == auto, r))
+                by[strategy] = r["amortized_latency_s"]
+                if strategy == auto:
+                    cache[cfg.key()] = r
+            print(f"  TVResNet50 {prec} S={s} bs{b}: device scan {by['scan'] * 1e3:.4f} ms, "
+                  f"vmap {by['vmap'] * 1e3:.4f} ms, auto {auto}", flush=True)
     for is_auto, r in results:
         check(r["graph_max_abs_diff"] == 0.0,
               f"graph replay != eager for {r}")
@@ -392,8 +440,9 @@ def latency_phase(device, ens, test) -> list:
               f"{r.get('mfu_pct_of_bf16_peak')}% of bf16 peak, "
               f"{r.get('hbm_bytes_accessed')} B counted", flush=True)
     table = make_latex_table(cache)
-    rows = [line for line in table.splitlines() if line.startswith("PreResNet20")]
-    check(len(rows) == 2 and all("--" not in row for row in rows),
+    rows = [line for line in table.splitlines()
+            if line.startswith(("PreResNet20", "TVResNet50"))]
+    check(len(rows) == 4 and all("--" not in row for row in rows),
           f"latency table rows: {rows}")
     print(f"latency: {len(results)} engine configurations, graph replay equal to "
           f"eager in all, table of {len(rows)} rows x 3 precisions", flush=True)
@@ -428,6 +477,145 @@ def prediction_phase(device, splits) -> dict:
     return res
 
 
+def k3_kernel_phase(device) -> dict:
+    """K3a and K3b against their plain versions at every 1x1 conv shape of
+    ResNet-50 at batch 128 and at a ragged M; K3b twice, bit-equal."""
+    from ursabench_tpu_torch.kernels.conv1x1 import (conv1x1_mm, conv1x1_mm_reference,
+                                                     conv1x1_wgrad,
+                                                     conv1x1_wgrad_reference)
+
+    err = {"conv1x1_mm": 0.0, "conv1x1_wgrad": 0.0}
+    bf16 = torch.bfloat16
+    cases = RN50_1X1 + (("ragged_m", None, 256, 64, 1),)
+    for i, (name, side, cin, cout, stride) in enumerate(cases):
+        gen = torch.Generator(device=device).manual_seed(i)
+        if side is None:
+            x = torch.randn(RAGGED_M, cin, generator=gen, device=device, dtype=bf16)
+        else:
+            x = torch.randn(BATCH, side, side, cin, generator=gen, device=device, dtype=bf16)
+            x = x[:, ::stride, ::stride, :].reshape(-1, cin).contiguous()
+        w = torch.randn(cin, cout, generator=gen, device=device, dtype=bf16)
+        g = torch.randn(x.shape[0], cout, generator=gen, device=device, dtype=bf16)
+        y, dw, dw2 = conv1x1_mm(x, w), conv1x1_wgrad(x, g), conv1x1_wgrad(x, g)
+        torch.cuda.synchronize()
+        err["conv1x1_mm"] = max(err["conv1x1_mm"],
+                                bf16_close(y, conv1x1_mm_reference(x, w), 1))
+        err["conv1x1_wgrad"] = max(err["conv1x1_wgrad"],
+                                   bf16_close(dw, conv1x1_wgrad_reference(x, g), 1))
+        check(torch.equal(dw, dw2), f"K3b gave two results at {name}")
+    print(f"K3 kernels: conv1x1_mm and conv1x1_wgrad within 1 bf16 ulp + 1e-3 max of "
+          f"their plain versions at {len(cases)} shapes (the {len(RN50_1X1)} rn50 1x1 "
+          f"convs at batch 128, M={RAGGED_M}); K3b bit-equal across two runs; max abs "
+          f"err {err}", flush=True)
+    return err
+
+
+def probe_phase(device) -> dict:
+    """The conv1x1 probe entry point; both K3 kernels must launch there."""
+    from ursabench_tpu_torch.kernels.conv1x1 import conv1x1_mm, conv1x1_wgrad
+    from ursabench_tpu_torch.profiling import conv1x1_probe
+
+    conv1x1_mm.launches = conv1x1_wgrad.launches = 0
+    res = conv1x1_probe.run(device)
+    launches = {"conv1x1_mm": conv1x1_mm.launches, "conv1x1_wgrad": conv1x1_wgrad.launches}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the conv1x1 probe")
+    rows = {r["variant"]: r for r in res["rows"]}
+    for name, r in rows.items():
+        check(math.isfinite(r["us"]) and r["us"] > 0, f"probe row {r}")
+        print(f"  probe {name}: {r['us']:.2f} us, {r['gb_per_sec']:.1f} GB/s, "
+              f"{r.get('pct_of_hbm_peak', float('nan')):.1f}% of HBM peak, "
+              f"{r.get('pct_of_bf16_peak', float('nan')):.2f}% of bf16 peak", flush=True)
+    sol = res.get("speed_of_light_us")
+    check(sol is not None, "no peak bandwidth for this card in profiling/hw.py")
+    print(f"conv1x1 probe {res['shape']}: gates passed; speed of light {sol:.1f} us; "
+          f"K3a {rows['conv1x1_mm']['us']:.2f} us ({sol / rows['conv1x1_mm']['us'] * 100:.1f}%"
+          f" of SoL) vs cuBLAS {rows['matmul']['us']:.2f} us; K3b "
+          f"{rows['conv1x1_wgrad']['us']:.2f} us ({sol / rows['conv1x1_wgrad']['us'] * 100:.1f}%)"
+          f" vs cuBLAS {rows['wgrad_matmul']['us']:.2f} us; launches {launches}", flush=True)
+    return {"launches": launches, "rows": rows}
+
+
+def model_check(device, test) -> None:
+    """K3a and K3b on TVResNet-50's own layer1[1].conv1 (bf16, a real batch
+    of 128 at 224^2) against cuDNN's forward of that conv and autograd's
+    weight gradient of it."""
+    import torch.nn.functional as F
+
+    from ursabench_tpu_torch import models
+    from ursabench_tpu_torch.data.transforms import normalize
+    from ursabench_tpu_torch.kernels.conv1x1 import conv1x1_mm, conv1x1_wgrad
+
+    bf16 = torch.bfloat16
+    m = models.get_model("TVResNet50").build(1000, dtype=bf16).to(device)
+    m.init_parameters(torch.Generator().manual_seed(0))
+    conv = m.layer1[1].conv1
+    seen = {}
+    hook = conv.register_forward_hook(
+        lambda mod, inp, out: seen.update(x=inp[0].detach(), y=out.detach()))
+    x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
+    with torch.no_grad():
+        m.train()(x.permute(0, 3, 1, 2).contiguous())
+    hook.remove()
+    inp, out = seen["x"], seen["y"]
+    check(tuple(inp.shape) == (BATCH, 256, 56, 56) and inp.dtype == bf16,
+          f"layer1[1].conv1 input {tuple(inp.shape)} {inp.dtype}")
+    rows = inp.permute(0, 2, 3, 1).reshape(-1, 256).contiguous()  # (401408, 256)
+    w = conv.weight.detach().to(bf16)  # (64, 256, 1, 1)
+    y = conv1x1_mm(rows, w.reshape(64, 256).T.contiguous())
+    g = torch.randn(out.shape, generator=torch.Generator(device=device).manual_seed(1),
+                    device=device, dtype=bf16)
+    wb = w.clone().requires_grad_(True)
+    F.conv2d(inp, wb).backward(g)
+    dw = conv1x1_wgrad(rows, g.permute(0, 2, 3, 1).reshape(-1, 64).contiguous())
+    torch.cuda.synchronize()
+    e_mm = bf16_close(y, out.permute(0, 2, 3, 1).reshape(-1, 64), 2)
+    e_wg = bf16_close(dw, wb.grad.reshape(64, 256).T, 2)
+    print(f"  model check, TVResNet-50 layer1[1].conv1 on rows {tuple(rows.shape)}: K3a vs "
+          f"cuDNN max abs err {e_mm:.3g}, K3b vs autograd {e_wg:.3g} (within 2 bf16 ulps "
+          f"+ 1e-3 max)", flush=True)
+
+
+def imagenet_phase(device) -> dict:
+    """TVResNet-50 bf16 SGHMC + BMA at 224^2 (profiling/imagenet_train.run),
+    then the K3 check on the model's own layer."""
+    from ursabench_tpu_torch import models
+    from ursabench_tpu_torch.data.transforms import normalize
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+    from ursabench_tpu_torch.profiling import imagenet_train as IT
+
+    sghmc_update_flat.launches = 0
+    res, ens, task, test = IT.run(device)
+    launches = sghmc_update_flat.launches
+    steps = (1 + IT.EPOCHS + 2) * (IT.N_TRAIN // IT.BATCH)
+    check(launches == steps, f"K1 launched {launches} times, expected {steps}")
+    losses = res["epoch_losses"]
+    check(len(losses) == 1 + IT.EPOCHS + 2 and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    metrics = res["metrics"]
+    err = metrics["error_rate"]
+    for k, val in metrics.items():
+        nan_by_design = k.startswith("misclass") and err in (0.0, 1.0)
+        check(math.isfinite(val) or nan_by_design, f"metric {k} = {val}")
+    x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
+    want = reference_probs(
+        lambda: models.get_model("TVResNet50").build(IT.CLASSES, dtype=torch.bfloat16).to(device),
+        ens, x.permute(0, 3, 1, 2).contiguous()).cpu().numpy()
+    diff = float(np.abs(task.ensemble_proba[:BATCH] - want).max())
+    check(diff < 1e-2, f"BMA probabilities differ from plain modules by {diff}")
+    t, b = res["train"], res["bma_eval"]
+    print(f"imagenet slice {res['model']}: {launches} K1 launches, epoch losses "
+          f"{[round(v, 4) for v in losses]}; {t['steps_per_sec']:.2f} steps/s, "
+          f"{t['images_per_sec']:.0f} img/s, {t['achieved_tflops']:.1f} TFLOP/s "
+          f"({res['flops_per_step'] / 1e12:.3f} TFLOP a step), "
+          f"{t.get('mfu_pct_of_bf16_peak', float('nan')):.1f}% of bf16 peak; BMA "
+          f"{b['images_per_sec']:.0f} img/s ({b['members']} members, "
+          f"{b.get('mfu_pct_of_bf16_peak', float('nan')):.1f}% of bf16 peak), equal to plain "
+          f"modules within {diff:.2g}; data {res['data_seconds']:.1f} s", flush=True)
+    model_check(device, test)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", flush=True)
@@ -436,16 +624,18 @@ def main() -> int:
     # float32 is the protocol dtype: no TF32 in convolutions or matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from ursabench_tpu_torch.profiling.hw import card_line
+
     card = card_line()
     print(card, flush=True)
 
     from ursabench_tpu_torch import models
-    from ursabench_tpu_torch.kernels import build, int8_gemv, sghmc, stream_probe
+    from ursabench_tpu_torch.kernels import build, conv1x1, int8_gemv, sghmc, stream_probe
 
     t0 = time.perf_counter()
-    sources = [sghmc.SOURCE, int8_gemv.SOURCE, stream_probe.SOURCE]
-    seconds = build.build(sources)
-    for module in (sghmc, int8_gemv, stream_probe):
+    kernel_modules = (sghmc, int8_gemv, stream_probe, conv1x1)
+    seconds = build.build([module.SOURCE for module in kernel_modules])
+    for module in kernel_modules:
         module.load_library()
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, nvcc "
@@ -465,6 +655,9 @@ def main() -> int:
     bench = phase("microbench", microbench_phase, device)
     phase("latency", latency_phase, device, ens, splits["test"])
     phase("profile_prediction", prediction_phase, device, splits)
+    k3_err = phase("K3 kernels", k3_kernel_phase, device)
+    probe = phase("conv1x1 probe", probe_phase, device)
+    phase("imagenet slice", imagenet_phase, device)
 
     kernels = [{
         "name": "sghmc_update", "route": "cuda",
@@ -482,6 +675,16 @@ def main() -> int:
                         "source": f"ursabench_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": bench["launches"][name],
                         "max_abs_err": int8_err[name], "ms": ms, "plain_ms": plain_ms})
+    rows = probe["rows"]
+    for name in ("conv1x1_mm", "conv1x1_wgrad"):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "ursabench_tpu_torch/csrc/conv1x1.cu",
+                        "replaces": ("benchmarks/rn50_conv1x1_pallas_probe.py:39"
+                                     if name == "conv1x1_mm" else
+                                     "benchmarks/rn50_conv1x1_pallas_probe.py:66"),
+                        "launches": probe["launches"][name], "max_abs_err": k3_err[name],
+                        "ms": rows[name]["us"] / 1e3,
+                        "plain_ms": rows[f"{name}_plain"]["us"] / 1e3})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

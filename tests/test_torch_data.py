@@ -144,3 +144,19 @@ def test_draw_augment_ranges():
         assert o.shape == (50, 8) and int(o.min()) == 0 and int(o.max()) == 8
     assert flip.dtype == torch.bool and 0.3 < flip.float().mean() < 0.7
     assert ttransforms.draw_augment(gen, (4,), ttransforms.CIFAR_TEST) == (None, None, None)
+
+
+def test_synth_imagenet_bytes_identical(tmp_path, monkeypatch):
+    """``profiling.imagenet_train.synth_imagenet`` draws the same images and
+    labels as the JAX ImageNet bench's generator, across a 128-image chunk
+    boundary, without its file cache."""
+    from benchmarks.imagenet_train_bench import _synth_imagenet
+    from ursabench_tpu_torch.profiling.imagenet_train import synth_imagenet
+
+    monkeypatch.setenv("URSA_SYNTH_CACHE", str(tmp_path))
+    xj, yj = _synth_imagenet(130, seed=3)
+    xt, yt = synth_imagenet(130, seed=3)
+    assert xt.shape == (130, 224, 224, 3) and xt.dtype == np.uint8 and yt.dtype == np.int64
+    np.testing.assert_array_equal(np.asarray(xj), xt)
+    np.testing.assert_array_equal(yj, yt)
+    assert yt.min() >= 0 and yt.max() < 1000

@@ -68,6 +68,8 @@ else:
 @pytest.mark.parametrize("target", [
     "ursabench_tpu_torch.profiling.latency",
     "ursabench_tpu_torch.profiling.int8_microbench",
+    "ursabench_tpu_torch.profiling.conv1x1_probe",
+    "ursabench_tpu_torch.profiling.imagenet_train",
     "chip_smoke.py",
 ])
 def test_gpu_entry_points_refuse_without_a_gpu(target):

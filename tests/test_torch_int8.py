@@ -15,6 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 from benchmarks import pallas_matvec_probe as probe1
 from benchmarks import pallas_matvec_probe2 as probe2
 from benchmarks.pallas_int8 import int8_matvec as j_int8_matvec
+from ursabench_tpu_torch.kernels import conv1x1 as C1
 from ursabench_tpu_torch.kernels import int8_gemv as G
 from ursabench_tpu_torch.kernels import stream_probe as SP
 
@@ -214,6 +215,8 @@ def test_ragged_rows_are_accepted():
          "benchmarks/pallas_matvec_probe2.py::vpu_matvec"]),
     (SP, ["benchmarks/pallas_matvec_probe.py::dma_only",
           "benchmarks/pallas_matvec_probe2.py::dma_only"]),
+    (C1, ["benchmarks/rn50_conv1x1_pallas_probe.py",
+          "pallas_mm", "pallas_wgrad"]),
 ])
 def test_kernel_sources_name_what_they_replace(module, tpu):
     from ursabench_tpu_torch.kernels import build

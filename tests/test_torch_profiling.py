@@ -251,10 +251,10 @@ def test_time_engine_protocol(monkeypatch):
 
 
 def test_member_strategy_auto_rule():
-    """The faster strategy as measured on an H100: at S > 1, vmap for bf16
-    and int8, and for fp32 at batch 1; scan for fp32 from batch 8, for one
-    member, and for inputs of 64 pixels or more (the JAX rule, not measured
-    on the H100 yet)."""
+    """The faster strategy as measured on an H100: at S > 1 and 32x32, vmap
+    for bf16 and int8, and for fp32 at batch 1; scan for fp32 from batch 8.
+    At 224x224 (S=2), vmap at batch 1 and for int8 up to batch 4, scan
+    above. Scan for one member."""
     r = L.resolve_member_strategy
     cifar = (3, 32, 32)
     for prec in ("bf16", "int8"):
@@ -263,7 +263,15 @@ def test_member_strategy_auto_rule():
     assert r("auto", 6, 1, cifar, "fp32") == "vmap"
     assert r("auto", 6, 8, cifar, "fp32") == "scan"
     assert r("auto", 6, 128, cifar, "fp32") == "scan"
-    assert r("auto", 2, 32, (3, 224, 224), "bf16") == "scan"
+    imagenet = (3, 224, 224)
+    for prec in L.PRECISIONS:
+        assert r("auto", 2, 1, imagenet, prec) == "vmap"
+        assert r("auto", 2, 8, imagenet, prec) == "scan"
+    assert r("auto", 2, 32, imagenet, "bf16") == "scan"
+    assert r("auto", 2, 2, imagenet, "fp32") == "scan"
+    assert r("auto", 2, 2, imagenet, "bf16") == "scan"
+    assert r("auto", 2, 4, imagenet, "int8") == "vmap"
+    assert r("auto", 1, 1, imagenet, "int8") == "scan"
     assert r("auto", 1, 1, cifar, "bf16") == "scan"
     assert r("scan", 6, 1, cifar, "bf16") == "scan"
 
@@ -384,3 +392,21 @@ def test_profile_config_and_profile_prediction_on_cpu():
     for k, v in plain.get_performance_metrics().items():
         tol = 0.05 if k.endswith(("auroc", "aucpr")) else 1e-5
         assert abs(v - out["metrics"][k]) < tol or (np.isnan(v) and np.isnan(out["metrics"][k]))
+
+
+def test_train_step_flops_on_the_meta_device_match_a_real_step():
+    """The count taken from shapes alone (the meta device) equals the count
+    of a real training step on the CPU, and leaves the module untouched."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    m = tmodels.get_model(NAME).build(10)
+    before = {k: v.clone() for k, v in m.state_dict().items()}
+    got = hw.train_step_flops(m, 4, (3, 32, 32))
+    x = torch.randn(4, 3, 32, 32, generator=torch.Generator().manual_seed(0))
+    with FlopCounterMode(display=False) as counter:
+        torch.nn.functional.cross_entropy(m.train()(x), torch.zeros(4, dtype=torch.long)
+                                          ).backward()
+    assert got == counter.get_total_flops() > 3 * hw.forward_flops(m, x) * 0.9
+    for k, v in before.items():
+        if "running" not in k:  # the real step above moved the running stats
+            assert torch.equal(v, m.state_dict()[k])

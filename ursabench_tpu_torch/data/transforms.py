@@ -43,6 +43,12 @@ CIFAR_STD = (0.2023, 0.1994, 0.2010)
 CIFAR_TRAIN = ImageSpec(32, 3, CIFAR_MEAN, CIFAR_STD, random_crop_pad=4, random_flip=True)
 CIFAR_TEST = ImageSpec(32, 3, CIFAR_MEAN, CIFAR_STD)
 
+# ImageNet 224^2 normalization, the reference's trtprof input pipeline
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+IMAGENET_TRAIN = ImageSpec(224, 3, IMAGENET_MEAN, IMAGENET_STD, random_flip=True)
+IMAGENET_TEST = ImageSpec(224, 3, IMAGENET_MEAN, IMAGENET_STD)
+
 
 @functools.lru_cache(maxsize=64)
 def _channel_consts(spec: ImageSpec, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:

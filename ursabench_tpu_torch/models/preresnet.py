@@ -3,7 +3,9 @@
 Counterpart of ``ursabench_tpu/models/preresnet.py``: basic blocks for
 depth < 44 ((d-2) % 6 == 0), bottlenecks (x4 expansion) for depth >= 44
 ((d-2) % 9 == 0); fan-out normal convs without bias; a 1x1 conv without BN
-as the downsample; float32 global average pooling.
+as the downsample; float32 global average pooling. ``dtype`` is flax's
+compute dtype (``models/common.py``): convs and BatchNorm run in it, the
+pooling and the head in float32.
 
 Each module registers its children in the order the flax module creates
 them (per layer type), so ``transfer.params_from_jax`` can pair them with
@@ -18,25 +20,24 @@ from torch import nn
 
 from ..data.transforms import CIFAR_TEST, CIFAR_TRAIN
 from ..nn.init import fan_out_normal_, torch_linear_
-from .common import BatchNorm2d, ModelCfg, register
+from .common import BatchNorm2d, Conv2d, ModelCfg, register
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
-                     bias=False)
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1, dtype=None) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride, kernel // 2, dtype)
 
 
 class PreBasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype=None):
         super().__init__()
-        self.bn1 = BatchNorm2d(inplanes)
-        self.downsample = _conv(inplanes, planes, 1, stride) if downsample else None
-        self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn2 = BatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3)
+        self.bn1 = BatchNorm2d(inplanes, dtype=dtype)
+        self.downsample = _conv(inplanes, planes, 1, stride, dtype) if downsample else None
+        self.conv1 = _conv(inplanes, planes, 3, stride, dtype)
+        self.bn2 = BatchNorm2d(planes, dtype=dtype)
+        self.conv2 = _conv(planes, planes, 3, dtype=dtype)
 
     def forward(self, x):
         out = F.relu(self.bn1(x))
@@ -50,16 +51,16 @@ class PreBottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype=None):
         super().__init__()
-        self.bn1 = BatchNorm2d(inplanes)
-        self.downsample = (_conv(inplanes, planes * 4, 1, stride)
+        self.bn1 = BatchNorm2d(inplanes, dtype=dtype)
+        self.downsample = (_conv(inplanes, planes * 4, 1, stride, dtype)
                            if downsample else None)
-        self.conv1 = _conv(inplanes, planes, 1)
-        self.bn2 = BatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3, stride)
-        self.bn3 = BatchNorm2d(planes)
-        self.conv3 = _conv(planes, planes * 4, 1)
+        self.conv1 = _conv(inplanes, planes, 1, dtype=dtype)
+        self.bn2 = BatchNorm2d(planes, dtype=dtype)
+        self.conv2 = _conv(planes, planes, 3, stride, dtype)
+        self.bn3 = BatchNorm2d(planes, dtype=dtype)
+        self.conv3 = _conv(planes, planes * 4, 1, dtype=dtype)
 
     def forward(self, x):
         out = F.relu(self.bn1(x))
@@ -71,7 +72,8 @@ class PreBottleneck(nn.Module):
 
 
 class PreResNet(nn.Module):
-    def __init__(self, depth: int = 110, num_classes: int = 10, in_channels: int = 3):
+    def __init__(self, depth: int = 110, num_classes: int = 10, in_channels: int = 3,
+                 dtype=None):
         super().__init__()
         if depth >= 44:
             if (depth - 2) % 9:
@@ -81,17 +83,17 @@ class PreResNet(nn.Module):
             if (depth - 2) % 6:
                 raise ValueError("depth should be 6n+2")
             n, block = (depth - 2) // 6, PreBasicBlock
-        self.conv1 = _conv(in_channels, 16, 3)
+        self.conv1 = _conv(in_channels, 16, 3, dtype=dtype)
         blocks = []
         inplanes = 16
         for planes, stride in zip((16, 32, 64), (1, 2, 2)):
             for i in range(n):
                 s = stride if i == 0 else 1
                 down = i == 0 and (s != 1 or inplanes != planes * block.expansion)
-                blocks.append(block(inplanes, planes, s, down))
+                blocks.append(block(inplanes, planes, s, down, dtype))
                 inplanes = planes * block.expansion
         self.blocks = nn.ModuleList(blocks)
-        self.bn = BatchNorm2d(inplanes)
+        self.bn = BatchNorm2d(inplanes, dtype=dtype)
         self.fc = nn.Linear(inplanes, num_classes)
 
     @torch.no_grad()
@@ -119,7 +121,8 @@ def _cfg(name: str, depth: int) -> ModelCfg:
         ModelCfg(
             name=name,
             make=lambda num_classes, **kw: PreResNet(
-                depth=kw.get("depth", depth), num_classes=num_classes),
+                depth=kw.get("depth", depth), num_classes=num_classes,
+                dtype=kw.get("dtype")),
             transform_train=CIFAR_TRAIN,
             transform_test=CIFAR_TEST,
             kwargs={"depth": depth},

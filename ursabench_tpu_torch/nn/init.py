@@ -3,7 +3,9 @@ CPU ``torch.Generator`` and copied into the tensor, so a run's initial
 weights do not depend on the device the model lives on.
 
 Counterpart of ``ursabench_tpu/nn/init.py``:
-- PreResNet convs: N(0, sqrt(2/(kh*kw*out_channels))), fan-out scaling.
+- PreResNet and TVResNet convs: N(0, sqrt(2/(kh*kw*out_channels))), fan-out
+  scaling.
+- INResNet convs and head: ``kaiming_normal``, N(0, sqrt(2/fan_in)).
 - Linear kernel and bias: torch's default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)).
 """
 
@@ -27,6 +29,22 @@ def fan_out_normal_(weight: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 
 
 @torch.no_grad()
+def kaiming_normal_(weight: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """In place: N(0, sqrt(2/fan_in)) for an OIHW conv kernel or an (out,
+    in) linear kernel."""
+    fan_in = weight[0].numel()
+    draw = _host(weight).normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
+    return weight.copy_(draw)
+
+
+@torch.no_grad()
+def torch_linear_bias_(bias: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """In place: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in)
+    bias.copy_(_host(bias).uniform_(-bound, bound, generator=gen))
+
+
+@torch.no_grad()
 def torch_linear_(weight: torch.Tensor, bias: torch.Tensor | None,
                   gen: torch.Generator) -> None:
     """In place: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for an (out, in) kernel
@@ -34,4 +52,4 @@ def torch_linear_(weight: torch.Tensor, bias: torch.Tensor | None,
     bound = 1.0 / math.sqrt(weight.shape[1])
     weight.copy_(_host(weight).uniform_(-bound, bound, generator=gen))
     if bias is not None:
-        bias.copy_(_host(bias).uniform_(-bound, bound, generator=gen))
+        torch_linear_bias_(bias, weight.shape[1], gen)

@@ -4,14 +4,19 @@ Counterpart of ``ursabench_tpu/profiling/hw.py``. The peak table is keyed by
 a substring of ``torch.cuda.get_device_name``; the FLOP count of a forward
 comes from ``torch.utils.flop_counter.FlopCounterMode`` (convolutions and
 matrix products, 2 FLOPs per multiply-add), where the JAX package asks XLA's
-cost model.
+cost model. ``card_line`` reads the card's name and power limit from
+``nvidia-smi``, to stand beside every number measured on it; ``event_ms``
+times a device function with CUDA events.
 """
 
 from __future__ import annotations
 
+import copy
+import subprocess
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 # lower-cased device-name substring -> (bf16 dense peak FLOP/s, HBM bytes/s),
@@ -64,3 +69,44 @@ def forward_flops(module: torch.nn.Module, x: torch.Tensor) -> int:
     finally:
         module.train(was_training)
     return int(counter.get_total_flops())
+
+
+def train_step_flops(module: torch.nn.Module, batch_size: int, input_shape) -> int:
+    """FLOPs of one training step of ``module`` (train-mode forward, mean
+    cross entropy, backward) on a ``(batch_size, *input_shape)`` batch,
+    counted on a copy on the meta device: from the shapes, without
+    computing anything."""
+    meta = copy.deepcopy(module).to("meta").train()
+    x = torch.empty((batch_size,) + tuple(input_shape), device="meta")
+    with FlopCounterMode(display=False) as counter:
+        logits = meta(x)
+        labels = torch.zeros(batch_size, dtype=torch.long, device="meta")
+        F.cross_entropy(logits, labels).backward()
+    return int(counter.get_total_flops())
+
+
+def event_ms(fn, reps: int, warm_up: int = 0) -> float:
+    """Device milliseconds per call of ``fn``, from two CUDA events around
+    ``reps`` back-to-back calls, after ``warm_up`` untimed calls."""
+    for _ in range(warm_up):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` of
+    the first card. Raises if nvidia-smi fails."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]

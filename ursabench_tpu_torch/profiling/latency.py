@@ -316,19 +316,24 @@ def random_ensemble(model: str, num_classes: int, ensemble_size: int, device):
 
 def resolve_member_strategy(member_strategy: str, ensemble_size: int,
                             batch_size: int, input_shape, precision: str) -> str:
-    """'auto' picks the faster strategy as measured on an H100 (PreResNet-20,
-    device time; PERF.md): at S=6, vmap for bf16 and int8 at every batch
-    measured (1 to 128) and for fp32 at batch 1, scan for fp32 from batch 8
-    up (cuDNN's float32 grouped convolutions, which vmap over stacked conv
-    weights becomes, are slow without TF32); at S=1, scan, a plain forward.
-    Inputs at least 64 pixels high keep the JAX package's TPU rule, scan,
-    until they are measured here."""
+    """'auto' picks the strategy with the shorter device time as measured on
+    an H100 (PERF.md):
+    - at S=1, scan, a plain forward;
+    - inputs under 64 pixels high (PreResNet-20 at 32x32, S=6): vmap for bf16
+      and int8 at every batch measured (1 to 128) and for fp32 at batch 1,
+      scan for fp32 from batch 8 up (cuDNN's float32 grouped convolutions,
+      which vmap over stacked conv weights becomes, are slow without TF32);
+    - inputs of 64 pixels or more (TVResNet-50 at 224x224, S=2): vmap at
+      batch 1, and for int8 up to batch 4; scan above that, where the
+      grouped convolutions' time grows with the batch faster than two
+      plain forwards do."""
     if member_strategy != "auto":
         return member_strategy
-    if (ensemble_size == 1 or input_shape[1] >= 64
-            or (precision == "fp32" and batch_size >= 8)):
+    if ensemble_size == 1:
         return "scan"
-    return "vmap"
+    if input_shape[1] >= 64:
+        return "vmap" if batch_size <= (4 if precision == "int8" else 1) else "scan"
+    return "scan" if precision == "fp32" and batch_size >= 8 else "vmap"
 
 
 def _device(device) -> torch.device:

@@ -36,7 +36,8 @@ def _flax_children(module: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
             if isinstance(child, (nn.ModuleList, nn.Sequential)):
                 yield from walk(child)
                 continue
-            kind = _FLAX_TYPE.get(type(child), type(child).__name__)
+            kind = next((name for t, name in _FLAX_TYPE.items() if isinstance(child, t)),
+                        type(child).__name__)
             yield f"{kind}_{counts[kind]}", child
             counts[kind] += 1
 
