@@ -6,10 +6,12 @@
 Phases, each ending with its seconds:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, the build time of each kernel (one nvcc per source, all
-   started together, at first use);
+   started together, at first use) and ptxas's registers and spills for
+   each K3 kernel;
 2. kernel K1 (csrc/sghmc_update.cu) against its plain PyTorch version on
    the card: exact agreement with the noise off, the statistics of its
-   in-kernel Langevin noise, and both times at PreResNet-20's flat size;
+   in-kernel Langevin noise, and both device times at PreResNet-20's flat
+   size beside the bound its bytes allow;
 3. the slice: SGHMC on PreResNet-20 / synthetic CIFAR-10 (50,000 train and
    10,000 test images, batch 128, crop + flip), 2 draws after 1 burn-in
    epoch (3 epochs, 1,173 steps), then the BMA Prediction task with all 11
@@ -34,9 +36,13 @@ Phases, each ending with its seconds:
 8. the 1x1-conv kernels K3a/K3b (csrc/conv1x1.cu) against their plain
    versions at every 1x1 conv shape of ResNet-50 at 224x224 and batch 128
    (the stride-2 ones on the top-left tap), which includes the probe's
-   (401408, 256) @ (256, 64), and at a ragged M of 1000: each element
+   (401408, 256) @ (256, 64), at a ragged M of 1000 (also with N = 1024,
+   K3a's 256-column tiles), at M = 1 and 63 and at K = N = 16: each element
    within one bf16 ulp of the plain result plus 1e-3 of its largest
-   magnitude; K3b twice, bit-equal;
+   magnitude; K3b twice, bit-equal, and bit-equal again under a CUDA-graph
+   replay of one call; then, at the 16 rn50 shapes, K3a,
+   K3b, cuBLAS's x @ w and x.T @ g over 20 calls each, beside the bound
+   (the larger of the bytes at 3.35 TB/s and the FLOPs at 989 TFLOP/s);
 9. the conv1x1 probe entry point (profiling/conv1x1_probe.run): its gates,
    then K3a, K3b, their plain versions and cuBLAS at the probe's shape;
    both kernels must have been launched there;
@@ -50,8 +56,11 @@ Phases, each ending with its seconds:
    magnitude.
 The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
 32, in the three precisions under both member strategies.
-Then a JSON line describing each kernel, and last the JSON line
-{"ok": true, "device": {...}}. Any failed check exits non-zero before it.
+Then a JSON line describing each kernel (its launches on the main path,
+its error against its plain version, its time, the plain version's, its
+bound and the single library call's where there is one), and last the JSON
+line {"ok": true, "device": {...}}. Any failed check exits non-zero before
+it.
 Exits non-zero without a CUDA device. TF32 off throughout.
 """
 
@@ -59,6 +68,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import sys
 import time
 
@@ -103,6 +113,16 @@ RN50_1X1 = (
     ("l4_1x1_in2048", 7, 2048, 512, 1), ("l4_1x1_out", 7, 512, 2048, 1),
 )
 RAGGED_M = 1000
+# beside the rn50 shapes: name, M, C_in, C_out (TMA's zero fill masks them)
+K3_SMALL = (("ragged_m", RAGGED_M, 256, 64), ("m1", 1, 256, 64), ("m63", 63, 256, 64),
+            ("kn16", RAGGED_M, 16, 16), ("ragged_n1024", RAGGED_M, 128, 1024))
+K3_TIMED_CALLS = 20
+PROBE_SHAPE = "l1_1x1_in256"  # (401408, 256) @ (256, 64), the conv1x1 probe's
+# peak rates by operand type on an H100 SXM (dense; NVIDIA's data sheet): the
+# bf16 and int8 tensor cores and float32 outside them
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+SGHMC_BYTES = 20  # K1 a parameter: reads p, v, g and writes p, v, float32
+SGHMC_FLOPS = 13  # K1 a parameter: the update's 8 plus Box-Muller's ~5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -115,6 +135,14 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 numbers at |t| (8 significant bits), in float32."""
     a = t.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(ms, "bytes" or "operations"): the least time an H100 could take to
+    move ``nbytes`` through HBM at 3.35 TB/s or to do ``ops`` operations
+    of type ``kind`` at its peak, whichever is longer."""
+    t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bf16_close(got: torch.Tensor, want: torch.Tensor, ulps: int) -> float:
@@ -135,6 +163,7 @@ def kernel_phase(device, n_slice: int) -> dict:
                                                    sghmc_update_flat_reference)
     from ursabench_tpu_torch.ops.sgmcmc import sghmc_scalars
     from ursabench_tpu_torch.profiling.hw import event_ms
+    from ursabench_tpu_torch.profiling.int8_microbench import graph_ms
 
     gen = torch.Generator(device=device).manual_seed(0)
     max_err = 0.0
@@ -188,15 +217,27 @@ def kernel_phase(device, n_slice: int) -> dict:
     p, v, g = (torch.randn(n_slice, generator=gen, device=device) for _ in range(3))
     s = sghmc_scalars(lr=0.05, momentum=0.9, wd_over_n=1.0 / 50000, n_train=50000.0,
                       noise_on=1.0, is_first_step=False, device=device)
-    ms = event_ms(lambda: sghmc_update_flat(p, v, g, s, seed=1), TIMED_LAUNCHES, 20)
-    plain_ms = event_ms(lambda: sghmc_update_flat_reference(
-        p, v, g, s, torch.randn(n_slice, device=device)), TIMED_LAUNCHES, 20)
+    # device times from CUDA graphs of the calls (a launch from Python costs
+    # more host time than the kernel takes), and the time a call takes
+    # launched from Python
+    def kernel_call():
+        sghmc_update_flat(p, v, g, s, seed=1)
+
+    def plain_call():
+        sghmc_update_flat_reference(p, v, g, s, torch.randn(n_slice, device=device))
+
+    ms, plain_ms = graph_ms([kernel_call], TIMED_LAUNCHES), graph_ms([plain_call], TIMED_LAUNCHES)
+    call_ms = event_ms(kernel_call, TIMED_LAUNCHES, 20)
+    bound_ms, bound_by = bound(SGHMC_BYTES * n_slice, SGHMC_FLOPS * n_slice, "f32")
     print(f"kernel K1 sghmc_update: {cases} noise-off cases equal to the plain "
           f"version (max abs err {max_err:.3g}); noise std/expected "
-          f"{std / expected:.4f}, KS {ks:.4f}; n={n_slice}: {ms * 1e3:.2f} us "
-          f"vs plain {plain_ms * 1e3:.2f} us over {TIMED_LAUNCHES} launches",
-          flush=True)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+          f"{std / expected:.4f}, KS {ks:.4f}; n={n_slice}: device {ms * 1e3:.2f} us "
+          f"vs plain {plain_ms * 1e3:.2f} us (graphs of {TIMED_LAUNCHES} calls), "
+          f"{call_ms * 1e3:.2f} us a call from Python; bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}), {bound(SGHMC_BYTES * TV_FLAT, 0, 'f32')[0] * 1e3:.1f}"
+          f" us at TVResNet-50's {TV_FLAT}", flush=True)
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def reference_probs(module_factory, ens, x):
@@ -479,18 +520,22 @@ def prediction_phase(device, splits) -> dict:
 
 def k3_kernel_phase(device) -> dict:
     """K3a and K3b against their plain versions at every 1x1 conv shape of
-    ResNet-50 at batch 128 and at a ragged M; K3b twice, bit-equal."""
+    ResNet-50 at batch 128 and at the small and ragged shapes; K3b twice
+    and under a CUDA-graph replay, bit-equal; then the rn50 shapes timed
+    against cuBLAS. Returns the largest errors and the timing rows."""
     from ursabench_tpu_torch.kernels.conv1x1 import (conv1x1_mm, conv1x1_mm_reference,
-                                                     conv1x1_wgrad,
-                                                     conv1x1_wgrad_reference)
+                                                     conv1x1_wgrad, conv1x1_wgrad_reference,
+                                                     mm_plan, wgrad_plan)
 
     err = {"conv1x1_mm": 0.0, "conv1x1_wgrad": 0.0}
     bf16 = torch.bfloat16
-    cases = RN50_1X1 + (("ragged_m", None, 256, 64, 1),)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    cases = RN50_1X1 + tuple((name, m, cin, cout, None) for name, m, cin, cout in K3_SMALL)
     for i, (name, side, cin, cout, stride) in enumerate(cases):
         gen = torch.Generator(device=device).manual_seed(i)
-        if side is None:
-            x = torch.randn(RAGGED_M, cin, generator=gen, device=device, dtype=bf16)
+        if stride is None:  # side is M
+            x = torch.randn(side, cin, generator=gen, device=device, dtype=bf16)
         else:
             x = torch.randn(BATCH, side, side, cin, generator=gen, device=device, dtype=bf16)
             x = x[:, ::stride, ::stride, :].reshape(-1, cin).contiguous()
@@ -503,11 +548,62 @@ def k3_kernel_phase(device) -> dict:
         err["conv1x1_wgrad"] = max(err["conv1x1_wgrad"],
                                    bf16_close(dw, conv1x1_wgrad_reference(x, g), 1))
         check(torch.equal(dw, dw2), f"K3b gave two results at {name}")
+        if name == PROBE_SHAPE:
+            check(torch.equal(graph_replay(lambda: conv1x1_wgrad(x, g)), dw),
+                  "K3b under a CUDA-graph replay differs from its eager result")
+            mp, wp = mm_plan(*x.shape, cout, sms), wgrad_plan(*x.shape, cout, sms)
+            print(f"  K3 grids at the probe's shape on {sms} SMs: K3a {mp.ctas} CTAs over "
+                  f"{mp.grid[0] * mp.grid[1]} tiles of {mp.tile}; K3b {wp.ctas} CTAs, "
+                  f"{wp.splits} splits of {wp.chunk} rows of a {wp.tile} dw tile", flush=True)
+        if stride is not None:
+            rows.append(k3_timing_row(name, x, w, g))
     print(f"K3 kernels: conv1x1_mm and conv1x1_wgrad within 1 bf16 ulp + 1e-3 max of "
           f"their plain versions at {len(cases)} shapes (the {len(RN50_1X1)} rn50 1x1 "
-          f"convs at batch 128, M={RAGGED_M}); K3b bit-equal across two runs; max abs "
-          f"err {err}", flush=True)
-    return err
+          f"convs at batch 128, {', '.join(c[0] for c in K3_SMALL)}); K3b bit-equal across "
+          f"two runs and a graph replay; max abs err {err}", flush=True)
+    return {"err": err, "rows": rows}
+
+
+def graph_replay(fn) -> torch.Tensor:
+    """``fn()`` captured in a CUDA graph (after a warm-up call on a side
+    stream, as torch asks), replayed twice; returns the replay's output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def k3_timing_row(name, x, w, g) -> dict:
+    """K3a, K3b and cuBLAS's two products at one shape, beside the bound:
+    device time from a CUDA graph of 20 calls replayed between CUDA events,
+    and the time a call takes launched from Python, 20 back to back (the
+    host's share shows where it exceeds the device time)."""
+    from ursabench_tpu_torch.kernels.conv1x1 import conv1x1_mm, conv1x1_wgrad
+    from ursabench_tpu_torch.profiling.int8_microbench import dispatch_ms, graph_ms
+
+    (m, k), n = x.shape, w.shape[1]
+    bound_ms, bound_by = bound(2 * (m * k + k * n + m * n), 2 * m * k * n, "bf16")
+    calls = {"conv1x1_mm": lambda: conv1x1_mm(x, w), "matmul": lambda: x @ w,
+             "conv1x1_wgrad": lambda: conv1x1_wgrad(x, g), "wgrad_matmul": lambda: x.T @ g}
+    us = {label: graph_ms([fn], K3_TIMED_CALLS) * 1e3 for label, fn in calls.items()}
+    per_call = {label: dispatch_ms(fn, K3_TIMED_CALLS) * 1e3 for label, fn in calls.items()}
+    b = bound_ms * 1e3
+    print(f"  {name} ({m}, {k}) @ ({k}, {n}): bound {b:.2f} us ({bound_by}); device K3a "
+          f"{us['conv1x1_mm']:.2f} us ({b / us['conv1x1_mm'] * 100:.1f}%), cuBLAS x @ w "
+          f"{us['matmul']:.2f} us ({b / us['matmul'] * 100:.1f}%); K3b "
+          f"{us['conv1x1_wgrad']:.2f} us ({b / us['conv1x1_wgrad'] * 100:.1f}%), cuBLAS "
+          f"x.T @ g {us['wgrad_matmul']:.2f} us ({b / us['wgrad_matmul'] * 100:.1f}%); a call "
+          f"from Python {', '.join(f'{v:.1f}' for v in per_call.values())} us", flush=True)
+    return {"name": name, "m": m, "k": k, "n": n, "bound_us": b, "bound_by": bound_by, **us,
+            "per_call_us": per_call}
 
 
 def probe_phase(device) -> dict:
@@ -631,6 +727,7 @@ def main() -> int:
 
     from ursabench_tpu_torch import models
     from ursabench_tpu_torch.kernels import build, conv1x1, int8_gemv, sghmc, stream_probe
+    from ursabench_tpu_torch.profiling import conv1x1_probe
 
     t0 = time.perf_counter()
     kernel_modules = (sghmc, int8_gemv, stream_probe, conv1x1)
@@ -641,6 +738,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, nvcc "
           + ", ".join(f"{s.name} {t:.2f} s" for s, t in seconds.items())
           + f" (in parallel), TF32 off; {time.perf_counter() - t0:.1f} s", flush=True)
+    for kernel, line in build.ptxas_report(conv1x1.SOURCE).items():
+        name = re.search(r"(conv1x1_[a-z]+_kernel)I((?:Li\d+E)+)", kernel)
+        if name:  # conv1x1_mm_kernel<64, 8>: its template arguments
+            kernel = f"{name[1]}<{', '.join(re.findall(r'Li(\d+)E', name[2]))}>"
+        print(f"  ptxas {kernel}: {line}", flush=True)
 
     def phase(name, fn, *args):
         t = time.perf_counter()
@@ -655,7 +757,7 @@ def main() -> int:
     bench = phase("microbench", microbench_phase, device)
     phase("latency", latency_phase, device, ens, splits["test"])
     phase("profile_prediction", prediction_phase, device, splits)
-    k3_err = phase("K3 kernels", k3_kernel_phase, device)
+    k3 = phase("K3 kernels", k3_kernel_phase, device)
     probe = phase("conv1x1 probe", probe_phase, device)
     phase("imagenet slice", imagenet_phase, device)
 
@@ -664,27 +766,37 @@ def main() -> int:
         "source": "ursabench_tpu_torch/csrc/sghmc_update.cu",
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
         "launches": launches, "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
+        "bound_by": kernel["bound_by"], "library_ms": None,
     }]
     v = bench["variants"]
+    d = MICROBENCH_D
     for name, (source, replaces, variant) in INT8_KERNELS.items():
+        gemv = name.startswith("int8")
         # the GEMVs' time is the kernel's alone, without quantizing x
         ms = v[variant].get("kernel_ms", v[variant]["ms"])
-        plain_ms = v["int8_plain" if name.startswith("int8") else "stream_plain"]["ms"]
+        plain_ms = v["int8_plain" if gemv else "stream_plain"]["ms"]
+        bound_ms, bound_by = bound(v[variant]["bytes"], (2 if gemv else 1) * d * d, "int8")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"ursabench_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": bench["launches"][name],
-                        "max_abs_err": int8_err[name], "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": int8_err[name], "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": v["int8_int_mm" if gemv else "stream_sum"]["ms"]})
     rows = probe["rows"]
-    for name in ("conv1x1_mm", "conv1x1_wgrad"):
+    m, k, n = conv1x1_probe.M, conv1x1_probe.K, conv1x1_probe.N
+    bound_ms, bound_by = bound(2 * (m * k + k * n + m * n), 2 * m * k * n, "bf16")
+    for name, library in (("conv1x1_mm", "matmul"), ("conv1x1_wgrad", "wgrad_matmul")):
         kernels.append({"name": name, "route": "cuda",
                         "source": "ursabench_tpu_torch/csrc/conv1x1.cu",
                         "replaces": ("benchmarks/rn50_conv1x1_pallas_probe.py:39"
                                      if name == "conv1x1_mm" else
                                      "benchmarks/rn50_conv1x1_pallas_probe.py:66"),
-                        "launches": probe["launches"][name], "max_abs_err": k3_err[name],
+                        "launches": probe["launches"][name], "max_abs_err": k3["err"][name],
                         "ms": rows[name]["us"] / 1e3,
-                        "plain_ms": rows[f"{name}_plain"]["us"] / 1e3})
+                        "plain_ms": rows[f"{name}_plain"]["us"] / 1e3,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": rows[library]["us"] / 1e3})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

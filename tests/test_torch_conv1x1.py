@@ -143,17 +143,53 @@ def test_wrappers_reject_bad_arguments(case):
     assert (C.conv1x1_mm.launches, C.conv1x1_wgrad.launches) == before
 
 
-@pytest.mark.parametrize("m,k,n", [(401408, 256, 64), (1000, 256, 64), (6272, 512, 2048),
-                                   (100352, 256, 512), (1, 16, 16), (33, 64, 64)])
+PLAN_SHAPES = [(401408, 256, 64), (1000, 256, 64), (6272, 512, 2048), (100352, 256, 512),
+               (1, 16, 16), (33, 64, 64), (1, 256, 64), (63, 256, 64)]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
 def test_wgrad_splits_cover_m_without_empty_chunks(m, k, n):
-    """The kernel cuts M into ``splits`` chunks of ``roundup32(ceil(m /
-    splits))`` rows: every chunk is non-empty, together they cover M, and
-    the tiles times the splits give about two blocks an SM on 132 SMs."""
-    s = C.wgrad_splits(m, k, n, 132)
-    chunk = -(-(-(-m // s)) // 32) * 32
-    assert 1 <= s and (s - 1) * chunk < m <= s * chunk
-    tiles = -(-k // 128) * -(-n // 64)
-    assert s * tiles <= 2 * 132 + tiles or chunk == 32
+    """K3b's plan: every row of M lies in exactly one split, the splits are
+    contiguous, ascending and non-empty, all but the last a whole number of
+    64-row stages; every (split, dw tile) unit is visited once; and the
+    grid, one CTA an SM at most on 132 SMs, holds every unit at once when M
+    is split (the launch is cooperative and the partials meet at a grid
+    barrier)."""
+    plan = C.wgrad_plan(m, k, n, 132)
+    ranges = C.split_ranges(plan, m)
+    assert ranges[0][0] == 0 and ranges[-1][1] == m
+    for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
+        assert e0 == b1 and (e0 - b0) % C.STEP == 0
+    assert all(b < e for b, e in ranges)
+    assert plan.tile[0] == C.TILE_ROWS and plan.tile[1] in (64, 128)
+    assert plan.grid == (-(-k // plan.tile[0]), -(-n // plan.tile[1]))
+    tiles = plan.grid[0] * plan.grid[1]
+    units = [u for cta in C.tile_order(plan) for u in cta]
+    assert sorted(units) == [(s, r, c) for s in range(plan.splits)
+                             for r in range(plan.grid[0]) for c in range(plan.grid[1])]
+    assert 1 <= plan.ctas <= 132
+    if plan.splits > 1:
+        assert plan.ctas == plan.splits * tiles
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_mm_tiles_are_visited_once_in_row_tile_order(m, k, n):
+    """K3a's plan: every (row tile, column tile) of y is visited exactly
+    once, by at most one CTA an SM on 132 SMs; each CTA walks its tiles in
+    ascending order, and the column tiles of one row tile are consecutive
+    units, so they run at once on neighbouring CTAs and share x through L2."""
+    plan = C.mm_plan(m, k, n, 132)
+    assert plan.tile == (C.TILE_ROWS, 64 if n <= 64 else 256 if n >= 1024 else 128)
+    assert plan.splits == 1
+    assert plan.grid == (-(-m // C.TILE_ROWS), -(-n // plan.tile[1]))
+    order = C.tile_order(plan)
+    assert len(order) == plan.ctas == min(plan.grid[0] * plan.grid[1], 132)
+    units = [u for cta in order for u in cta]
+    assert sorted(units) == [(0, r, c) for r in range(plan.grid[0]) for c in range(plan.grid[1])]
+    for cta in order:
+        assert cta == sorted(cta)
+    first = [cta[0] for cta in order]  # the tiles the grid starts on
+    assert first == sorted(first) and first[0] == (0, 0, 0)
 
 
 def test_probe_gates_pass_on_the_plain_versions_and_catch_a_wrong_kernel(monkeypatch):

@@ -4,7 +4,9 @@ Each source is compiled on its own for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``ursabench_tpu_torch/_build/`` under
 a name that carries the source's hash: an edited source builds anew, an
 unchanged one is reused. ``build`` starts one ``nvcc`` per missing library,
-all at once, and waits for them all. Nothing is built or loaded at import.
+all at once, and waits for them all; ``ptxas_report`` gives what ptxas said
+of each kernel it compiled in this process (registers, shared memory,
+spills). Nothing is built or loaded at import.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 @dataclass(frozen=True)
@@ -51,6 +53,7 @@ def library_path(source: Path) -> Path:
 
 
 _BUILD_SECONDS: Dict[Path, float] = {}
+_PTXAS: Dict[Path, str] = {}
 
 
 def build(sources: Sequence[Path]) -> Dict[Path, float]:
@@ -76,10 +79,24 @@ def build(sources: Sequence[Path]) -> Dict[Path, float]:
         if proc.returncode != 0:
             failures.append(f"nvcc failed on {source.name} ({proc.returncode}):\n{stderr}")
         else:
+            _PTXAS[source] = stderr
             os.replace(tmp, path)
     if failures:
         raise RuntimeError("\n".join(failures))
     return {source: _BUILD_SECONDS.get(source, 0.0) for source in sources}
+
+
+def ptxas_report(source: Path) -> Dict[str, str]:
+    """``{kernel: "N registers, ... spill ..."}`` from ptxas's ``-v`` report of
+    ``source``, for the kernels built in this process (empty if its library
+    was reused)."""
+    report, kernel = {}, None
+    for line in _PTXAS.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel is not None and ("spill" in line or "Used" in line):
+            report[kernel] = " ".join(filter(None, (report.get(kernel), line.split(":")[-1].strip())))
+    return report
 
 
 @functools.lru_cache(maxsize=None)

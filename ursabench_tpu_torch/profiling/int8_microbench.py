@@ -16,7 +16,13 @@ take, each timed on the card:
   quantized per tensor and the int8 GEMV; ``int8_plain`` is its plain version;
 - ``stream_g1`` (K4a) and ``stream_g128`` (K4c): ``kernels.stream_probe``, a
   read of every weight byte, tile by (512, D) tile; ``stream_plain`` is its
-  plain version.
+  plain version;
+- the nearest single library calls, timed like the kernels and used nowhere
+  in the port: ``int8_int_mm`` for the GEMVs, ``torch._int_mm`` of x
+  quantized and repeated to 32 rows (CUDA's int8 GEMM refuses fewer than
+  17) with the transposed weights, row 0 times the scales; ``stream_sum``
+  for the stream probes, ``w.view(G, -1).sum(dim=1, dtype=torch.int32)``,
+  the (512, D) tiles' sums.
 
 Timing. Every time is the device's, from a CUDA graph of many calls replayed
 between two CUDA events, divided by the number of calls: a Python launch
@@ -57,6 +63,7 @@ from .quantize import quantize_tensor
 SIZES = (6144, 3072)
 WORKING_SET_BYTES = 100e6  # the rotation's least working set, twice the L2
 TILE_N = 512  # the probes' row tile, as in the JAX probes
+INT_MM_ROWS = 32  # x repeated to this many rows for torch._int_mm
 LAUNCHES = 300  # calls per CUDA graph
 REPLAYS = 5
 
@@ -187,6 +194,11 @@ def run(d: int, device) -> Dict:
             functools.partial(stream_probe, i=0, tile_n=TILE_N, out_cols=cols), qs, d * d)
     variants["stream_plain"] = entry(
         functools.partial(stream_probe_reference, i=0, tile_n=TILE_N), qs, d * d)
+    xq_rows = xq.reshape(1, d).expand(INT_MM_ROWS, d).contiguous()
+    variants["int8_int_mm"] = entry(
+        lambda q: torch._int_mm(xq_rows, q.t())[0] * scale * x_scale, qs, gemv_bytes)
+    variants["stream_sum"] = entry(
+        lambda q: q.view(d // TILE_N, -1).sum(dim=1, dtype=torch.int32), qs, d * d)
     sol = {}
     if hbm:
         sol = {"speed_of_light_int8_ms": gemv_bytes / hbm * 1e3,
