@@ -53,11 +53,30 @@ Phases, each ending with its seconds:
    modules within 1e-2; then K3a and K3b on the model's own layer1[1].conv1
    (input (128, 256, 56, 56)) against cuDNN's forward and autograd's weight
    gradient of that conv, within 2 bf16 ulps plus 1e-3 of the largest
-   magnitude.
+   magnitude;
+11. the samplers: WideResNet-28x10 at full width and depth (36,546,980
+   parameters at 100 classes, bf16 compute) over synthetic CIFAR-100
+   (2,048 train and 512 test images, batch 128, crop + flip; cut from
+   50,000 train images), through the samplers' own entry points: cSGHMC
+   with 2 chains (4 epochs, 4 members), cSGLD (2 members), SGD (3 epochs, 1
+   member), DeepEnsemble (3 members, 2 epochs), MCdropout on the twin (5
+   epochs, 4 members), SWA and SWAG (full_cov, max_rank 3, pca_rank 2; 5
+   epochs, 3 members each), each followed by Prediction("ALL"): member and
+   epoch counts, finite losses, ensembles and metrics, SGD's and
+   DeepEnsemble's loss falling, DeepEnsemble's BMA equal to plain
+   per-member modules within 1e-2, MCdropout's logits equal under one seed
+   and different between members; K1 launched exactly once a step by
+   cSGHMC (both chains in one launch) and cSGLD, 128 in all, and never by
+   the others; bn_refresh equal to a plain recomputation from forward hooks
+   within 1e-4 of each layer's largest statistic; K1 at the two stacked
+   chains (73,093,960 floats) equal to its plain version with the noise
+   off, its noise statistics, and both device times from CUDA graphs
+   beside the 436 us bound.
 The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
 32, in the three precisions under both member strategies.
 Then a JSON line describing each kernel (its launches on the main path,
-its error against its plain version, its time, the plain version's, its
+K1's summed over the slice, the ImageNet slice and the samplers; its
+error against its plain version, its time, the plain version's, its
 bound and the single library call's where there is one), and last the JSON
 line {"ok": true, "device": {...}}. Any failed check exits non-zero before
 it.
@@ -123,6 +142,30 @@ PROBE_SHAPE = "l1_1x1_in256"  # (401408, 256) @ (256, 64), the conv1x1 probe's
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 SGHMC_BYTES = 20  # K1 a parameter: reads p, v, g and writes p, v, float32
 SGHMC_FLOPS = 13  # K1 a parameter: the update's 8 plus Box-Muller's ~5
+# the samplers phase: WideResNet-28x10, bf16 compute, synthetic CIFAR-100
+WRN_CLASSES, WRN_TRAIN, WRN_TEST = 100, 2048, 512
+WRN_FLAT = 36546980  # WideResNet-28x10's parameters at 100 classes
+WRN_STEPS = WRN_TRAIN // BATCH  # 16 steps an epoch
+CYC_HYP = {"lr_0": 0.05, "prior_std": 1.0, "cycle_length": 4, "burn_in_epochs": 1,
+           "num_samples_per_cycle": 2, "num_cycles": 1, "alpha": 0.1}
+SGD_HYP = {"lr": 0.05, "epochs": 2, "momentum": 0.9, "weight_decay": 5e-4}
+MCD_HYP = {"lr": 0.02, "epochs": 1, "dropout": 0.1, "lengthscale": 0.01, "num_samples": 4,
+           "momentum": 0.9, "weight_decay": 0}
+SWA_HYP = {"lr_init": 0.05, "swag_lr": 0.01, "swag_wd": 5e-4, "momentum": 0.9,
+           "burn_in_epochs": 2, "num_iterates": 3, "num_samples": 3}
+# sampler -> (constructor keywords, sample() keywords, members, epochs, chains)
+SAMPLERS = {
+    "cSGHMC": (dict(hyperparameters=CYC_HYP, chains=2), {}, 4, 4, 2),
+    "cSGLD": (dict(hyperparameters=CYC_HYP), {}, 2, 4, 1),
+    "SGD": (dict(hyperparameters=SGD_HYP), {}, 1, 3, 1),
+    "DeepEnsemble": (dict(hyperparameters={**SGD_HYP, "epochs": 1, "num_members": 3}), {},
+                     3, 2, 3),
+    "MCdropout": (dict(hyperparameters=MCD_HYP, model_name="WideResNet28x10"), {}, 4, 5, 1),
+    "SWA": (dict(hyperparameters=SWA_HYP, max_rank=3, pca_rank=2), {}, 3, 5, 1),
+    "SWAG": (dict(hyperparameters=SWA_HYP, max_rank=3, pca_rank=2), {"full_cov": True},
+             3, 5, 1),
+}
+K1_WRN_CALLS = 20  # graph-timed K1 calls at the two stacked WRN chains
 
 
 def check(cond: bool, msg: str) -> None:
@@ -709,7 +752,202 @@ def imagenet_phase(device) -> dict:
           f"{b.get('mfu_pct_of_bf16_peak', float('nan')):.1f}% of bf16 peak), equal to plain "
           f"modules within {diff:.2g}; data {res['data_seconds']:.1f} s", flush=True)
     model_check(device, test)
+    res["k1_launches"] = launches
     return res
+
+
+def k1_stacked_check(device) -> dict:
+    """K1 at two stacked WideResNet-28x10 chains (one launch a step for
+    both): equal to its plain version with the noise off, its noise
+    statistics (and the two chains' rows independent), and both device
+    times from CUDA graphs beside the bound."""
+    from scipy import stats
+
+    from ursabench_tpu_torch.kernels.sghmc import (sghmc_update_flat,
+                                                   sghmc_update_flat_reference)
+    from ursabench_tpu_torch.ops.sgmcmc import sghmc_scalars
+    from ursabench_tpu_torch.profiling.int8_microbench import graph_ms
+
+    n = 2 * WRN_FLAT
+    gen = torch.Generator(device=device).manual_seed(2)
+    p, v, g = (torch.randn(n, generator=gen, device=device) for _ in range(3))
+    err = 0.0
+    for first in (False, True):
+        s = sghmc_scalars(lr=0.05, momentum=0.9, wd_over_n=1.0 / WRN_TRAIN,
+                          n_train=float(WRN_TRAIN), noise_on=0.0, is_first_step=first,
+                          device=device)
+        pk, vk = p.clone(), v.clone()
+        sghmc_update_flat(pk, vk, g, s, seed=3)
+        pr, vr = p.clone(), v.clone()
+        sghmc_update_flat_reference(pr, vr, g, s, torch.zeros_like(p))
+        torch.cuda.synchronize()
+        for got, want in ((pk, pr), (vk, vr)):
+            check(torch.allclose(got, want, rtol=1e-6, atol=1e-7),
+                  f"K1 != plain at the stacked WRN size, first={first}")
+            err = max(err, float((got - want).abs().max()))
+    del pk, vk, pr, vr
+    lr, m = 0.05, 0.9
+    expected = math.sqrt(2 * (1 - m) * lr) / WRN_TRAIN
+    z = torch.zeros(n, device=device)
+    pn, vn = z.clone(), z.clone()
+    s = sghmc_scalars(lr=lr, momentum=m, wd_over_n=0.0, n_train=float(WRN_TRAIN),
+                      noise_on=1.0, is_first_step=False, device=device)
+    sghmc_update_flat(pn, vn, z, s, seed=5)
+    rows = pn.view(2, WRN_FLAT).double()
+    std, mean = float(rows.std()), float(rows.mean())
+    check(abs(std / expected - 1) < 1e-3, f"noise std {std} vs {expected}")
+    check(abs(mean) < 1e-3 * std, f"noise mean {mean}")
+    corr = float(torch.corrcoef(rows[:, : 1 << 22])[0, 1])
+    check(abs(corr) < 3e-3, f"the two chains' noise correlates: {corr}")
+    sub = rows[0, :: 64].cpu().numpy() / expected
+    ks = float(stats.kstest(sub, "norm").statistic)
+    check(ks < 0.005, f"KS statistic {ks} against N(0,1)")
+    del pn, vn, rows, z
+
+    def kernel_call():
+        sghmc_update_flat(p, v, g, s, seed=1)
+
+    def plain_call():
+        sghmc_update_flat_reference(p, v, g, s, torch.randn(n, device=device))
+
+    ms = graph_ms([kernel_call], K1_WRN_CALLS)
+    plain_ms = graph_ms([plain_call], K1_WRN_CALLS)
+    bound_ms, bound_by = bound(SGHMC_BYTES * n, SGHMC_FLOPS * n, "f32")
+    print(f"  K1 at 2 x WideResNet-28x10 ({n} floats): noise-off equal to plain (max abs "
+          f"err {err:.3g}); noise std/expected {std / expected:.5f}, chains' correlation "
+          f"{corr:.2g}, KS {ks:.4f}; device {ms * 1e3:.1f} us vs plain {plain_ms * 1e3:.1f} "
+          f"us (graphs of {K1_WRN_CALLS} calls); bound {bound_ms * 1e3:.1f} us ({bound_by}), "
+          f"{bound_ms / ms * 100:.1f}% of it", flush=True)
+    return {"n": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def bn_refresh_check(device, train) -> None:
+    """engine.bn_refresh on a bf16 WideResNet-28x10 against a plain
+    recomputation: each BatchNorm's input captured by a forward hook over
+    the same batches in train mode, its per-batch mean and biased variance
+    in float64, averaged (the batches are equal in size). Within 1e-4 of
+    each layer's largest statistic."""
+    from ursabench_tpu_torch import models
+    from ursabench_tpu_torch.data.transforms import normalize
+    from ursabench_tpu_torch.inference.engine import bn_refresh
+
+    m = models.get_model("WideResNet28x10").build(WRN_CLASSES, dtype=torch.bfloat16).to(device)
+    m.init_parameters(torch.Generator().manual_seed(4))
+    images, _ = train.device_tensors(device)
+    bn_refresh(m, train, images=images)
+    bns = [b for b in m.modules() if isinstance(b, models.BatchNorm2d)]
+    refreshed = [(b.running_mean.clone(), b.running_var.clone()) for b in bns]
+    sums = {b: [0.0, 0.0] for b in bns}
+
+    def hook(mod, inp, out):
+        x = inp[0].double()
+        sums[mod][0] = sums[mod][0] + x.mean(dim=(0, 2, 3))
+        sums[mod][1] = sums[mod][1] + x.var(dim=(0, 2, 3), unbiased=False)
+
+    hooks = [b.register_forward_hook(hook) for b in bns]
+    with torch.no_grad():
+        m.train()
+        for i in range(0, train.n, train.batch_size):
+            x = normalize(images[i: i + train.batch_size], train.spec)
+            m(x.permute(0, 3, 1, 2).contiguous())
+    for h in hooks:
+        h.remove()
+    worst = 0.0
+    for b, (mean, var) in zip(bns, refreshed):
+        for got, total in ((mean, sums[b][0]), (var, sums[b][1])):
+            want = total / (train.n // train.batch_size)
+            rel = float((got.double() - want).abs().max() / want.abs().max())
+            worst = max(worst, rel)
+    check(worst < 1e-4, f"bn_refresh differs from the hook recomputation by {worst:.3g}")
+    print(f"  bn_refresh: {len(bns)} BatchNorm layers equal to the plain recomputation "
+          f"within {worst:.2g} of each layer's largest statistic", flush=True)
+
+
+def samplers_phase(device) -> dict:
+    """Every epoch sampler on WideResNet-28x10 (bf16, 100 classes, full
+    width and depth) over 2,048 synthetic CIFAR-100 images at batch 128,
+    then Prediction on 512 test images; K1 once a step for cSGHMC's two
+    chains and for cSGLD, and never for the others."""
+    from ursabench_tpu_torch import data, inference, models, tasks
+    from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN, normalize
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    splits, num_classes = data.loaders(
+        "CIFAR100", None, batch_size=BATCH, use_validation=False,
+        transform_train=CIFAR_TRAIN, transform_test=CIFAR_TEST,
+        synthetic_n_train=WRN_TRAIN, synthetic_n_test=WRN_TEST)
+    train, test = splits["train"], splits["test"]
+    check(num_classes == WRN_CLASSES and train.num_batches == WRN_STEPS and test.n == WRN_TEST,
+          f"unexpected split {num_classes} {train.n} {test.n}")
+    cfg = models.get_model("WideResNet28x10")
+    build = lambda: cfg.build(WRN_CLASSES, dtype=torch.bfloat16)  # noqa: E731
+    check(sum(p.numel() for p in build().parameters()) == WRN_FLAT, "WRN parameter count")
+    x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
+    x = x.permute(0, 3, 1, 2).contiguous()
+
+    sghmc_update_flat.launches = 0
+    rows, k1_after = {}, {}
+    for name, (kw, sample_kw, members, epochs, chains) in SAMPLERS.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler = getattr(inference, name)(model=build(), train=train, seed=0, device=device,
+                                           **kw)
+        ens = sampler.sample(**sample_kw)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        k1_after[name] = sghmc_update_flat.launches
+        check(ens.num_members == members, f"{name}: {ens.num_members} members, not {members}")
+        check(sampler.epochs_run == epochs and sampler.chains == chains,
+              f"{name}: {sampler.epochs_run} epochs, {sampler.chains} chains")
+        losses = torch.stack([torch.as_tensor(v).float().reshape(-1)
+                              for v in sampler.epoch_losses])  # (epochs, chains)
+        check(bool(torch.isfinite(losses).all()), f"{name}: losses {losses.tolist()}")
+        for k, t in ens.state.items():
+            check(bool(torch.isfinite(t).all()), f"{name}: non-finite ensemble entry {k}")
+        if name in ("SGD", "DeepEnsemble"):
+            check(bool((losses[-1] < losses[0]).all()),
+                  f"{name}: the training loss did not fall: {losses.tolist()}")
+
+        task = tasks.Prediction({"in_distribution_test": test}, num_classes, metric_list="ALL")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.update_statistics(ens, output_performance=False)
+        torch.cuda.synchronize()
+        bma_s = time.perf_counter() - t0
+        metrics = task.get_performance_metrics()
+        err = metrics["error_rate"]
+        for k, val in metrics.items():
+            nan_by_design = k.startswith("misclass") and err in (0.0, 1.0)
+            check(math.isfinite(val) or nan_by_design, f"{name}: metric {k} = {val}")
+        if name == "DeepEnsemble":  # the BMA pass against plain per-member modules
+            want = reference_probs(lambda: build().to(device), ens, x).cpu().numpy()
+            diff = float(np.abs(task.ensemble_proba[:BATCH] - want).max())
+            check(diff < 1e-2, f"DeepEnsemble BMA differs from plain modules by {diff}")
+        if name == "MCdropout":
+            a, b = ens.logits_all(x, 0), ens.logits_all(x, 0)
+            check(torch.equal(a, b), "MCdropout: one seed gave different logits")
+            check(not torch.allclose(a[0], a[1]), "MCdropout: two members agree")
+        steps = epochs * WRN_STEPS
+        rows[name] = {"members": members, "epochs": epochs, "chains": chains, "steps": steps,
+                      "sample_s": sample_s, "step_forwards_per_s": steps * chains / sample_s,
+                      "bma_s": bma_s, "bma_img_per_s": test.n / bma_s, "error_rate": err,
+                      "epoch_losses": losses.tolist()}
+        print(f"  {name}: {members} members, {epochs} epochs x {chains} chain(s) of "
+              f"{WRN_STEPS} steps in {sample_s:.2f} s, {steps * chains / sample_s:.2f} "
+              f"step-forwards/s over sample(); BMA {test.n / bma_s:.0f} img/s ({bma_s:.2f} s); "
+              f"error rate {err:.4f}; K1 launches so far {k1_after[name]}", flush=True)
+        del sampler, ens, task
+
+    cyc_steps = SAMPLERS["cSGHMC"][3] * WRN_STEPS
+    check(k1_after["cSGHMC"] == cyc_steps, f"cSGHMC: {k1_after['cSGHMC']} K1 launches for "
+          f"{cyc_steps} steps of 2 chains")
+    launches = sghmc_update_flat.launches
+    check(launches == 2 * cyc_steps, f"K1 launched {launches} times in the samplers phase, "
+          f"expected {2 * cyc_steps} (cSGHMC and cSGLD only)")
+    bn_refresh_check(device, train)
+    k1 = k1_stacked_check(device)
+    return {"launches": launches, "rows": rows, "k1": k1}
 
 
 def main() -> int:
@@ -759,13 +997,15 @@ def main() -> int:
     phase("profile_prediction", prediction_phase, device, splits)
     k3 = phase("K3 kernels", k3_kernel_phase, device)
     probe = phase("conv1x1 probe", probe_phase, device)
-    phase("imagenet slice", imagenet_phase, device)
+    imagenet = phase("imagenet slice", imagenet_phase, device)
+    samplers = phase("samplers", samplers_phase, device)
 
     kernels = [{
         "name": "sghmc_update", "route": "cuda",
         "source": "ursabench_tpu_torch/csrc/sghmc_update.cu",
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
-        "launches": launches, "max_abs_err": kernel["max_abs_err"],
+        "launches": launches + imagenet["k1_launches"] + samplers["launches"],
+        "max_abs_err": max(kernel["max_abs_err"], samplers["k1"]["max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": None,
     }]

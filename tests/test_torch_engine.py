@@ -159,4 +159,5 @@ def test_cuda_sampler_never_falls_back_to_cpu():
                      train=splits["train"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sgmcmc.SGHMC(HYP, model=tmodels.get_model("PreResNet8").build(c),
-                     train=splits["train"], chains=2, device="cpu")
+                     train=splits["train"], chains=2, device="cpu",
+                     chain_strategy="vmap")

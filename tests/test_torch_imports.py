@@ -70,6 +70,7 @@ else:
     "ursabench_tpu_torch.profiling.int8_microbench",
     "ursabench_tpu_torch.profiling.conv1x1_probe",
     "ursabench_tpu_torch.profiling.imagenet_train",
+    "ursabench_tpu_torch.profiling.step_profile",
     "chip_smoke.py",
 ])
 def test_gpu_entry_points_refuse_without_a_gpu(target):
@@ -82,3 +83,36 @@ def test_gpu_entry_points_refuse_without_a_gpu(target):
     assert out.returncode != 0
     assert "CUDA" in out.stdout + out.stderr or "cuda" in out.stdout + out.stderr
     assert '"ok": true' not in out.stdout and '"kernels"' not in out.stdout
+
+
+NEW_MODULES = ["ursabench_tpu_torch.models.wideresnet", "ursabench_tpu_torch.models.mlp",
+               "ursabench_tpu_torch.inference.sgd_map", "ursabench_tpu_torch.inference.swa",
+               "ursabench_tpu_torch.inference.swag", "ursabench_tpu_torch.inference.subspaces"]
+
+
+def test_sampler_modules_import_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+            "import importlib\n"
+            f"for name in {NEW_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'ursabench_tpu')"
+            " and sys.modules[m] is not None]\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("name", ["SGHMC", "SGLD", "cSGHMC", "cSGLD", "SGD", "DeepEnsemble",
+                                  "MCdropout", "SWA", "SWAG"])
+def test_samplers_default_to_cuda_and_refuse_without_it(name):
+    import torch
+
+    from ursabench_tpu_torch import data, inference, models
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    splits, c = data.loaders("MNIST", None, batch_size=8, use_validation=False,
+                             synthetic_n_train=16, synthetic_n_test=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(inference, name)(None, model=models.get_model("MLP200MNIST_dropout").build(c),
+                                 train=splits["train"])

@@ -3,19 +3,30 @@ split); ``update_hyp`` re-initialises; ``sample_iterative`` returns one
 posterior draw; ``sample`` returns the ``Ensemble``.
 
 Counterpart of ``ursabench_tpu/inference/base.py`` without the device mesh
-and checkpointing. Randomness comes from ``seed`` through generators seeded
-with sha256-derived sub-seeds, one per purpose, where the JAX package splits
-a PRNG key.
+and checkpointing, plus the chain bookkeeping that every epoch-driven
+sampler of ``ursabench_tpu/inference/{sgmcmc,sgd_map,swa}.py`` shares
+(``_EpochSampler``). Randomness comes from ``seed`` through generators
+seeded with sha256-derived sub-seeds, one per purpose, where the JAX
+package splits a PRNG key.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
 
-from ..util import derive_seed
+from ..data.transforms import draw_augment
+from ..models.common import dropout_layers
+from ..util import StateDict, derive_seed, make_generator, stack_state_dicts
+from .engine import (TrainState, epoch_indices, eval_loss, flatten_chains,
+                     init_variables, train_steps)
 from .ensemble import Ensemble
+
+_VMAP = ("chain_strategy='vmap' is not ported: chains advance in turn ('scan'); "
+         "vmap over chain-stacked weights waits for an H100 measurement "
+         "(ROADMAP.md open item 7)")
 
 
 def resolve_device(device) -> torch.device:
@@ -28,6 +39,16 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def resolve_chain_strategy(strategy: str) -> str:
+    """``"auto"`` and ``"scan"`` advance the chains in turn, one update over
+    all of them a step; ``"vmap"`` raises."""
+    if strategy == "vmap":
+        raise NotImplementedError(_VMAP)
+    if strategy not in ("auto", "scan"):
+        raise ValueError(f"unknown chain_strategy {strategy!r}")
+    return "scan"
+
+
 class _Inference:
     def __init__(
         self,
@@ -38,18 +59,19 @@ class _Inference:
         seed: int = 0,
         chains: int = 1,
         device=None,
+        chain_strategy: str = "auto",
     ):
         if model_loss != "multi_class_linear_output":
             raise NotImplementedError(model_loss)
-        if int(chains) != 1:
-            raise NotImplementedError(
-                "chains > 1 is not ported yet (ROADMAP.md open item 7)")
+        if int(chains) < 1:
+            raise ValueError(f"chains must be >= 1, got {chains}")
+        self.chain_strategy = resolve_chain_strategy(chain_strategy)
         self.device = resolve_device(device)
         self.module = model.to(self.device)
         self.train = train
         self.model_loss = model_loss
         self.seed = int(seed)
-        self.chains = 1
+        self.chains = int(chains)
         self.hyperparameters = hyperparameters
         self._draws = 0
 
@@ -71,3 +93,127 @@ class _Inference:
         sampler's PRNG key)."""
         self._draws += 1
         return derive_seed(self.seed, "draw", self._draws)
+
+    def fresh_variables(self, module=None, run: Optional[int] = None,
+                        chain: int = 0) -> StateDict:
+        """(Re-)initialise ``module`` (the sampler's by default) in place
+        with the JAX package's initialisers, from a fresh sub-seed or from
+        ``run`` (chain c > 0 on its own stream of it); returns its state
+        dict (views, not copies)."""
+        module = self.module if module is None else module
+        run = self.next_seed() if run is None else run
+        init_variables(module, make_generator("cpu", run, "init", *((chain,) if chain else ())))
+        return module.state_dict()
+
+    def compute_val_loss(self, val_split, state: Optional[StateDict] = None) -> float:
+        """Mean cross entropy over ``val_split`` in eval mode, of ``state``
+        or, by default, of chain 0's current weights."""
+        if state is None:
+            state = self._single_member()
+        return float(eval_loss(self.module, val_split, state=state))
+
+    def _single_member(self) -> StateDict:
+        raise NotImplementedError
+
+
+class _EpochSampler(_Inference):
+    """C chains (``self.modules``), each with its own module and so its own
+    BatchNorm buffers, batch plans, crops and flips (``self._data_gens``)
+    and dropout streams; their parameters, momenta and gradients are the
+    rows of one (C, P) buffer each (``self._state``). Hyperparameters live
+    in 0-dim device tensors (``self._hyp``, keys ``_HYP_KEYS``) that
+    ``_setup`` fills in place, so changing them rebuilds nothing; the
+    Langevin noise gate is one more (``self._noise_gate``)."""
+
+    _HYP_KEYS: tuple = ()
+    _LR_FN = None  # (hyp, epoch, batch_idx, step) -> lr
+    _UPDATE_FN = None  # (state, hyp, *, lr, noise_on, is_first_step, seed)
+
+    def __init__(self, hyperparameters, model=None, train=None,
+                 model_loss="multi_class_linear_output", seed=0, chains=1,
+                 device=None, chain_strategy="auto"):
+        super().__init__(hyperparameters, model, train, model_loss, seed, chains,
+                         device, chain_strategy)
+        self._images, self._labels = train.device_tensors(self.device)
+        self.modules = [self.module] + [copy.deepcopy(self.module)
+                                        for _ in range(self.chains - 1)]
+        params, grads = flatten_chains(self.modules)
+        self._state = TrainState(self.module, params, torch.zeros_like(params), grads,
+                                 modules=self.modules)
+        self._hyp = {k: torch.zeros((), dtype=torch.float32, device=self.device)
+                     for k in self._HYP_KEYS}
+        self._noise_gate = torch.ones((), dtype=torch.float32, device=self.device)
+        self._has_dropout = bool(dropout_layers(self.module))
+        self.epoch_losses: list = []  # mean training loss per epoch, on the device
+
+    def _fill_hyp(self, values: dict) -> None:
+        for k, v in values.items():
+            self._hyp[k].fill_(v)
+
+    def _init_state(self):
+        """Fresh weights, zero momentum, step 0, and fresh generators."""
+        run = self.next_seed()
+        for c, module in enumerate(self.modules):
+            self.fresh_variables(module, run, c)
+        self._state.momentum.zero_()
+        self._state.grads.zero_()
+        self._state.step = 0
+        self.epochs_run = 0
+        self.burnt_in = False
+        # permutations and crop/flip choices are drawn on the device; the
+        # per-step noise seeds and per-epoch dropout seeds on the host
+        self._data_gens = [make_generator(self.device, run, "data", *((c,) if c else ()))
+                           for c in range(self.chains)]
+        self._noise_gen = torch.Generator().manual_seed(derive_seed(run, "noise"))
+        self._dropout_gen = torch.Generator().manual_seed(derive_seed(run, "dropout"))
+
+    def _run_epoch(self, noise_on: Optional[bool] = None) -> torch.Tensor:
+        """One epoch on every chain; ``noise_on`` sets the noise gate first
+        (None keeps it)."""
+        if noise_on is not None:
+            self._noise_gate.fill_(1.0 if noise_on else 0.0)
+        split = self.train
+        idx = torch.stack([epoch_indices(g, split.n, split.batch_size)
+                           for g in self._data_gens])
+        aug = None
+        if split.spec.augments:
+            draws = [draw_augment(g, tuple(idx.shape[1:]), split.spec) for g in self._data_gens]
+            aug = tuple(None if draws[0][j] is None else torch.stack([d[j] for d in draws])
+                        for j in range(3))
+        seeds = torch.randint(0, 2 ** 63 - 1, (idx.shape[1],),
+                              generator=self._noise_gen).tolist()
+        dropout_seeds = (torch.randint(0, 2 ** 63 - 1, (self.chains,),
+                                       generator=self._dropout_gen).tolist()
+                         if self._has_dropout else None)
+        loss = train_steps(
+            self._state, self._images, self._labels, idx, spec=split.spec,
+            epoch=self.epochs_run, noise_on=self._noise_gate, hyp=self._hyp,
+            lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds, aug=aug,
+            dropout_seeds=dropout_seeds,
+        )
+        self.epochs_run += 1
+        self.epoch_losses.append(loss)
+        return loss
+
+    def _log_val_loss(self, loss, val_loader, debug_val_loss: bool) -> None:
+        if debug_val_loss and val_loader is not None:
+            print({"train_loss": float(loss.mean()),
+                   "val_loss": self.compute_val_loss(val_loader)})
+
+    def _harvest(self) -> StateDict:
+        """A copy of every chain's parameters and BatchNorm buffers, with a
+        leading chain axis when there is more than one chain."""
+        states = [{k: v.detach().clone() for k, v in m.state_dict().items()}
+                  for m in self.modules]
+        return states[0] if self.chains == 1 else stack_state_dicts(states)
+
+    def _single_member(self) -> StateDict:
+        return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
+
+    def _ensemble_from_draws(self, draws) -> Ensemble:
+        """S draws -> an ensemble of S * chains members, draw-major (the
+        JAX package's (S, chains) -> (S * chains) merge)."""
+        state = stack_state_dicts(draws)
+        if self.chains > 1:
+            state = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in state.items()}
+        return Ensemble(self.module, state, len(draws) * self.chains)

@@ -1,16 +1,25 @@
-"""Training machinery for the epoch-driven samplers, single chain.
+"""Training machinery for the epoch-driven samplers.
 
-Counterpart of ``ursabench_tpu/inference/engine.py:54-313``. The JAX package
-compiles one epoch into a ``lax.scan``; here an epoch is two pieces:
-``epoch_indices`` draws the shuffled batch plan and ``train_steps`` runs it,
-step by step, eagerly: gather -> normalize -> augment -> forward, cross
-entropy, backward -> learning rate -> parameter update.
+Counterpart of ``ursabench_tpu/inference/engine.py:54-313`` and ``:733-857``.
+The JAX package compiles one epoch into a ``lax.scan``; here an epoch is two
+pieces: ``epoch_indices`` draws the shuffled batch plan and ``train_steps``
+runs it, step by step, eagerly: gather -> normalize -> augment -> forward,
+cross entropy, backward -> learning rate -> parameter update.
 
-The parameters, the momentum and the gradients of a model are views into
-one flat float32 buffer each (``flatten_parameters``). Autograd adds each
-gradient into its ``.grad`` view in place, so the whole model's update is
-one call on three flat buffers: kernel K1 on the GPU. The gradient buffer
-is zeroed with ``zero_()`` before each backward, never set to None.
+C chains each have their own module (and so their own BatchNorm buffers),
+batch plan, crops, flips and dropout streams. Their parameters, momenta and
+gradients are the rows of one (C, P) float32 buffer each
+(``flatten_chains``); autograd adds each gradient into its ``.grad`` view
+in place. A step runs every chain's forward and backward, then one update
+over the whole buffer: on the GPU, one launch of kernel K1 for all chains.
+The chains share the learning rate, the noise gate and the first-step flag,
+as they do in the JAX package's vmapped and scanned epochs; advancing them
+in turn is the ``"scan"`` strategy (``"auto"`` resolves to it). The gradient
+buffer is zeroed with ``zero_()`` before each step, never set to None.
+
+``bn_refresh`` recomputes BatchNorm's running statistics with one exact
+pass over a split; ``eval_loss`` is the mean cross entropy over a split in
+eval mode.
 """
 
 from __future__ import annotations
@@ -21,8 +30,11 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from ..data.transforms import ImageSpec, augment_normalized, normalize
+from ..models.common import BatchNorm2d, dropout_generator, dropout_layers
+from ..util import StateDict, make_generator
 
 # (hyp, epoch, batch_idx, global_step) -> lr, a 0-dim device tensor
 LrFn = Callable[..., torch.Tensor]
@@ -32,36 +44,53 @@ UpdateFn = Callable[..., None]
 
 @dataclass
 class TrainState:
-    """One chain: ``module``'s parameters and gradients are views into
-    ``params`` and ``grads``; its BatchNorm buffers are the batch stats."""
+    """The chains: ``modules[c]``'s parameters and gradients are views into
+    row c of ``params`` and ``grads`` ((C, P) float32, or (P,) for one
+    chain); its BatchNorm buffers are chain c's batch stats. ``module`` is
+    chain 0's; ``modules`` defaults to ``(module,)``."""
 
     module: nn.Module
-    params: torch.Tensor  # flat float32
-    momentum: torch.Tensor  # flat float32
-    grads: torch.Tensor  # flat float32
+    params: torch.Tensor
+    momentum: torch.Tensor
+    grads: torch.Tensor
     step: int = 0  # global batch counter
+    modules: Sequence[nn.Module] = ()
+
+    def __post_init__(self):
+        if not self.modules:
+            self.modules = (self.module,)
+
+
+def flatten_chains(modules: Sequence[nn.Module]):
+    """Re-home every parameter of ``modules[c]`` (and its ``.grad``) as a
+    view into row c of one (C, P) float32 buffer; returns ``(params,
+    grads)``. Parameters keep their values; gradients start at zero. The
+    modules must have the same architecture."""
+    plists = [list(m.parameters()) for m in modules]
+    device = plists[0][0].device
+    total = sum(p.numel() for p in plists[0])
+    flat_p = torch.empty(len(modules), total, dtype=torch.float32, device=device)
+    flat_g = torch.zeros(len(modules), total, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        for c, plist in enumerate(plists):
+            if sum(p.numel() for p in plist) != total:
+                raise ValueError("chains of different sizes")
+            offset = 0
+            for p in plist:
+                if p.dtype != torch.float32 or p.device != device:
+                    raise ValueError("flat buffers need float32 parameters on one device")
+                k = p.numel()
+                flat_p[c, offset: offset + k].copy_(p.reshape(-1))
+                p.data = flat_p[c, offset: offset + k].view_as(p)
+                p.grad = flat_g[c, offset: offset + k].view_as(p)
+                offset += k
+    return flat_p, flat_g
 
 
 def flatten_parameters(module: nn.Module):
-    """Re-home every parameter of ``module`` (and its ``.grad``) as a view
-    into one flat float32 buffer; returns ``(params, grads)``. Parameters
-    keep their values; gradients start at zero."""
-    plist = list(module.parameters())
-    device = plist[0].device
-    total = sum(p.numel() for p in plist)
-    flat_p = torch.empty(total, dtype=torch.float32, device=device)
-    flat_g = torch.zeros(total, dtype=torch.float32, device=device)
-    offset = 0
-    with torch.no_grad():
-        for p in plist:
-            if p.dtype != torch.float32 or p.device != device:
-                raise ValueError("flat buffers need float32 parameters on one device")
-            k = p.numel()
-            flat_p[offset: offset + k].copy_(p.reshape(-1))
-            p.data = flat_p[offset: offset + k].view_as(p)
-            p.grad = flat_g[offset: offset + k].view_as(p)
-            offset += k
-    return flat_p, flat_g
+    """``flatten_chains`` for one module: ``(params, grads)``, each (P,)."""
+    params, grads = flatten_chains([module])
+    return params[0], grads[0]
 
 
 def init_variables(module: nn.Module, gen: torch.Generator) -> None:
@@ -102,30 +131,138 @@ def train_steps(
     update_fn: UpdateFn,
     seeds: Sequence[int],
     aug: Optional[tuple] = None,
+    dropout_seeds: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """Run one training step per row of ``idx`` on ``state`` in place and
-    return the mean training loss, a 0-dim tensor on the device (not read
-    back). ``images`` (uint8 NHWC) and ``labels`` live on the device;
-    ``aug`` is ``(ox, oy, flip)`` from ``draw_augment`` with the same
-    leading shape as ``idx``, or None for no augmentation; ``seeds[i]``
-    keys step i's Langevin noise."""
-    module = state.module
-    module.train()
+    """Run one training step per batch of ``idx`` on every chain of
+    ``state``, in place, and return the mean training loss: a 0-dim tensor
+    for one chain, (C,) for C, on the device (not read back).
+
+    ``images`` (uint8 NHWC) and ``labels`` live on the device; ``idx`` is
+    (C, num_batches, batch) or, for one chain, (num_batches, batch);
+    ``aug`` is ``(ox, oy, flip)`` from ``draw_augment`` shaped like ``idx``,
+    or None for no augmentation; ``seeds[i]`` keys step i's Langevin noise
+    (one update over all chains); ``dropout_seeds[c]`` keys chain c's
+    dropout, step i drawing from ``make_generator(device, seed, i)`` (the
+    counterpart of ``fold_in(k_drop, i)``), and is needed only by models
+    with dropout."""
+    modules = state.modules
+    chains = len(modules)
+    idx = idx.reshape(chains, -1, idx.shape[-1])
+    if aug is not None:
+        aug = tuple(None if a is None else a.reshape(idx.shape) for a in aug)
+    has_dropout = [bool(dropout_layers(m)) for m in modules]
+    if any(has_dropout) and dropout_seeds is None:
+        raise ValueError("a model with dropout needs dropout_seeds")
+    for m in modules:
+        m.train()
     losses = []
-    for bi in range(idx.shape[0]):
-        b = idx[bi]
-        x = normalize(images.index_select(0, b), spec)
-        if aug is not None:
-            ox, oy, flip = (None if a is None else a[bi] for a in aug)
-            x = augment_normalized(x, spec, ox, oy, flip)
-        x = x.permute(0, 3, 1, 2).contiguous()
-        y = labels.index_select(0, b)
+    for bi in range(idx.shape[1]):
         state.grads.zero_()
-        loss = cross_entropy_mean(module(x), y)
-        loss.backward()
+        step_losses = []
+        for c, module in enumerate(modules):
+            b = idx[c, bi]
+            x = normalize(images.index_select(0, b), spec)
+            if aug is not None:
+                ox, oy, flip = (None if a is None else a[c, bi] for a in aug)
+                x = augment_normalized(x, spec, ox, oy, flip)
+            x = x.permute(0, 3, 1, 2).contiguous()
+            y = labels.index_select(0, b)
+            gen = (make_generator(images.device, dropout_seeds[c], bi)
+                   if has_dropout[c] else None)
+            with dropout_generator(module, gen):
+                loss = cross_entropy_mean(module(x), y)
+            loss.backward()
+            step_losses.append(loss.detach())
         lr = lr_fn(hyp, epoch, bi, state.step)
         update_fn(state, hyp, lr=lr, noise_on=noise_on,
                   is_first_step=state.step == 0, seed=seeds[bi])
         state.step += 1
-        losses.append(loss.detach())
-    return torch.stack(losses).mean()
+        losses.append(torch.stack(step_losses))
+    mean = torch.stack(losses).mean(0)
+    return mean[0] if chains == 1 else mean
+
+
+def _padded_batches(n: int, bsz: int, fill, device) -> torch.Tensor:
+    """(num_batches, bsz) indices ``arange(n)``, the last batch filled up
+    with ``fill(idx, pad)``."""
+    nb = -(-n // bsz)
+    pad = nb * bsz - n
+    idx = torch.arange(n, device=device)
+    if pad:
+        idx = torch.cat([idx, fill(idx, pad)])
+    return idx.view(nb, bsz)
+
+
+@torch.no_grad()
+def bn_refresh(module: nn.Module, split, *, images: Optional[torch.Tensor] = None,
+               dropout_seed: int = 0) -> None:
+    """Recompute every ``BatchNorm2d``'s running statistics of ``module``,
+    in place, as the exact batch-size-weighted mean of its per-batch
+    (biased) statistics over ``split`` (the reference's ``bn_update``).
+
+    Batches are ``arange(n)``, the last filled up with the first ``pad``
+    indices; the running variance is reset to 1 first. Each layer's
+    momentum is set to b/(count + b) for the batch, so that ``running =
+    count/(count + b) * running + b/(count + b) * batch``, and restored
+    after. ``images`` is the split on the module's device, if already
+    there."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    if not bns:
+        return
+    device = next(module.parameters()).device
+    if images is None:
+        images, _ = split.device_tensors(device)
+    bsz = split.batch_size
+    batches = _padded_batches(split.n, bsz, lambda idx, pad: idx[:pad], device)
+    momenta, was_training = [m.momentum for m in bns], module.training
+    has_dropout = bool(dropout_layers(module))
+    for m in bns:
+        m.running_mean.zero_()
+        m.running_var.fill_(1.0)
+    module.train()
+    try:
+        count = 0.0
+        for bi in range(batches.shape[0]):
+            for m in bns:
+                m.momentum = bsz / (count + bsz)
+            x = normalize(images.index_select(0, batches[bi]), split.spec)
+            gen = make_generator(device, dropout_seed, bi) if has_dropout else None
+            with dropout_generator(module, gen):
+                module(x.permute(0, 3, 1, 2).contiguous())
+            count += bsz
+    finally:
+        for m, mom in zip(bns, momenta):
+            m.momentum = mom
+        module.train(was_training)
+
+
+@torch.no_grad()
+def eval_loss(module: nn.Module, split, *, state: Optional[StateDict] = None,
+              dropout_seed: int = 0) -> torch.Tensor:
+    """Mean cross entropy of ``module`` (with ``state`` swapped in, if
+    given) over ``split`` in eval mode, a 0-dim tensor on the device. The
+    last batch is filled up with index -1 and those rows are masked out."""
+    device = next(module.parameters()).device
+    images, labels = split.device_tensors(device)
+    batches = _padded_batches(split.n, split.batch_size,
+                              lambda idx, pad: torch.full_like(idx[:pad], -1), device)
+    has_dropout = bool(dropout_layers(module))
+    was_training = module.training
+    module.eval()
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    try:
+        for bi in range(batches.shape[0]):
+            b = batches[bi]
+            valid = (b >= 0).to(torch.float32)
+            b = b.clamp_min(0)
+            x = normalize(images.index_select(0, b), split.spec).permute(0, 3, 1, 2)
+            x = x.contiguous()
+            gen = make_generator(device, dropout_seed, bi) if has_dropout else None
+            with dropout_generator(module, gen):
+                logits = module(x) if state is None else functional_call(module, state, (x,))
+            ce = F.cross_entropy(logits.to(torch.float32), labels.index_select(0, b),
+                                 reduction="none")
+            total = total + torch.sum(ce * valid)
+    finally:
+        module.train(was_training)
+    return total / split.n

@@ -1,6 +1,10 @@
-from .common import BatchNorm2d, Conv2d, ModelCfg, get_model, register
-from .preresnet import PreResNet  # importing registers the PreResNet configs
-from .resnet_imagenet import INResNet, TVResNet  # and the ImageNet-style ResNets
+from .common import (BatchNorm2d, Conv2d, Dropout, Linear, ModelCfg, dropout_generator,
+                     dropout_twin, get_model, register)
+from .mlp import MLP  # importing registers the MLP configs
+from .preresnet import PreResNet  # the PreResNet configs
+from .resnet_imagenet import INResNet, TVResNet  # the ImageNet-style ResNets
+from .wideresnet import WideResNet  # and WideResNet-28x10
 
-__all__ = ["BatchNorm2d", "Conv2d", "INResNet", "ModelCfg", "PreResNet", "TVResNet",
+__all__ = ["BatchNorm2d", "Conv2d", "Dropout", "INResNet", "Linear", "MLP", "ModelCfg",
+           "PreResNet", "TVResNet", "WideResNet", "dropout_generator", "dropout_twin",
            "get_model", "register"]

@@ -2,20 +2,28 @@
 
 Counterpart of ``ursabench_tpu/models/common.py``: a ``ModelCfg`` carries a
 module factory and its ``ImageSpec`` transforms; ``get_model(name)`` looks it
-up. ``BatchNorm2d`` here keeps flax's running statistics, not torch's.
+up and ``dropout_twin(name)`` finds the ``<name>_dropout`` model MCdropout
+samples with. ``BatchNorm2d`` here keeps flax's running statistics, not
+torch's.
 
-Both layers take flax's compute ``dtype``: the parameters stay float32, and
+The layers take flax's compute ``dtype``: the parameters stay float32, and
 a layer built with ``dtype=torch.bfloat16`` computes in bfloat16 (the conv
-casts its input and kernel, BatchNorm keeps float32 statistics and returns
-bfloat16), as ``flax.linen.Conv`` and ``BatchNorm`` do with ``dtype`` set.
-With ``dtype=None`` nothing is cast: the layer computes in the type of what
-it is given, as flax promotes its inputs.
+and the linear layer cast their input, kernel and bias, BatchNorm keeps
+float32 statistics and returns bfloat16), as ``flax.linen.Conv``, ``Dense``
+and ``BatchNorm`` do with ``dtype`` set. With ``dtype=None`` nothing is
+cast: the layer computes in the type of what it is given, as flax promotes
+its inputs.
+
+``Dropout`` draws its mask from a ``torch.Generator`` that the caller binds
+with ``dropout_generator(module, gen)``, never from the global RNG; an
+active dropout layer without one raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -52,20 +60,85 @@ def get_model(name: str) -> ModelCfg:
     return _REGISTRY[name]
 
 
+def dropout_twin(name: str) -> ModelCfg:
+    """The ``<name>_dropout`` twin MCdropout samples with."""
+    return get_model(name + "_dropout")
+
+
 class Conv2d(nn.Conv2d):
-    """A bias-free ``nn.Conv2d`` that computes in ``dtype`` when it is set:
-    the input and the float32 kernel are cast to it first."""
+    """An ``nn.Conv2d`` (bias-free unless ``bias``) that computes in
+    ``dtype`` when it is set: the input, the float32 kernel and the bias are
+    cast to it first."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, dtype: Optional[torch.dtype] = None):
-        super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=False)
+                 padding: int = 0, dtype: Optional[torch.dtype] = None,
+                 bias: bool = False):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
         if d is None:
             return super().forward(x)
-        return self._conv_forward(x.to(d), self.weight.to(d), None)
+        b = None if self.bias is None else self.bias.to(d)
+        return self._conv_forward(x.to(d), self.weight.to(d), b)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``dtype`` when it is set (flax
+    ``Dense(dtype=...)``)."""
+
+    def __init__(self, fin: int, fout: int, dtype: Optional[torch.dtype] = None):
+        super().__init__(fin, fout)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        if d is None:
+            return super().forward(x)
+        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: keep each element with probability 1 - p and
+    scale what is kept by 1/(1 - p). Active in training mode, and in eval
+    mode too when ``always`` (flax's ``deterministic=False``, what the
+    ``_dropout`` twins use). The mask comes from ``self.generator``, bound by
+    ``dropout_generator``; the global RNG is never used."""
+
+    def __init__(self, p: float, always: bool = False):
+        super().__init__()
+        self.p = float(p)
+        self.always = always
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.p == 0.0 or not (self.training or self.always):
+            return x
+        if self.generator is None:
+            raise RuntimeError("active Dropout without a generator: bind one with "
+                               "models.common.dropout_generator(module, gen)")
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))
+
+
+def dropout_layers(module: nn.Module) -> list:
+    return [m for m in module.modules() if isinstance(m, Dropout)]
+
+
+@contextlib.contextmanager
+def dropout_generator(module: nn.Module, gen: Optional[torch.Generator]) -> Iterator[None]:
+    """Bind ``gen`` to every ``Dropout`` of ``module`` for the block (they
+    draw from it in turn, in forward order) and unbind it after."""
+    layers = dropout_layers(module)
+    for m in layers:
+        m.generator = gen
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.generator = None
 
 
 class BatchNorm2d(nn.Module):

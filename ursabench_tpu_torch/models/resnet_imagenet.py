@@ -16,7 +16,8 @@ layer type (conv1, bn1, conv2, bn2, [conv3, bn3,] then the shortcut's conv
 and BN), so ``transfer.params_from_jax`` pairs them with ``Conv_k`` /
 ``BatchNorm_k``; the blocks keep flax's class names (``Bottleneck_k``).
 Max-pool and ReLU are functions, not child modules. The ``_dropout`` twins
-are not ported yet.
+(INResNet50_dropout, ResNet_dropout, TVResNet50_dropout) apply dropout 0.2
+to the pooled features, active in eval mode too (``models/common.Dropout``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from torch import nn
 
 from ..data.transforms import CIFAR_TEST, CIFAR_TRAIN, IMAGENET_TEST, IMAGENET_TRAIN
 from ..nn.init import fan_out_normal_, kaiming_normal_, torch_linear_, torch_linear_bias_
-from .common import BatchNorm2d, Conv2d, ModelCfg, register
+from .common import BatchNorm2d, Conv2d, Dropout, ModelCfg, register
 
 
 def _shortcut(inplanes: int, planes: int, stride: int, dtype):
@@ -85,8 +86,10 @@ class INResNet(nn.Module):
     stem_kernel, stem_stride, max_pool = 3, 1, False
 
     def __init__(self, layers: Sequence[int], bottleneck: bool = False,
-                 num_classes: int = 10, dtype=None, in_channels: int = 3):
+                 num_classes: int = 10, dtype=None, in_channels: int = 3,
+                 dropout: float = 0.0):
         super().__init__()
+        self.num_classes, self.dtype = num_classes, dtype
         block = Bottleneck if bottleneck else BasicBlock
         k = self.stem_kernel
         self.conv1 = Conv2d(in_channels, 64, k, self.stem_stride, k // 2, dtype)
@@ -99,6 +102,7 @@ class INResNet(nn.Module):
                 blocks.append(block(inplanes, planes, stride if j == 0 else 1, dtype))
                 inplanes = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+        self.dropout = Dropout(dropout, always=True) if dropout > 0 else None
         self.fc = nn.Linear(inplanes, num_classes)
 
     @torch.no_grad()
@@ -118,7 +122,10 @@ class INResNet(nn.Module):
         if self.max_pool:
             out = F.max_pool2d(out, 3, 2, 1)
         out = self.layer4(self.layer3(self.layer2(self.layer1(out))))
-        return self.fc(out.to(torch.float32).mean(dim=(2, 3)))
+        out = out.to(torch.float32).mean(dim=(2, 3))
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return self.fc(out)
 
 
 class TVResNet(INResNet):
@@ -138,14 +145,16 @@ class TVResNet(INResNet):
                 m.reset_parameters()
 
 
-def _cfg(name: str, cls, layers, bottleneck: bool, train, test) -> ModelCfg:
+def _cfg(name: str, cls, layers, bottleneck: bool, train, test,
+         dropout: float = 0.0) -> ModelCfg:
     return register(
         ModelCfg(
             name=name,
             make=lambda num_classes, **kw: cls(num_classes=num_classes, **kw),
             transform_train=train,
             transform_test=test,
-            kwargs={"layers": layers, "bottleneck": bottleneck},
+            kwargs={"layers": layers, "bottleneck": bottleneck,
+                    **({"dropout": dropout} if dropout else {})},
         )
     )
 
@@ -161,3 +170,9 @@ TVResNet18 = _cfg("TVResNet18", TVResNet, (2, 2, 2, 2), False, IMAGENET_TRAIN,
                   IMAGENET_TEST)
 TVResNet50 = _cfg("TVResNet50", TVResNet, (3, 4, 6, 3), True, IMAGENET_TRAIN,
                   IMAGENET_TEST)
+INResNet50_dropout = _cfg("INResNet50_dropout", INResNet, (3, 4, 6, 3), True, CIFAR_TRAIN,
+                          CIFAR_TEST, dropout=0.2)
+ResNet_dropout = _cfg("ResNet_dropout", INResNet, (3, 4, 6, 3), True, CIFAR_TRAIN, CIFAR_TEST,
+                      dropout=0.2)
+TVResNet50_dropout = _cfg("TVResNet50_dropout", TVResNet, (3, 4, 6, 3), True, IMAGENET_TRAIN,
+                          IMAGENET_TEST, dropout=0.2)

@@ -7,6 +7,7 @@ Counterpart of ``ursabench_tpu/nn/init.py``:
   scaling.
 - INResNet convs and head: ``kaiming_normal``, N(0, sqrt(2/fan_in)).
 - Linear kernel and bias: torch's default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)).
+- WideResNet convs, kernel and bias: the same torch default.
 """
 
 from __future__ import annotations
@@ -53,3 +54,16 @@ def torch_linear_(weight: torch.Tensor, bias: torch.Tensor | None,
     weight.copy_(_host(weight).uniform_(-bound, bound, generator=gen))
     if bias is not None:
         torch_linear_bias_(bias, weight.shape[1], gen)
+
+
+@torch.no_grad()
+def torch_conv_(weight: torch.Tensor, bias: torch.Tensor | None,
+                gen: torch.Generator) -> None:
+    """In place: torch's default for an OIHW conv, U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) for the kernel and its bias, fan_in = in * kh * kw (the
+    value WideResNet's flax convs pass to their bias initialiser)."""
+    fan_in = weight[0].numel()
+    bound = 1.0 / math.sqrt(fan_in)
+    weight.copy_(_host(weight).uniform_(-bound, bound, generator=gen))
+    if bias is not None:
+        torch_linear_bias_(bias, fan_in, gen)

@@ -37,7 +37,8 @@ def accumulate_split(ensemble: Ensemble, split, smooth_probs: bool):
     the summed probabilities are the centrally smoothed ones.
 
     Batches keep the split's batch size: the last one is filled up with
-    index 0 and the padded rows are sliced off at the end."""
+    index 0 and the padded rows are sliced off at the end. Batch ``bi`` is
+    passed to ``logits_all``, which keys the members' dropout streams."""
     device = ensemble.device
     images, _ = split.device_tensors(device)
     n, bsz = split.n, split.batch_size
@@ -50,7 +51,7 @@ def accumulate_split(ensemble: Ensemble, split, smooth_probs: bool):
     acc_p = acc_e = None
     for bi in range(nb):
         x = normalize(images.index_select(0, idx[bi]), split.spec)
-        logits = ensemble.logits_all(x.permute(0, 3, 1, 2).contiguous())
+        logits = ensemble.logits_all(x.permute(0, 3, 1, 2).contiguous(), bi)
         probs = softmax_probs(logits.to(torch.float32))
         smoothed = central_smoothing(probs)
         if acc_p is None:

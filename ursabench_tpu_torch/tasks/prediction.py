@@ -73,12 +73,12 @@ class Prediction(_Task):
     @torch.no_grad()
     def _accumulate_timed(self, models: Ensemble):
         probs_chunks, ent_chunks = [], []
-        for x, _ in self.split.batches(models.device):
+        for bi, (x, _) in enumerate(self.split.batches(models.device)):
             x = x.permute(0, 3, 1, 2).contiguous()
             if x.is_cuda:
                 torch.cuda.synchronize(x.device)
             t0 = time.perf_counter()
-            logits = models.logits_all(x)
+            logits = models.logits_all(x, bi)
             logits.cpu()  # the timed device->host copy; the logits stay on the device
             self.latencies.append(time.perf_counter() - t0)
             p = softmax_probs(logits.to(torch.float32))

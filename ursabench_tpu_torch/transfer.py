@@ -5,10 +5,13 @@ creation order. The modules of this package register their children in the
 same order, so walking ``named_children`` and counting per type pairs every
 torch layer with its flax scope. ``nn.ModuleList`` containers are walked
 through, since their flax counterparts sit directly in the parent scope.
+Children without parameters (``Dropout``) have no flax scope and are
+passed over.
 
-Layouts: conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
-BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` map to
-``weight``/``bias`` and ``running_mean``/``running_var``.
+Layouts: conv kernels HWIO -> OIHW (and the bias, where the conv has one),
+dense kernels (in, out) -> (out, in); BatchNorm ``scale``/``bias`` and
+``batch_stats`` ``mean``/``var`` map to ``weight``/``bias`` and
+``running_mean``/``running_var``.
 
 Takes numpy arrays only (``jax.tree.map(np.asarray, variables)`` on the JAX
 side), so this module imports no JAX.
@@ -36,6 +39,8 @@ def _flax_children(module: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
             if isinstance(child, (nn.ModuleList, nn.Sequential)):
                 yield from walk(child)
                 continue
+            if next(child.parameters(), None) is None:
+                continue  # no parameters, no flax scope
             kind = next((name for t, name in _FLAX_TYPE.items() if isinstance(child, t)),
                         type(child).__name__)
             yield f"{kind}_{counts[kind]}", child
@@ -45,7 +50,7 @@ def _flax_children(module: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
 
 
 def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
-    src = torch.from_numpy(np.array(src, dtype=np.float32))
+    src = torch.from_numpy(np.array(src)).to(dst.dtype)
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{name}: flax shape {tuple(src.shape)} != torch "
                          f"shape {tuple(dst.shape)}")
@@ -71,7 +76,13 @@ def _load(module: nn.Module, params: Mapping, stats: Mapping, scope: str):
             raise KeyError(f"no flax params at {path}")
         p = params[name]
         if isinstance(child, nn.Conv2d):
+            want = {"kernel"} | ({"bias"} if child.bias is not None else set())
+            if set(p) != want:
+                raise KeyError(f"{path}: flax leaves {sorted(p)}, torch conv has "
+                               f"{sorted(want)}")
             _copy(child.weight, np.transpose(p["kernel"], (3, 2, 0, 1)), path)
+            if child.bias is not None:
+                _copy(child.bias, p["bias"], path)
         elif isinstance(child, nn.Linear):
             _copy(child.weight, np.transpose(p["kernel"]), path)
             _copy(child.bias, p["bias"], path)
@@ -87,3 +98,4 @@ def _load(module: nn.Module, params: Mapping, stats: Mapping, scope: str):
     if missing:
         raise KeyError(f"flax scopes without a torch layer under "
                        f"{scope or '/'}: {sorted(missing)}")
+

@@ -8,9 +8,10 @@ sample axis where the JAX package stacks pytrees.
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
+from torch import nn
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -29,6 +30,37 @@ def make_generator(device, seed: int, *tags) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(derive_seed(seed, *tags))
     return gen
+
+
+def ravel(module: nn.Module) -> torch.Tensor:
+    """``module``'s parameters as one flat vector, in ``parameters()``
+    order: a view of the flat buffer after ``engine.flatten_parameters``, a
+    copy otherwise. (The JAX package's ``ravel`` orders leaves by pytree
+    path, so the two vectors are permutations of each other.)"""
+    plist = [p.detach() for p in module.parameters()]
+    storage = plist[0].untyped_storage().data_ptr()
+    start, offset = plist[0].storage_offset(), 0
+    for p in plist:  # a view only if the parameters tile one buffer in order
+        if (p.untyped_storage().data_ptr() != storage or not p.is_contiguous()
+                or p.storage_offset() != start + offset):
+            return torch.cat([q.reshape(-1) for q in plist])
+        offset += p.numel()
+    return plist[0].as_strided((offset,), (1,), start)
+
+
+def unraveler(module: nn.Module) -> Callable[[torch.Tensor], StateDict]:
+    """A function mapping a flat vector in ``ravel(module)``'s order to
+    ``{parameter name: view of the vector}``."""
+    shapes = [(name, p.shape, p.numel()) for name, p in module.named_parameters()]
+
+    def unravel(vec: torch.Tensor) -> StateDict:
+        out, offset = {}, 0
+        for name, shape, k in shapes:
+            out[name] = vec[offset: offset + k].view(shape)
+            offset += k
+        return out
+
+    return unravel
 
 
 def stack_state_dicts(states: Sequence[StateDict]) -> StateDict:
