@@ -71,11 +71,27 @@ Phases, each ending with its seconds:
    within 1e-4 of each layer's largest statistic; K1 at the two stacked
    chains (73,093,960 floats) equal to its plain version with the noise
    off, its noise statistics, and both device times from CUDA graphs
-   beside the 436 us bound.
+   beside the 436 us bound;
+12. the benchmark runner (experiment): `cli run` in this process, (a)
+   BASELINE.md config 4 at full width and depth: WideResNet-28x10 bf16 /
+   synthetic CIFAR-100 (2,048 train, 512 test images, batch 128), SGHMC
+   with 2 chains (1 burn-in epoch, 2 draws), 2 trials of Prediction and OOD
+   detection against STL10 and SVHN, then the Decision task on an
+   imbalanced train set for each trial: every result key of the JAX runner
+   finite, the OOD AUROCs in [0, 1], the CSV row and the .npz written, K1
+   once a step for both chains over all four samplers, and (d) every
+   chain's last-epoch loss below its first; (b) validation mode (one CSV
+   row) and test mode on MLP200MNIST / MNIST with SGLD, the MNIST cost
+   matrix and the FashionMNIST and KMNIST pairings; (c) that SGLD
+   ensemble distilled onto MLP200MNIST and an entropy head, the distilled
+   error within 0.2 of the ensemble's and the distilled OOD AUROCs in
+   [0, 1]; the seconds of sampling, of each task's BMA passes and of its
+   host metrics, and the step-forwards/s.
 The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
 32, in the three precisions under both member strategies.
 Then a JSON line describing each kernel (its launches on the main path,
-K1's summed over the slice, the ImageNet slice and the samplers; its
+K1's summed over the slice, the ImageNet slice, the samplers and the
+experiment phase; its
 error against its plain version, its time, the plain version's, its
 bound and the single library call's where there is one), and last the JSON
 line {"ok": true, "device": {...}}. Any failed check exits non-zero before
@@ -166,6 +182,15 @@ SAMPLERS = {
              3, 5, 1),
 }
 K1_WRN_CALLS = 20  # graph-timed K1 calls at the two stacked WRN chains
+# the experiment phase: BASELINE.md config 4 (WRN-28x10 / CIFAR-100, SGHMC with
+# 2 chains, OOD against STL10 and SVHN) through `cli run`; SGHMC's hyperparameters
+# are the reference's tuned ones for that pair (assets/tuned_hyperparams.json),
+# cut to 1 burn-in epoch and 2 draws
+EXP_HYP = {"lr": 0.1, "prior_std": 0.5, "alpha": 0.5, "burn_in_epochs": 1, "num_samples": 2}
+EXP_TRIALS = 2
+EXP_OUT = "smoke_out/experiment"  # the runner's CSV rows and .npz files
+MNIST_HYP = {"lr": 0.03, "prior_std": 1.0, "num_samples": 4, "burn_in_epochs": 3}  # SGLD
+MNIST_TRAIN, MNIST_TEST = 4096, 1024
 
 
 def check(cond: bool, msg: str) -> None:
@@ -950,6 +975,219 @@ def samplers_phase(device) -> dict:
     return {"launches": launches, "rows": rows, "k1": k1}
 
 
+def _run_cli(argv, runs):
+    """``cli run argv`` in this process, every sampler it makes recorded in
+    ``runs``: its epochs, chains, batches an epoch, epoch losses (epochs,
+    chains) and ensemble. Returns the seconds and K1's launches."""
+    from ursabench_tpu_torch import cli, experiment
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    make = experiment._make_sampler
+
+    def recording(args, hyp, module, train, seed, device):
+        sampler = make(args, hyp, module, train, seed, device)
+        sample = sampler.sample
+
+        def sample_and_record():
+            ens = sample()
+            runs.append({"epochs": sampler.epochs_run, "chains": sampler.chains,
+                         "batches": train.num_batches, "ensemble": ens,
+                         "losses": torch.stack([torch.as_tensor(v).float().reshape(-1)
+                                                for v in sampler.epoch_losses]).cpu()})
+            return ens
+
+        sampler.sample = sample_and_record
+        return sampler
+
+    experiment._make_sampler = recording
+    try:
+        sghmc_update_flat.launches = 0
+        t0 = time.perf_counter()
+        check(cli.main(["run", *argv]) == 0, f"cli run {argv} failed")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, sghmc_update_flat.launches
+    finally:
+        experiment._make_sampler = make
+
+
+def _check_launches(name, launches, runs) -> int:
+    steps = sum(r["epochs"] * r["batches"] for r in runs)
+    check(launches == steps, f"{name}: K1 launched {launches} times for {steps} steps "
+          f"(all chains of a step in one launch)")
+    return steps
+
+
+def _csv_rows(path) -> list:
+    import csv
+
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def _stage_line(timings) -> str:
+    parts = [f"data {timings['data']:.2f} s, sampler set-up {timings['setup']:.2f} s, "
+             f"sampling {timings['sample']:.2f} s"]
+    for task in ("Prediction", "Decision", "OODDetection"):
+        if f"{task}_bma" in timings:
+            bma, host = timings[f"{task}_bma"], timings[f"{task}_host"]
+            parts.append(f"{task} BMA {timings[f'{task}_images'] / bma:.0f} img/s "
+                         f"({bma:.2f} s), host metrics {host:.3f} s")
+    return "; ".join(parts)
+
+
+def experiment_phase(device) -> dict:
+    """The benchmark runner on the card, through `cli run`: (a) BASELINE
+    config 4 at full width and depth in test mode, with the imbalanced
+    Decision rerun; (b) validation mode, and test mode on MNIST; (c) the SGLD
+    ensemble of (b) distilled and scored by the distilled tasks; (d) every
+    SGHMC chain's training loss falling over its epochs in (a)."""
+    import os
+
+    from ursabench_tpu_torch import data, experiment, inference, models, tasks
+
+    os.makedirs(EXP_OUT, exist_ok=True)
+    for fn in os.listdir(EXP_OUT):
+        os.remove(os.path.join(EXP_OUT, fn))
+    out = {}
+
+    # (a) WRN-28x10 bf16 / CIFAR-100, 2 chains, 2 trials, OOD STL10 + SVHN
+    runs = []
+    save = f"{EXP_OUT}/config4"
+    argv = ["--dataset", "CIFAR100", "--model", "WideResNet28x10", "--dtype", "bf16",
+            "--inference_method", "SGHMC", "--chains", "2", "--num_trials", str(EXP_TRIALS),
+            "--synthetic_n_train", str(WRN_TRAIN), "--synthetic_n_test", str(WRN_TEST),
+            "--batch_size", str(BATCH), "--use_dm_imbalance", "--save_path", save,
+            "--hyperparams", json.dumps(EXP_HYP)]
+    seconds, launches = _run_cli(argv, runs)
+    timings = dict(experiment.TIMINGS)
+    check(len(runs) == 2 * EXP_TRIALS, f"{len(runs)} samplers, not {2 * EXP_TRIALS}")
+    epochs = EXP_HYP["burn_in_epochs"] + EXP_HYP["num_samples"]
+    for r in runs:
+        check(r["epochs"] == epochs and r["chains"] == 2
+              and r["ensemble"].num_members == 2 * EXP_HYP["num_samples"],
+              f"config 4: {r['epochs']} epochs, {r['chains']} chains")
+        check(sum(p.numel() for p in r["ensemble"].module.parameters()) == WRN_FLAT,
+              "config 4: not WRN-28x10's parameter count")
+        # (d) SG-MCMC on the card: each chain's last epoch below its first
+        losses = r["losses"]
+        check(bool(torch.isfinite(losses).all()), f"config 4: losses {losses.tolist()}")
+        check(bool((losses[-1] < losses[0]).all()),
+              f"config 4: an SGHMC chain's loss did not fall: {losses.tolist()}")
+    check(runs[0]["batches"] == WRN_STEPS and runs[-1]["batches"] <= WRN_STEPS,
+          f"batches an epoch {[r['batches'] for r in runs]}")
+    steps = _check_launches("config 4", launches, runs)
+    results = dict(np.load(save + "_tests.npz"))
+    metrics = ([m for m in tasks.Prediction.supported_metric_list]
+               + [f"{kind}_uncertainty_auroc_{d}" for d in ("STL10", "SVHN")
+                  for kind in ("total", "model")] + ["cost"])
+    want = {f"{m}_{stat}" for m in metrics for stat in ("mean", "std")}
+    check(set(results) == want, f"config 4 keys: {sorted(set(results) ^ want)}")
+    # the two trials' error rates from their mean and std (ddof 1): a trial
+    # that got every image right or wrong leaves the misclass ranks undefined
+    half = float(results["error_rate_std"]) / math.sqrt(2)
+    errs = [float(results["error_rate_mean"]) + sign * half for sign in (-1, 1)]
+    degenerate = any(min(e, 1 - e) < 1e-6 for e in errs)
+    for k, v in results.items():
+        nan_by_design = k.startswith("misclass") and degenerate
+        check(math.isfinite(float(v)) or nan_by_design, f"config 4: {k} = {v}")
+        if "auroc" in k and k.endswith("_mean") and not nan_by_design:
+            check(0.0 <= float(v) <= 1.0, f"config 4: {k} = {v}")
+    rows = _csv_rows(save + "results.csv")
+    check(len(rows) == 1 and len(rows[0]) == 6 + len(EXP_HYP) + len(want),
+          f"config 4: CSV rows {[len(r) for r in rows]}")
+    forwards = sum(r["epochs"] * r["batches"] * r["chains"] for r in runs)
+    out["config4"] = {"seconds": seconds, "launches": launches, "steps": steps,
+                      "step_forwards_per_s": forwards / timings["sample"],
+                      "timings": timings,
+                      "losses": [r["losses"].tolist() for r in runs],
+                      "batches": [r["batches"] for r in runs],
+                      "results": {k: float(v) for k, v in results.items()}}
+    print(f"  config 4 (WRN-28x10 bf16 / CIFAR-100, SGHMC x2 chains, {EXP_TRIALS} trials + "
+          f"{EXP_TRIALS} imbalanced): {seconds:.1f} s, K1 {launches} launches = {steps} steps; "
+          f"{forwards / timings['sample']:.2f} step-forwards/s; {_stage_line(timings)}; "
+          f"error {results['error_rate_mean']:.4f}, AUROC total/model STL10 "
+          f"{results['total_uncertainty_auroc_STL10_mean']:.4f}/"
+          f"{results['model_uncertainty_auroc_STL10_mean']:.4f}, SVHN "
+          f"{results['total_uncertainty_auroc_SVHN_mean']:.4f}/"
+          f"{results['model_uncertainty_auroc_SVHN_mean']:.4f}, imbalanced cost "
+          f"{results['cost_mean']:.1f}; epoch losses "
+          f"{[[round(v, 3) for v in r['losses'][:, c].tolist()] for r in runs for c in (0, 1)]}",
+          flush=True)
+    runs.clear()
+
+    # (b) validation mode, then test mode on MNIST (FashionMNIST/KMNIST pairings)
+    mnist = ["--dataset", "MNIST", "--model", "MLP200MNIST", "--inference_method", "SGLD",
+             "--batch_size", str(BATCH), "--synthetic_n_train", str(MNIST_TRAIN),
+             "--synthetic_n_test", str(MNIST_TEST), "--hyperparams", json.dumps(MNIST_HYP)]
+    seconds_val, launches_val = _run_cli(mnist + ["--use_val", "--save_path",
+                                                  f"{EXP_OUT}/val_"], runs)
+    steps_val = _check_launches("validation", launches_val, runs)
+    rows = _csv_rows(f"{EXP_OUT}/val_results.csv")
+    check(len(rows) == 1 and len(rows[0]) == 6 + len(MNIST_HYP) + 11,
+          f"validation: CSV rows {[len(r) for r in rows]}")
+    runs.clear()
+    seconds_mnist, launches_mnist = _run_cli(mnist + ["--save_path", f"{EXP_OUT}/mnist"], runs)
+    mnist_timings = dict(experiment.TIMINGS)
+    steps_mnist = _check_launches("MNIST", launches_mnist, runs)
+    res = dict(np.load(f"{EXP_OUT}/mnist_tests.npz"))
+    for d in ("FashionMNIST", "KMNIST"):
+        for kind in ("total", "model"):
+            v = float(res[f"{kind}_uncertainty_auroc_{d}_mean"])
+            check(0.0 <= v <= 1.0, f"MNIST: {kind} AUROC against {d} = {v}")
+    splits, c = data.loaders("MNIST", None, BATCH, use_validation=False,
+                             synthetic_n_train=MNIST_TRAIN, synthetic_n_test=MNIST_TEST,
+                             transform_train=models.get_model("MLP200MNIST").transform_train,
+                             transform_test=models.get_model("MLP200MNIST").transform_test)
+    ens = runs[0]["ensemble"]
+    dec = tasks.Decision({"decision_data_test": splits["test"]}, c)
+    cost = dec.update_statistics(ens, output_performance=True)["True_Cost"]
+    check(dec.cost_mat[3, 0] == dec.cost_mat[7, 1] == 100.0 and dec.cost_mat[0, 3] == 0.1,
+          "MNIST cost matrix")
+    check(abs(cost - float(res["cost_mean"])) < 1e-6, f"MNIST cost {cost} vs {res['cost_mean']}")
+    print(f"  MNIST (MLP200MNIST, SGLD): validation mode {seconds_val:.1f} s, 1 CSV row, "
+          f"K1 {launches_val} launches; test mode {seconds_mnist:.1f} s, K1 {launches_mnist}, "
+          f"{_stage_line(mnist_timings)}; error {float(res['error_rate_mean']):.4f}, cost "
+          f"{cost:.1f}, AUROC total FashionMNIST "
+          f"{float(res['total_uncertainty_auroc_FashionMNIST_mean']):.4f}, KMNIST "
+          f"{float(res['total_uncertainty_auroc_KMNIST_mean']):.4f}", flush=True)
+
+    # (c) distillation of the MNIST ensemble onto MLP200MNIST and a small head
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pair = inference.distill_ensemble(ens, splits["train"],
+                                      models.get_model("MLP200MNIST").build(c),
+                                      inference.EntropyHead(784), epochs=15, lr=2e-3,
+                                      seed=0, device=device)
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    pred = tasks.PredictionDistilled({"in_distribution_test": splits["test"]}, c,
+                                     metric_list=["error_rate", "nll"])
+    pred.update_statistics(pair, output_performance=False)
+    dm = pred.get_performance_metrics()
+    ens_err = float(res["error_rate_mean"])
+    check(dm["error_rate"] <= ens_err + 0.2 and math.isfinite(dm["nll"]),
+          f"distilled error {dm['error_rate']} vs the ensemble's {ens_err}")
+    ood, _ = data.loaders("FashionMNIST", None, BATCH, use_validation=False,
+                          synthetic_n_train=BATCH, synthetic_n_test=MNIST_TEST)
+    dood = tasks.OODDetectionDistilled({"in_distribution_test": splits["test"],
+                                        "out_distribution_test": ood["test"]}, c
+                                       ).update_statistics(pair, output_performance=True)
+    check(all(0.0 <= v <= 1.0 for v in dood.values()), f"distilled OOD {dood}")
+    print(f"  distillation: {distill_s:.2f} s (2 x 15 epochs of Adam), distilled error "
+          f"{dm['error_rate']:.4f} against the ensemble's {ens_err:.4f}; distilled OOD "
+          f"FashionMNIST {json.dumps(dood)}", flush=True)
+    runs.clear()
+
+    out["mnist"] = {"validation_s": seconds_val, "test_s": seconds_mnist,
+                    "timings": mnist_timings, "error_rate": ens_err, "cost": cost,
+                    "distill_s": distill_s, "distilled": dm, "distilled_ood": dood}
+    out["launches"] = launches + launches_val + launches_mnist
+    out["steps"] = steps + steps_val + steps_mnist
+    with open(f"{EXP_OUT}/experiment_phase.json", "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", flush=True)
@@ -999,12 +1237,14 @@ def main() -> int:
     probe = phase("conv1x1 probe", probe_phase, device)
     imagenet = phase("imagenet slice", imagenet_phase, device)
     samplers = phase("samplers", samplers_phase, device)
+    experiment = phase("experiment", experiment_phase, device)
 
     kernels = [{
         "name": "sghmc_update", "route": "cuda",
         "source": "ursabench_tpu_torch/csrc/sghmc_update.cu",
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
-        "launches": launches + imagenet["k1_launches"] + samplers["launches"],
+        "launches": (launches + imagenet["k1_launches"] + samplers["launches"]
+                     + experiment["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], samplers["k1"]["max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": None,

@@ -1,7 +1,9 @@
 """ursabench_tpu_torch.data against ursabench_tpu.data: the same bytes from
-the synthetic generator, the readers and the loaders, and the same batches
-from normalize + crop + flip given the random choices the JAX package drew."""
+the synthetic generator, the readers (on tiny files written here) and the
+loaders with every option, and the same batches from normalize + crop +
+flip given the random choices the JAX package drew."""
 
+import os
 import pickle
 
 import jax
@@ -83,10 +85,15 @@ def test_read_cifar_from_disk_identical(tmp_path):
 
 
 def test_unported_datasets_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsources.load_raw("SVHN", None, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.loaders("CIFAR10", None, 32, imbalance=True)
+    """Every dataset of the JAX package loads; one it does not know raises
+    as it does there."""
+    for loader in (jsources.load_raw, tsources.load_raw):
+        with pytest.raises(NotImplementedError, match="Unknown dataset"):
+            loader("ImageNet21k", None, True)
+    with pytest.raises(ValueError):
+        tdata.loaders("CIFAR100", None, 32, split_classes=0)
+    with pytest.raises(ValueError):
+        tdata.loaders_inc("SVHN", None, 2, 32)
 
 
 def test_split_device_tensors_and_batches():
@@ -96,8 +103,10 @@ def test_split_device_tensors_and_batches():
     images, labels = split.device_tensors("cpu")
     assert images.dtype == torch.uint8 and tuple(images.shape) == (70, 28, 28, 1)
     assert labels.dtype == torch.int64
-    sizes = [x.shape[0] for x, _ in split.batches()]
+    sizes = [x.shape[0] for x, _ in split.batches("cpu")]
     assert sizes == [32, 32, 6] and split.num_batches == 3
+    with pytest.raises(TypeError):  # the device is the caller's to name
+        next(split.batches())
     with pytest.raises(ValueError):
         tdata.DataSplit(np.zeros((2, 3, 3), np.uint8), np.zeros(2), 1,
                         ttransforms.MNIST_TRAIN)
@@ -160,3 +169,157 @@ def test_synth_imagenet_bytes_identical(tmp_path, monkeypatch):
     np.testing.assert_array_equal(np.asarray(xj), xt)
     np.testing.assert_array_equal(yj, yt)
     assert yt.min() >= 0 and yt.max() < 1000
+
+
+NEW_DATASETS = ["SVHN", "STL10", "TIN", "LSUN", "CelebA"]
+
+
+@pytest.mark.parametrize("name", NEW_DATASETS)
+@pytest.mark.parametrize("train", [True, False])
+def test_synthetic_ood_datasets_identical(name, train):
+    """load_raw's synthetic fallback, STL-10's label remap included."""
+    xj, yj, sj = jsources.load_raw(name, None, train, synthetic_n=40)
+    xt, yt, st = tsources.load_raw(name, None, train, synthetic_n=40)
+    assert sj and st and xt.dtype == np.uint8 and yt.dtype == np.int64
+    np.testing.assert_array_equal(np.asarray(xj), xt)
+    np.testing.assert_array_equal(np.asarray(yj), yt)
+    np.testing.assert_array_equal(tsources.STL_CLS_MAPPING, jsources.STL_CLS_MAPPING)
+
+
+def test_read_svhn_from_disk_identical(tmp_path):
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(1)
+    for split in ("train", "test"):
+        savemat(tmp_path / f"{split}_32x32.mat",
+                {"X": rng.integers(0, 256, (32, 32, 3, 9), dtype=np.uint8),
+                 "y": rng.integers(1, 11, (9, 1)).astype(np.uint8)})
+    for train in (True, False):
+        xj, yj, sj = jsources.load_raw("SVHN", str(tmp_path), train)
+        xt, yt, st = tsources.load_raw("SVHN", str(tmp_path), train)
+        assert not sj and not st and xt.shape == (9, 32, 32, 3)
+        assert 0 <= yt.min() and yt.max() <= 9  # '10' is digit 0
+        np.testing.assert_array_equal(xj, xt)
+        np.testing.assert_array_equal(yj, yt)
+
+
+def test_read_stl10_from_disk_identical(tmp_path):
+    rng = np.random.default_rng(2)
+    base = tmp_path / "stl10_binary"
+    base.mkdir()
+    for kind in ("train", "test"):
+        rng.integers(0, 256, 5 * 3 * 96 * 96, dtype=np.uint8).tofile(base / f"{kind}_X.bin")
+        np.array([1, 2, 3, 7, 10], np.uint8).tofile(base / f"{kind}_y.bin")
+    for train in (True, False):
+        xj, yj, _ = jsources.load_raw("STL10", str(tmp_path), train)
+        xt, yt, st = tsources.load_raw("STL10", str(tmp_path), train)
+        assert not st and xt.shape == (5, 32, 32, 3)
+        np.testing.assert_array_equal(xj, xt)
+        np.testing.assert_array_equal(yj, yt)
+        np.testing.assert_array_equal(yt, [0, 2, 1, 7, 9])  # remapped to CIFAR order
+
+
+def _png_tree(root, classes, size, rng, per_class=2):
+    from PIL import Image
+
+    for split in ("train", "test"):
+        for cls in classes:
+            d = root / split / cls / "images"
+            d.mkdir(parents=True)
+            for i in range(per_class):
+                img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+                Image.fromarray(img).save(d / f"{i}.png")
+
+
+@pytest.mark.parametrize("name", ["TIN", "LSUN", "CelebA"])
+def test_read_image_folders_identical(tmp_path, name):
+    pytest.importorskip("PIL")
+    rng = np.random.default_rng(3)
+    _png_tree(tmp_path, ["b_cls", "a_cls", "c_cls"], 48, rng)  # resized to 64
+    os.rename(tmp_path / "test" / "c_cls", tmp_path / "test_c")  # test lacks a class
+    for train in (True, False):
+        xj, yj, _ = jsources.load_raw(name, str(tmp_path), train)
+        xt, yt, st = tsources.load_raw(name, str(tmp_path), train)
+        assert not st and xt.shape[1:] == (64, 64, 3)
+        np.testing.assert_array_equal(xj, xt)
+        np.testing.assert_array_equal(yj, yt)
+    # the train/ listing fixes the ids of both splits
+    assert sorted(set(tsources.load_raw(name, str(tmp_path), False)[1])) == [0, 1]
+    if name != "TIN":
+        sj, cj = jdata.loaders(name, str(tmp_path), 4, use_validation=False)
+        st, ct = tdata.loaders(name, str(tmp_path), 4, use_validation=False)
+        assert cj == ct == 3
+        np.testing.assert_array_equal(np.asarray(sj["test"].labels), st["test"].labels)
+
+
+def test_image_folder_half_on_disk_raises(tmp_path):
+    pytest.importorskip("PIL")
+    _png_tree(tmp_path, ["x", "y"], 64, np.random.default_rng(4))
+    import shutil
+
+    shutil.rmtree(tmp_path / "test")
+    for loaders in (jdata.loaders, tdata.loaders):
+        with pytest.raises(ValueError, match="synthetic"):
+            loaders("LSUN", str(tmp_path), 4, use_validation=False, synthetic_n_test=8)
+    with pytest.raises(ValueError, match="class dirs"):
+        tsources.read_image_folder(str(tmp_path / "train"), 64, classes=["x"])
+
+
+def _assert_splits_equal(sj, st):
+    for part in ("train", "test"):
+        np.testing.assert_array_equal(np.asarray(sj[part].images), st[part].images)
+        np.testing.assert_array_equal(np.asarray(sj[part].labels), st[part].labels)
+        assert (sj[part].spec.mean, sj[part].spec.std) == (st[part].spec.mean, st[part].spec.std)
+        assert sj[part].dataset_name == st[part].dataset_name
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dataset="CIFAR10", split_classes=0),
+    dict(dataset="CIFAR10", split_classes=1, use_validation=True),
+    dict(dataset="MNIST", imbalance=True),
+    dict(dataset="CIFAR10", imbalance=True),
+    dict(dataset="CIFAR100", imbalance=True, use_validation=True),
+    dict(dataset="SVHN", use_validation=True),
+    dict(dataset="SVHN", use_validation=True, val_size=30),
+    dict(dataset="SVHN", use_validation=False),
+    dict(dataset="STL10", use_validation=False),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_loader_options_identical(kw):
+    kw = {"use_validation": False, "batch_size": 32, "seed": 2, "synthetic_n_train": 400,
+          "synthetic_n_test": 60, **kw}
+    dataset = kw.pop("dataset")
+    sj, cj = jdata.loaders(dataset, None, **kw)
+    st, ct = tdata.loaders(dataset, None, **kw)
+    assert cj == ct
+    _assert_splits_equal(sj, st)
+    if kw.get("imbalance"):
+        costly, frac = tdata._IMBALANCE[dataset]
+        full, _ = tdata.loaders(dataset, None, **{**kw, "imbalance": False})
+        if not kw["use_validation"]:
+            for label in costly:
+                n = int((full["train"].labels == label).sum())
+                assert int((st["train"].labels == label).sum()) == int(n - frac * n)
+
+
+def test_svhn_test_set_cut_to_10000():
+    kw = dict(batch_size=128, use_validation=False, synthetic_n_train=8,
+              synthetic_n_test=10_010)
+    sj, _ = jdata.loaders("SVHN", None, **kw)
+    st, _ = tdata.loaders("SVHN", None, **kw)
+    assert st["test"].n == 10_000
+    np.testing.assert_array_equal(np.asarray(sj["test"].images), st["test"].images)
+
+
+@pytest.mark.parametrize("use_validation", [True, False])
+def test_loaders_inc_identical(use_validation):
+    kw = dict(use_validation=use_validation, val_size=50, seed=3, synthetic_n_train=230,
+              synthetic_n_test=40)
+    sj, cj = jdata.loaders_inc("CIFAR10", None, 3, 32, **kw)
+    st, ct = tdata.loaders_inc("CIFAR10", None, 3, 32, **kw)
+    assert cj == ct == 10 and len(st["train"]) == len(sj["train"]) == 3
+    for a, b in zip(sj["train"], st["train"]):
+        np.testing.assert_array_equal(np.asarray(a.images), b.images)
+        np.testing.assert_array_equal(np.asarray(a.labels), b.labels)
+    assert [b.n for b in st["train"]] == ([60, 60, 60] if use_validation else [77, 77, 76])
+    np.testing.assert_array_equal(np.asarray(sj["test"].labels), st["test"].labels)
+    np.testing.assert_array_equal(np.asarray(sj["test"].images), st["test"].images)

@@ -1,0 +1,199 @@
+"""The benchmark runner and the CLI of ursabench_tpu_torch against the JAX
+package's: both drivers' ``main`` with the same arguments and, in place of
+the sampler, the same two-member ensemble (transferred from flax), give
+the same results, CSV rows and ``.npz`` keys; the flags whose machinery is
+not ported raise naming their ROADMAP.md item; ``cli`` dispatches."""
+
+import csv
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ursabench_tpu import experiment as jexp
+from ursabench_tpu import models as jmodels
+from ursabench_tpu.inference.engine import init_variables as jinit
+from ursabench_tpu.inference.ensemble import Ensemble as JEnsemble
+from ursabench_tpu_torch import cli as tcli
+from ursabench_tpu_torch import experiment as texp
+from ursabench_tpu_torch import inference as tinference
+from ursabench_tpu_torch import models as tmodels
+from ursabench_tpu_torch.inference.ensemble import Ensemble as TEnsemble
+from ursabench_tpu_torch.transfer import params_from_jax
+
+torch.set_num_threads(1)
+
+HYP = {"lr": 0.03, "prior_std": 1.0, "num_samples": 2, "burn_in_epochs": 1}
+ARGV = ["--dataset", "MNIST", "--model", "MLP200MNIST", "--inference_method", "SGLD",
+        "--batch_size", "32", "--hyperparams", json.dumps(HYP),
+        "--synthetic_n_train", "96", "--synthetic_n_test", "70"]
+
+
+@pytest.fixture(autouse=True)
+def _no_synth_cache(monkeypatch):
+    monkeypatch.setenv("URSA_SYNTH_CACHE", "0")
+
+
+class _Drawn:
+    """Stands in for a sampler: ``sample()`` returns a given ensemble."""
+
+    def __init__(self, ensemble):
+        self.ensemble = ensemble
+
+    def sample(self):
+        return self.ensemble
+
+
+def _ensembles():
+    """Two 2-member MLP200MNIST ensembles, the trials' stand-ins, with
+    sharpened heads so that no metric rests on a near tie."""
+    jm = jmodels.get_model("MLP200MNIST").build(10)
+    jens, tens = [], []
+    for trial in range(2):
+        variables = []
+        for k in range(2):
+            v = jinit(jm, jax.random.PRNGKey(20 + 2 * trial + k), (28, 28, 1))
+            head = v["params"]["Dense_2"]
+            v = {"params": {**v["params"], "Dense_2": {"kernel": head["kernel"] * 8.0,
+                                                       "bias": head["bias"]}}}
+            variables.append(v)
+        jens.append(JEnsemble.from_list(jm, variables))
+        states = [{k: t.clone() for k, t in params_from_jax(
+            tmodels.get_model("MLP200MNIST").build(10),
+            jax.tree.map(np.array, v)).state_dict().items()} for v in variables]
+        tens.append(TEnsemble.from_list(tmodels.get_model("MLP200MNIST").build(10), states))
+    return jens, tens
+
+
+@pytest.fixture
+def injected(monkeypatch):
+    jens, tens = _ensembles()
+    monkeypatch.setattr(jexp, "_make_sampler",
+                        lambda args, hyp, module, train, seed: _Drawn(jens[seed % 2]))
+    monkeypatch.setattr(texp, "_make_sampler",
+                        lambda args, hyp, module, train, seed, device: _Drawn(tens[seed % 2]))
+
+
+def _rows(path):
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def _assert_rows_match(got, want, n_fixed):
+    assert len(got) == len(want) == 1 and len(got[0]) == len(want[0])
+    assert got[0][:n_fixed] == want[0][:n_fixed]
+    for g, w in zip(got[0][n_fixed:], want[0][n_fixed:]):
+        if np.isnan(float(w)):
+            assert np.isnan(float(g))
+        else:
+            assert float(g) == pytest.approx(float(w), abs=1e-5)
+
+
+@pytest.mark.parametrize("imbalance", [False, True])
+def test_test_mode_matches_jax(tmp_path, injected, imbalance):
+    argv = ARGV + ["--num_trials", "2"] + (["--use_dm_imbalance"] if imbalance else [])
+    want = jexp.main(argv + ["--save_path", str(tmp_path / "jax")])
+    got = texp.main(argv + ["--save_path", str(tmp_path / "torch")], device="cpu")
+    assert list(got) == list(want)
+    assert "cost_mean" in got and "total_uncertainty_auroc_KMNIST_std" in got
+    for k in want:
+        if np.isnan(want[k]):
+            assert np.isnan(got[k]), k
+        else:
+            assert got[k] == pytest.approx(want[k], abs=1e-5), (k, got[k], want[k])
+    _assert_rows_match(_rows(tmp_path / "torchresults.csv"), _rows(tmp_path / "jaxresults.csv"),
+                       6 + len(HYP))
+    zj, zt = np.load(tmp_path / "jax_tests.npz"), np.load(tmp_path / "torch_tests.npz")
+    assert sorted(zt.files) == sorted(zj.files) == sorted(want)
+    assert texp.TIMINGS["Prediction_images"] == 2 * 70
+    assert texp.TIMINGS["OODDetection_images"] == 2 * 2 * (70 + 70)
+
+
+def test_validation_mode_matches_jax(tmp_path, injected):
+    argv = ARGV + ["--use_val", "--seed", "3"]
+    want = jexp.main(argv + ["--save_path", str(tmp_path / "jax")])
+    got = texp.main(argv + ["--save_path", str(tmp_path / "torch")], device="cpu")
+    assert list(got) == list(want)
+    _assert_rows_match(_rows(tmp_path / "torchresults.csv"), _rows(tmp_path / "jaxresults.csv"),
+                       6 + len(HYP))
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--stream"], 13), (["--stream_chunk", "4"], 13),
+    (["--checkpoint_path", "ck"], 14), (["--pretrained_model_path", "w.npz"], 14),
+    (["--inference_method", "HMC"], 10), (["--inference_method", "PCASubspaceSampler"], 10),
+    (["--inference_method", "MethodSweep"], 11), (["--inference_method", "SGHMCSweep"], 11),
+    (["--chain_strategy", "vmap"], 7),
+])
+def test_unported_flags_raise(tmp_path, extra, item):
+    with pytest.raises(NotImplementedError, match=f"open item {item}"):
+        texp.main(ARGV + ["--save_path", str(tmp_path / "x")] + extra, device="cpu")
+
+
+def test_default_method_is_hmc_and_unknown_ones_raise():
+    args = texp.build_parser().parse_args(["--model", "MLP200MNIST"])
+    assert args.inference_method == "HMC" and args.mesh == "auto" and args.seed == 1
+    with pytest.raises(KeyError):
+        tinference.get_inference("NoSuchSampler")
+    assert tinference.get_inference("SGHMC") is tinference.SGHMC
+
+
+def test_mesh_over_several_devices_raises(monkeypatch):
+    parse = texp.build_parser().parse_args
+    for mesh in ("auto", "chain", "none"):  # one device: no mesh
+        texp._check_mesh(parse(["--model", "m", "--mesh", mesh, "--chains", "2"]),
+                         torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cuda = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="open item 15"):
+        texp._check_mesh(parse(["--model", "m"]), cuda)
+    with pytest.raises(NotImplementedError, match="open item 15"):
+        texp._check_mesh(parse(["--model", "m", "--mesh", "chain", "--chains", "2"]), cuda)
+    texp._check_mesh(parse(["--model", "m", "--mesh", "chain"]), cuda)
+    texp._check_mesh(parse(["--model", "m", "--mesh", "none", "--chains", "4"]), cuda)
+    # chains 1 and a batch no device count divides: nothing to shard, as in JAX
+    texp._check_mesh(parse(["--model", "m", "--batch_size", "35"]), cuda)
+
+
+def test_runner_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        texp.main(ARGV)
+
+
+def test_cli_dispatch(monkeypatch, capsys):
+    seen = []
+    monkeypatch.setattr(texp, "main", lambda argv=None, device=None: seen.append(argv))
+    assert tcli.main(["run", "--dataset", "MNIST"]) == 0
+    assert seen == [["--dataset", "MNIST"]]
+    capsys.readouterr()
+    assert tcli.main(["models"]) == 0
+    listed = capsys.readouterr().out.split()
+    assert listed == tmodels.list_models() and "WideResNet28x10" in listed
+    assert set(listed) <= set(jmodels.list_models())
+    for cmd, item in (("time", 14), ("hypopt", 11), ("hypopt-par", 11)):
+        with pytest.raises(NotImplementedError, match=f"open item {item}"):
+            tcli.main([cmd])
+    assert tcli.main(["nope"]) == 2
+    assert tcli.main([]) == 0
+
+
+def test_cli_run_refuses_without_a_gpu():
+    """``python -m ursabench_tpu_torch.cli run ...`` imports no JAX and,
+    without a CUDA device, exits non-zero: no CPU run stands in."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+            "sys.argv = ['cli'] + sys.argv[1:]\n"
+            "runpy.run_module('ursabench_tpu_torch.cli', run_name='__main__', alter_sys=True)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code, "run", *ARGV], cwd=root,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr

@@ -288,7 +288,7 @@ def test_mcdropout_members_share_weights_and_differ():
     ens = ts.sample()
     assert ens.num_members == 3 and ts.epochs_run == 4  # epochs + 1, then 1 a draw
     assert all(v.stride(0) == 0 for v in ens.state.values())  # one shared weight set
-    x, _ = next(ts_["test"].batches())
+    x, _ = next(ts_["test"].batches("cpu"))
     x = x.permute(0, 3, 1, 2).contiguous()
     a, b = ens.logits_all(x, 0), ens.logits_all(x, 0)
     assert torch.equal(a, b)  # the same seed and batch: the same masks

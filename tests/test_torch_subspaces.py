@@ -85,10 +85,10 @@ def test_freq_dir_space_matches_jax():
 
 
 def test_random_space_and_subspace_model():
-    rs = T.Subspace.create("random", num_parameters=P, rank=4, seed=1)
+    rs = T.Subspace.create("random", num_parameters=P, rank=4, seed=1, device="cpu")
     rs.collect_vector(torch.ones(P))  # independent of the data
     assert rs.get_space().shape == (4, P)
-    assert torch.equal(rs.get_space(), T.RandomSpace(P, rank=4, seed=1).get_space())
+    assert torch.equal(rs.get_space(), T.RandomSpace(P, rank=4, seed=1, device="cpu").get_space())
     with pytest.raises(ValueError):
         T.Subspace.create("nope", num_parameters=P)
     mean = np.random.default_rng(4).normal(size=P).astype(np.float32)
@@ -97,3 +97,12 @@ def test_random_space_and_subspace_model():
     got = T.SubspaceModel(torch.from_numpy(mean), torch.from_numpy(factor))(torch.from_numpy(t))
     want = J.SubspaceModel(jnp.asarray(mean), jnp.asarray(factor))(jnp.asarray(t))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_random_space_defaults_to_cuda():
+    """RandomSpace is an entry point: without a device it takes CUDA, and
+    raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.RandomSpace(P, rank=2)

@@ -1,0 +1,47 @@
+"""Unified CLI: ``python -m ursabench_tpu_torch.cli <command> ...``
+
+Commands (counterpart of ``ursabench_tpu/cli.py``):
+  run      — the benchmark runner (experiment.py)
+  profile  — ensemble latency profiling (profiling/latency.py)
+  models   — list the registered models
+  time, hypopt, hypopt-par — not ported yet (ROADMAP.md open items 14, 11)
+"""
+
+from __future__ import annotations
+
+import sys
+
+_NOT_PORTED = {"time": "time_script.py (ROADMAP.md open item 14)",
+               "hypopt": "run_hypopt.py (ROADMAP.md open item 11)",
+               "hypopt-par": "run_hypopt.py (ROADMAP.md open item 11)"}
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "run":
+        from .experiment import main as run_main
+
+        run_main(rest)
+    elif cmd == "profile":
+        from .profiling.latency import main as prof_main
+
+        prof_main(rest)
+    elif cmd == "models":
+        from . import models
+
+        for name in models.list_models():
+            print(name)
+    elif cmd in _NOT_PORTED:
+        raise NotImplementedError(f"{cmd!r}: {_NOT_PORTED[cmd]} is not ported yet")
+    else:
+        print(f"Unknown command {cmd!r}.\n{__doc__}")
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -49,9 +49,10 @@ class DataSplit:
         labels = torch.from_numpy(self.labels)
         return images.to(device), labels.to(device)
 
-    def batches(self, device="cpu", normalized: bool = True
+    def batches(self, device, normalized: bool = True
                 ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
-        """Sequential NHWC batches without shuffling or augmentation."""
+        """Sequential NHWC batches on ``device``, without shuffling or
+        augmentation; the last one short."""
         for i in range(0, self.n, self.batch_size):
             x = torch.from_numpy(
                 np.ascontiguousarray(self.images[i: i + self.batch_size])

@@ -1,7 +1,9 @@
 """Raw dataset readers and the deterministic synthetic fallback, in numpy.
 
-Counterpart of ``ursabench_tpu/data/sources.py`` for the CIFAR and MNIST
-families. The synthetic generator consumes its Philox streams in the same
+Counterpart of ``ursabench_tpu/data/sources.py``: the readers of the
+on-disk formats (MNIST idx, CIFAR pickle batches, SVHN .mat, STL-10 bin and
+ImageFolder trees for TIN, LSUN and CelebA), with the synthetic generator
+standing in for what is not on disk. The generator consumes its Philox streams in the same
 order and with the same sha256-derived seeds, so it returns the same bytes
 as the JAX package (tests/test_torch_data.py pins this). The JAX package's
 on-disk synthetic cache is left out: data is generated in memory.
@@ -32,9 +34,8 @@ DATASET_PROFILES = {
     "CelebA": (64, 3, 10, 10000, 1000),
 }
 
-# datasets whose readers this package has; the others wait for the OOD and
-# Decision tasks (ROADMAP.md open item 9)
-SUPPORTED = ("MNIST", "FashionMNIST", "KMNIST", "CIFAR10", "CIFAR100")
+# STL-10 labels remapped to CIFAR class order
+STL_CLS_MAPPING = np.array([0, 2, 1, 3, 4, 5, 7, 6, 8, 9])
 
 # Canonical per-dataset pixel statistics in [0,1] units. The synthetic
 # fallback remaps its images to these moments so the standard transforms
@@ -112,6 +113,99 @@ def read_cifar(root: str, train: bool, variant: int = 10) -> Tuple[np.ndarray, n
         xs.append(d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
         ys.append(np.asarray(d[key], np.int64))
     return np.concatenate(xs), np.concatenate(ys)
+
+
+def read_svhn(root: str, split: str) -> Tuple[np.ndarray, np.ndarray] | None:
+    path = os.path.join(root, f"{split}_32x32.mat")
+    if not os.path.exists(path):
+        return None
+    from scipy.io import loadmat
+
+    d = loadmat(path)
+    x = d["X"].transpose(3, 0, 1, 2).astype(np.uint8)  # N,32,32,3
+    y = d["y"].reshape(-1).astype(np.int64) % 10  # '10' means digit 0
+    return x, y
+
+
+def read_image_folder(
+    root: str, size: int, classes: list[str] | None = None
+) -> Tuple[np.ndarray, np.ndarray] | None:
+    """torchvision's ImageFolder: root/<class>/**/*.{jpeg,jpg,png}, classes
+    sorted alphabetically -> label ids. ``classes`` pins the class -> id
+    mapping; a class directory outside it is an error. Needs PIL; returns
+    None without it, or when nothing is found."""
+    if not os.path.isdir(root):
+        return None
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    on_disk = sorted(
+        d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d))
+    )
+    if classes is None:
+        classes = on_disk
+    else:
+        unknown = set(on_disk) - set(classes)
+        if unknown:
+            raise ValueError(
+                f"{root}: class dirs {sorted(unknown)} not present in the "
+                f"reference split's class list {classes}; the train/test "
+                "trees must share one class set"
+            )
+    class_to_id = {c: i for i, c in enumerate(classes)}
+    xs, ys = [], []
+    for cls in on_disk:
+        label = class_to_id[cls]
+        for dirpath, _, files in os.walk(os.path.join(root, cls)):
+            for fn in sorted(files):
+                if not fn.lower().endswith((".jpeg", ".jpg", ".png")):
+                    continue
+                img = Image.open(os.path.join(dirpath, fn)).convert("RGB")
+                if img.size != (size, size):
+                    img = img.resize((size, size))
+                xs.append(np.asarray(img, np.uint8))
+                ys.append(label)
+    if not xs:
+        return None
+    return np.stack(xs), np.asarray(ys, np.int64)
+
+
+def read_split_image_folder(
+    root: str, train: bool, size: int
+) -> Tuple[np.ndarray, np.ndarray] | None:
+    """<root>/{train,test}/<class>/... (TinyImageNet, and LSUN/CelebA
+    exports). The train/ listing fixes the class ids of both splits."""
+    train_root = os.path.join(root, "train")
+    classes = None
+    if os.path.isdir(train_root):
+        classes = sorted(
+            d for d in os.listdir(train_root)
+            if os.path.isdir(os.path.join(train_root, d))
+        ) or None
+    return read_image_folder(
+        os.path.join(root, "train" if train else "test"), size, classes=classes
+    )
+
+
+def read_tin(root: str, train: bool) -> Tuple[np.ndarray, np.ndarray] | None:
+    """TinyImageNet: <root>/{train,test}/<class>/..., 64x64."""
+    return read_split_image_folder(root, train, 64)
+
+
+def read_stl10(root: str, train: bool) -> Tuple[np.ndarray, np.ndarray] | None:
+    """stl10_binary/{train,test}_{X,y}.bin, 96x96 average-pooled 3x3 to 32x32;
+    labels 0-based in STL order (``load_raw`` remaps them)."""
+    base = os.path.join(root, "stl10_binary")
+    kind = "train" if train else "test"
+    xi = os.path.join(base, f"{kind}_X.bin")
+    yi = os.path.join(base, f"{kind}_y.bin")
+    if not (os.path.exists(xi) and os.path.exists(yi)):
+        return None
+    x = np.fromfile(xi, np.uint8).reshape(-1, 3, 96, 96).transpose(0, 3, 2, 1)
+    y = np.fromfile(yi, np.uint8).astype(np.int64) - 1
+    x = x.reshape(-1, 32, 3, 32, 3, 3).mean(axis=(2, 4)).astype(np.uint8)
+    return x, y
 
 
 # ---------------------------------------------------------------------------
@@ -287,13 +381,10 @@ def load_raw(
     name: str, path: str | None, train: bool, allow_synthetic: bool = True,
     synthetic_n: int | None = None, difficulty: dict | None = None,
 ) -> Tuple[np.ndarray, np.ndarray, bool]:
-    """Returns (images uint8 NHWC, labels int64, is_synthetic)."""
+    """Returns (images uint8 NHWC, labels int64, is_synthetic). STL-10's
+    labels, read or synthetic, are remapped to CIFAR's class order."""
     if name not in DATASET_PROFILES:
         raise NotImplementedError(f"Unknown dataset {name}")
-    if name not in SUPPORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md open item 9); "
-            f"supported: {SUPPORTED}")
     out = None
     if path is not None:
         root = path
@@ -303,12 +394,22 @@ def load_raw(
             root = sub if os.path.isdir(sub) else path
         if name in ("MNIST", "FashionMNIST", "KMNIST"):
             out = read_mnist_like(root, train)
-        else:
+        elif name in ("CIFAR10", "CIFAR100"):
             out = read_cifar(root, train, variant=100 if name == "CIFAR100" else 10)
-    if out is not None:
-        x, y = out
-        return x, y, False
-    if not allow_synthetic:
-        raise FileNotFoundError(f"No on-disk data for {name} under {path!r}")
-    x, y = synthetic(name, train, n=synthetic_n, difficulty=difficulty)
-    return x, y, True
+        elif name == "SVHN":
+            out = read_svhn(root, "train" if train else "test")
+        elif name == "STL10":
+            out = read_stl10(root, train)
+        elif name == "TIN":
+            out = read_tin(root, train)
+        else:  # LSUN, CelebA
+            out = read_split_image_folder(root, train, DATASET_PROFILES[name][0])
+    synthetic_data = out is None
+    if synthetic_data:
+        if not allow_synthetic:
+            raise FileNotFoundError(f"No on-disk data for {name} under {path!r}")
+        out = synthetic(name, train, n=synthetic_n, difficulty=difficulty)
+    x, y = out
+    if name == "STL10":
+        y = STL_CLS_MAPPING[y]
+    return x, y, synthetic_data

@@ -1,0 +1,309 @@
+"""The benchmark runner: ``python -m ursabench_tpu_torch.cli run ...``.
+
+Counterpart of ``ursabench_tpu/experiment.py``, with the same flags and
+outputs. Validation mode (``--use_val``) samples once, runs Prediction and
+appends one CSV row. Test mode runs ``num_trials`` trials, the trial index
+seeding each one's sampler: Prediction, the balanced Decision (MNIST,
+CIFAR10, CIFAR100) and OOD detection against each pairing
+(MNIST <-> FashionMNIST/KMNIST, CIFAR <-> STL10/SVHN); then the mean and
+std (ddof 1) over trials, with ``--use_dm_imbalance`` the Decision task
+rerun on an imbalanced train set, and a CSV row plus an ``.npz`` of the
+results.
+
+``main(argv, device=None)`` runs on ``cuda:<device_num>`` unless the caller
+passes a device (the tests pass ``"cpu"``). Flags whose machinery is not
+ported yet raise ``NotImplementedError`` naming their ROADMAP.md item:
+``--stream``/``--stream_chunk`` (13), ``--checkpoint_path`` and
+``--pretrained_model_path`` (14), and a ``--mesh`` that would span more
+than one device (15). ``TIMINGS`` holds the seconds of the last ``main``
+call by stage.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import csv
+import inspect
+import json
+import time
+
+import numpy as np
+import torch
+
+from . import data, inference, models, tasks
+from .inference.base import resolve_device
+from .tasks.base import accumulate_split
+from .util import json_open_from_file
+
+OOD_PAIRINGS = {
+    "MNIST": ["FashionMNIST", "KMNIST"],
+    "CIFAR10": ["STL10", "SVHN"],
+    "CIFAR100": ["STL10", "SVHN"],
+}
+_DECISION_DATASETS = ("MNIST", "CIFAR10", "CIFAR100")
+
+# seconds of the last main() call: "data" (the loaders), "setup" (making the
+# samplers), "sample" (their sample()), and per task "<task>_bma" (its BMA
+# passes) and "<task>_host" (the rest of its statistics and metrics, on the
+# host); "<task>_images" counts the images of its BMA passes
+TIMINGS: dict = {}
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="URSABench benchmark runner (PyTorch)")
+    p.add_argument("--dataset", type=str, default="CIFAR10")
+    p.add_argument("--data_path", type=str, default=None)
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--num_trials", type=int, default=1)
+    p.add_argument("--model", type=str, required=True)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--inference_method", type=str, default="HMC")
+    p.add_argument("--hyperparams", type=str, default=None)
+    p.add_argument("--hyperparams_path", type=str, default=None)
+    p.add_argument("--task", type=str, default="Prediction")
+    p.add_argument("--split_classes", type=int, default=None)
+    p.add_argument("--validation", type=float, default=0.2)
+    p.add_argument("--use_val", action="store_true")
+    p.add_argument("--use_dm_imbalance", action="store_true")
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--save_path", type=str, default=None)
+    p.add_argument("--device_num", type=int, default=0, help="runs on cuda:<device_num>")
+    p.add_argument("--pretrained_model_path", type=str, default=None,
+                   help="not ported yet (ROADMAP.md open item 14)")
+    p.add_argument("--chains", type=int, default=1)
+    p.add_argument("--chain_strategy", choices=["auto", "scan", "vmap"], default="auto",
+                   help="how chains > 1 run on one device: 'auto' and 'scan' advance "
+                        "them in turn; 'vmap' is not ported yet")
+    p.add_argument("--dtype", type=str, default="fp32", choices=("fp32", "bf16"),
+                   help="the model's compute dtype (parameters and metrics stay float32)")
+    p.add_argument("--mesh", type=str, default="auto", choices=("auto", "chain", "none"),
+                   help="device layout; on one device all three mean no mesh, "
+                        "a layout over several is not ported yet (ROADMAP.md open item 15)")
+    p.add_argument("--checkpoint_path", type=str, default=None,
+                   help="not ported yet (ROADMAP.md open item 14)")
+    p.add_argument("--checkpoint_every", type=int, default=10)
+    p.add_argument("--synthetic_n_train", type=int, default=None)
+    p.add_argument("--synthetic_n_test", type=int, default=None)
+    p.add_argument("--stream", action="store_true",
+                   help="not ported yet (ROADMAP.md open item 13)")
+    p.add_argument("--stream_chunk", type=int, default=1, metavar="M",
+                   help="not ported yet (ROADMAP.md open item 13)")
+    return p
+
+
+def _not_ported(flag: str, item: int):
+    raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md open item {item})")
+
+
+def _check_flags(args) -> None:
+    if args.stream:
+        _not_ported("--stream", 13)
+    if args.stream_chunk != 1:
+        _not_ported("--stream_chunk", 13)
+    if args.checkpoint_path is not None:
+        _not_ported("--checkpoint_path", 14)
+    if args.pretrained_model_path is not None:
+        _not_ported("--pretrained_model_path", 14)
+
+
+def _load_hyp(args):
+    if args.hyperparams is not None:
+        return json.loads(args.hyperparams)
+    if args.hyperparams_path is not None:
+        return json_open_from_file(args.hyperparams_path)
+    return None
+
+
+def _check_mesh(args, device: torch.device) -> None:
+    """Raise where the JAX package would lay the run over several devices
+    (its ``_build_mesh`` and ``auto_mesh``); on one device no mesh is
+    needed."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if args.mesh == "none" or n <= 1:
+        return
+    if args.mesh == "chain":
+        if args.chains > 1:
+            _not_ported(f"--mesh chain over {n} devices", 15)
+        return
+    cd = max(d for d in range(1, min(args.chains, n) + 1)
+             if n % d == 0 and args.chains % d == 0)
+    dd = n // cd
+    while dd > 1 and args.batch_size % dd:
+        dd -= 1
+    if cd * dd > 1:
+        _not_ported(f"--mesh auto over {n} devices (pass --mesh none)", 15)
+
+
+def _make_sampler(args, hyp, module, train_split, seed, device):
+    method = inference.get_inference(args.inference_method)
+    _check_mesh(args, device)
+    kwargs = {}
+    if "chain_strategy" in inspect.signature(method.__init__).parameters:
+        kwargs["chain_strategy"] = args.chain_strategy
+    return method(hyperparameters=hyp, model=module, train=train_split, seed=seed,
+                  chains=args.chains, device=device, **kwargs)
+
+
+def _load_ood(args, cfg):
+    out = []
+    for d_name in OOD_PAIRINGS.get(args.dataset, []):
+        loaders_ood, _ = data.loaders(
+            d_name,
+            (args.data_path + d_name) if args.data_path else None,
+            args.batch_size, args.num_workers,
+            transform_train=cfg.transform_train,
+            transform_test=cfg.transform_test,
+            use_validation=False, val_size=args.validation,
+            synthetic_n_train=args.synthetic_n_train,
+            synthetic_n_test=args.synthetic_n_test,
+        )
+        out.append({"data": d_name, "test": loaders_ood["test"]})
+    return out
+
+
+def _add(key: str, value) -> None:
+    TIMINGS[key] = TIMINGS.get(key, 0) + value
+
+
+@contextlib.contextmanager
+def _stage(key: str, device: torch.device | None = None):
+    """Adds the block's seconds to ``TIMINGS[key]``, after waiting for
+    ``device`` if it is a GPU."""
+    t0 = time.perf_counter()
+    yield
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    _add(key, time.perf_counter() - t0)
+
+
+def _sample(args, hyp, module, train_split, seed, device):
+    """A sampler made (stage "setup") and run (stage "sample")."""
+    with _stage("setup", device):
+        sampler = _make_sampler(args, hyp, module, train_split, seed, device)
+    with _stage("sample", device):
+        return sampler.sample()
+
+
+def _run_task(task, ensemble, **kw):
+    """The task's statistics of ``ensemble`` and its metrics; their seconds
+    go to TIMINGS, split into the BMA passes and the host work."""
+    name = type(task).__name__
+    s0, i0, t0 = accumulate_split.seconds, accumulate_split.images, time.perf_counter()
+    task.update_statistics(ensemble, output_performance=False, **kw)
+    out = task.get_performance_metrics()
+    bma = accumulate_split.seconds - s0
+    _add(f"{name}_bma", bma)
+    _add(f"{name}_host", time.perf_counter() - t0 - bma)
+    _add(f"{name}_images", accumulate_split.images - i0)
+    return out
+
+
+def _write_row(args, hyperparameters, values) -> None:
+    hyp_values = ([hyperparameters[k] for k in sorted(hyperparameters)]
+                  if hyperparameters else [])
+    with open((args.save_path or "") + "results.csv", "a+") as f:
+        csv.writer(f, dialect="excel").writerow([
+            args.dataset, args.model, args.seed, args.inference_method,
+            args.task, args.batch_size, *hyp_values, *values,
+        ])
+
+
+def main(argv=None, device=None):
+    args = build_parser().parse_args(argv)
+    _check_flags(args)
+    device = resolve_device(f"cuda:{args.device_num}" if device is None else device)
+    TIMINGS.clear()
+    hyperparams = _load_hyp(args)
+    cfg = models.get_model(args.model)
+    with _stage("data"):
+        loaders, num_classes = data.loaders(
+            args.dataset, args.data_path, args.batch_size, args.num_workers,
+            transform_train=cfg.transform_train, transform_test=cfg.transform_test,
+            shuffle_train=True, use_validation=args.use_val,
+            val_size=args.validation, split_classes=args.split_classes,
+            seed=args.seed,
+            synthetic_n_train=args.synthetic_n_train,
+            synthetic_n_test=args.synthetic_n_test,
+        )
+    train_split, test_split = loaders["train"], loaders["test"]
+    num_classes = int(num_classes)
+    build_kw = {"dtype": torch.bfloat16} if args.dtype == "bf16" else {}
+    module = cfg.build(num_classes, **build_kw)
+    task_loader = {"in_distribution_test": test_split}
+
+    # ---- validation mode: one CSV row for the sweep
+    if args.task == "Prediction" and args.use_val:
+        ensemble = _sample(args, hyperparams, module, train_split, args.seed, device)
+        task = tasks.Prediction(task_loader, num_classes, metric_list="ALL")
+        perf = _run_task(task, ensemble, smoothing=True)
+        _write_row(args, hyperparams, [perf[k] for k in sorted(perf)])
+        print(perf)
+        return perf
+
+    # ---- test mode
+    with _stage("data"):
+        ood_list = _load_ood(args, cfg)
+    results, temp, cost_list = {}, {}, []
+    S = args.num_trials
+    for s in range(S):
+        print("Prediction:", s)
+        ensemble = _sample(args, hyperparams, module, train_split, s, device)
+
+        task = tasks.Prediction(task_loader, num_classes, metric_list="ALL")
+        perf = _run_task(task, ensemble, smoothing=True)
+
+        if not args.use_dm_imbalance and args.dataset in _DECISION_DATASETS:
+            print("Running DM task on balanced data:", s)
+            dec = tasks.Decision({"decision_data_test": test_split}, num_classes)
+            cost_list.append(_run_task(dec, ensemble)["True_Cost"])
+
+        print("OOD:", s)
+        for ood in ood_list:
+            ood_task = tasks.OODDetection(
+                {"in_distribution_test": test_split, "out_distribution_test": ood["test"]},
+                num_classes,
+            )
+            dic = _run_task(ood_task, ensemble)
+            for k, v in dic.items():
+                temp.setdefault(k + "_" + ood["data"], []).append(v)
+
+        for k in task.required_metric_list:
+            temp.setdefault(k, []).append(perf[k])
+
+    for k, vals in temp.items():
+        results[k + "_mean"] = float(np.mean(vals))
+        results[k + "_std"] = float(np.std(vals, ddof=1)) if len(vals) > 1 else 0.0
+
+    if args.use_dm_imbalance and args.dataset in _DECISION_DATASETS:
+        cost_list = []
+        for s in range(S):
+            print("Decision Making SEED:", s)
+            with _stage("data"):
+                loaders_imb, nc = data.loaders(
+                    args.dataset, args.data_path, args.batch_size, args.num_workers,
+                    transform_train=cfg.transform_train,
+                    transform_test=cfg.transform_test, shuffle_train=True,
+                    use_validation=False, val_size=args.validation,
+                    split_classes=args.split_classes, imbalance=True, seed=s,
+                    synthetic_n_train=args.synthetic_n_train,
+                    synthetic_n_test=args.synthetic_n_test,
+                )
+            ensemble = _sample(args, hyperparams, module, loaders_imb["train"], s, device)
+            dec = tasks.Decision({"decision_data_test": loaders_imb["test"]}, int(nc))
+            cost_list.append(_run_task(dec, ensemble)["True_Cost"])
+
+    if cost_list:
+        results["cost_mean"] = float(np.mean(cost_list))
+        results["cost_std"] = float(np.std(cost_list, ddof=1)) if len(cost_list) > 1 else 0.0
+
+    print(sorted(results.keys()))
+    print(results)
+    if args.save_path:
+        _write_row(args, hyperparams, [results[k] for k in sorted(results)])
+        np.savez(args.save_path + "_tests.npz", **results)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..util import make_generator
+from .base import resolve_device
 
 
 class Subspace:
@@ -43,11 +44,13 @@ class Subspace:
 
 @Subspace.register_subclass("random")
 class RandomSpace(Subspace):
-    """A dense Gaussian (rank, P) projection, independent of the data."""
+    """A dense Gaussian (rank, P) projection, independent of the data, on
+    ``device`` (CUDA when None)."""
 
-    def __init__(self, num_parameters, rank=20, method="dense", seed=0, device="cpu"):
+    def __init__(self, num_parameters, rank=20, method="dense", seed=0, device=None):
         if method != "dense":
             raise NotImplementedError("only the dense random subspace exists")
+        device = resolve_device(device)
         self.num_parameters = num_parameters
         self.rank = rank
         self.subspace = torch.randn(rank, num_parameters, device=device,

@@ -85,9 +85,11 @@ class SWA(_EpochSampler):
         self.weight_mean = torch.zeros(self.num_parameters, device=self.device)
         self.sq_mean = torch.zeros(self.num_parameters, device=self.device)
         self.num_models_collected = 0
+        kwargs = dict(self._subspace_kwargs)
+        if self.subspace_type == "random":  # the one space drawn up front
+            kwargs.setdefault("device", self.device)
         self.subspace = Subspace.create(self.subspace_type,
-                                        num_parameters=self.num_parameters,
-                                        **self._subspace_kwargs)
+                                        num_parameters=self.num_parameters, **kwargs)
         self.cov_factor = None
         self._fill_hyp({
             "lr_init": self.lr_init,

@@ -1,5 +1,5 @@
 from .common import (BatchNorm2d, Conv2d, Dropout, Linear, ModelCfg, dropout_generator,
-                     dropout_twin, get_model, register)
+                     dropout_twin, get_model, list_models, register)
 from .mlp import MLP  # importing registers the MLP configs
 from .preresnet import PreResNet  # the PreResNet configs
 from .resnet_imagenet import INResNet, TVResNet  # the ImageNet-style ResNets
@@ -7,4 +7,4 @@ from .wideresnet import WideResNet  # and WideResNet-28x10
 
 __all__ = ["BatchNorm2d", "Conv2d", "Dropout", "INResNet", "Linear", "MLP", "ModelCfg",
            "PreResNet", "TVResNet", "WideResNet", "dropout_generator", "dropout_twin",
-           "get_model", "register"]
+           "get_model", "list_models", "register"]

@@ -60,6 +60,10 @@ def get_model(name: str) -> ModelCfg:
     return _REGISTRY[name]
 
 
+def list_models():
+    return sorted(_REGISTRY)
+
+
 def dropout_twin(name: str) -> ModelCfg:
     """The ``<name>_dropout`` twin MCdropout samples with."""
     return get_model(name + "_dropout")

@@ -6,6 +6,8 @@ Counterpart of ``ursabench_tpu/tasks/base.py:17-128``.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from ..data.transforms import normalize
@@ -38,7 +40,11 @@ def accumulate_split(ensemble: Ensemble, split, smooth_probs: bool):
 
     Batches keep the split's batch size: the last one is filled up with
     index 0 and the padded rows are sliced off at the end. Batch ``bi`` is
-    passed to ``logits_all``, which keys the members' dropout streams."""
+    passed to ``logits_all``, which keys the members' dropout streams.
+
+    Adds the pass's seconds (to the host copy of its sums) to
+    ``accumulate_split.seconds`` and its images to ``.images``."""
+    t0 = time.perf_counter()
     device = ensemble.device
     images, _ = split.device_tensors(device)
     n, bsz = split.n, split.batch_size
@@ -60,4 +66,11 @@ def accumulate_split(ensemble: Ensemble, split, smooth_probs: bool):
         rows = slice(bi * bsz, (bi + 1) * bsz)
         acc_p[rows] = torch.sum(smoothed if smooth_probs else probs, dim=0)
         acc_e[rows] = torch.sum(predictive_entropy(smoothed), dim=0)
-    return acc_p[:n].cpu().numpy(), acc_e[:n].cpu().numpy()
+    out = acc_p[:n].cpu().numpy(), acc_e[:n].cpu().numpy()
+    accumulate_split.seconds += time.perf_counter() - t0
+    accumulate_split.images += n
+    return out
+
+
+accumulate_split.seconds = 0.0  # BMA passes' seconds since the last reset
+accumulate_split.images = 0  # and their images

@@ -1,4 +1,4 @@
-"""Probability helpers, state-dict stacking and seed derivation.
+"""Probability helpers, state-dict stacking, seed derivation and JSON.
 
 Counterpart of ``ursabench_tpu/util.py``: the same smoothing and entropy
 formulas on torch tensors. Ensembles stack ``state_dict``s along a leading
@@ -8,12 +8,21 @@ sample axis where the JAX package stacks pytrees.
 from __future__ import annotations
 
 import hashlib
+import json
+import os
 from typing import Callable, Dict, Sequence
 
 import torch
 from torch import nn
 
 StateDict = Dict[str, torch.Tensor]
+
+
+def json_open_from_file(path: str) -> dict:
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"The file {path} does not exist!")
+    with open(path, encoding="utf-8") as f:
+        return json.loads(f.read())
 
 
 def derive_seed(seed: int, *tags) -> int:
