@@ -87,11 +87,36 @@ Phases, each ending with its seconds:
    error within 0.2 of the ensemble's and the distilled OOD AUROCs in
    [0, 1]; the seconds of sampling, of each task's BMA passes and of its
    host metrics, and the step-forwards/s.
+13. the hyperparameter-optimization layer (hypopt): (a) K1's per-row table
+   at 4 PreResNet-20 rows (1,089,128 floats): bit-equal to its plain version
+   with the noise off and distinct lr, momentum and weight decay a row; a
+   (1, 5) table bit-equal to the float32[5] launch with the noise on; no
+   noise in a row whose noise_scale is 0 and each other row's noise std
+   within 1% of its noise_scale; its device time and 4 single-row launches'
+   from CUDA graphs beside the 6.50 us bound; (b) BASELINE.md config 5
+   through hyperopt.batched_bayesopt: PreResNet-20 at full width and depth,
+   synthetic CIFAR-10 (10,240 train and 2,048 test images, cut from 50,000
+   and 10,000), batch 128, crop + flip, SGHMC over lr (log 1e-3..0.2) and
+   prior_std (log 0.3..3) at alpha 0.1, 1 draw after 1 burn-in epoch (cut
+   from 4), 4 initial configs and 2 rounds of 4 (three sweeps of 4): 12 'll'
+   objectives, finite ones <= 0, the best their max, every hyperparameter in
+   its bounds, K1 once a sweep step (never 4 times); the sweep's
+   step-forwards/s beside one config run solo, and each round's seconds of
+   sampling, BMA, GP refit and acquisition; (c) an SGD sweep and a noise-off
+   SGHMC sweep of 2 configs on MLP200MNIST equal to the 2 solo runs within
+   1e-6 of the largest weight; (d) `cli hypopt` (BayesOpt, 3 random then 3
+   GP evaluations, SGHMC on MLP200MNIST / MNIST) writing its _best.json;
+   (e) `cli hypopt-par --dry_run` printing 2 commands that name
+   ursabench_tpu_torch.experiment, the first run to rc 0; (f) BASELINE.md
+   config 2, cut: LeNet5MNIST / FashionMNIST (8,192 train, 2,048 test), SGHMC
+   with 4 chains (one K1 launch a step over 4 rows) and SWA, then one SGHMC
+   epoch of ResNet20 / CIFAR-10 at full depth, each with Prediction: finite
+   losses and metrics, the member counts.
 The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
 32, in the three precisions under both member strategies.
 Then a JSON line describing each kernel (its launches on the main path,
-K1's summed over the slice, the ImageNet slice, the samplers and the
-experiment phase; its
+K1's summed over the slice, the ImageNet slice, the samplers, the
+experiment and the hypopt phases; its
 error against its plain version, its time, the plain version's, its
 bound and the single library call's where there is one), and last the JSON
 line {"ok": true, "device": {...}}. Any failed check exits non-zero before
@@ -191,6 +216,26 @@ EXP_TRIALS = 2
 EXP_OUT = "smoke_out/experiment"  # the runner's CSV rows and .npz files
 MNIST_HYP = {"lr": 0.03, "prior_std": 1.0, "num_samples": 4, "burn_in_epochs": 3}  # SGLD
 MNIST_TRAIN, MNIST_TEST = 4096, 1024
+# the hypopt phase: BASELINE.md config 5 (benchmarks/baseline_suite.py:161-195),
+# burn-in cut from 4 epochs to 1 and the train split from 50,000 images
+HP_ROWS, HP_TABLE_CALLS = 4, 200
+HP_COPIES = 8  # copies of K1's table buffers timed in turn: 8 x 13 MB exceed the 50 MB L2
+HP_TRAIN, HP_TEST = 10240, 2048
+HP_DOMAIN = [
+    {"name": "lr", "type": "continuous", "domain": (1e-3, 0.2), "option": "logspace"},
+    {"name": "prior_std", "type": "continuous", "domain": (0.3, 3.0), "option": "logspace"},
+    {"name": "alpha", "type": "constant", "domain": 0.1},
+    {"name": "num_samples", "type": "constant", "domain": 1},
+    {"name": "burn_in_epochs", "type": "constant", "domain": 1},
+]
+HP_BO = dict(rounds=2, q=4, init_evaluations=4, seed=7)
+HP_OUT = "smoke_out/hypopt"
+# BASELINE.md config 2 (benchmarks/baseline_suite.py:64-94), burn-in cut from 8
+# epochs to 1, SWA's iterates from 10 to 2, FashionMNIST to 8,192 / 2,048 images
+C2_HYP = {"lr": 0.01, "prior_std": 1.0, "num_samples": 3, "alpha": 0.1, "burn_in_epochs": 1}
+C2_SWA = {"swag_lr": 0.005, "swag_wd": 1e-4, "lr_init": 0.02, "num_samples": 1,
+          "momentum": 0.9, "burn_in_epochs": 1, "num_iterates": 2}
+C2_TRAIN, C2_TEST, C2_CHAINS = 8192, 2048, 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1188,6 +1233,339 @@ def experiment_phase(device) -> dict:
     return out
 
 
+def k1_table_check(device, row_len: int) -> dict:
+    """K1's per-row table at HP_ROWS PreResNet-20 rows: bit-equal to its
+    plain version with the noise off, a (1, 5) table bit-equal to the
+    float32[5] launch with the noise on, the noise gated and scaled row by
+    row; device times of one table launch and of HP_ROWS single-row launches
+    (one a row, each with its float32[5]) from CUDA graphs, beside the bound.
+    Each timed launch takes the next of HP_COPIES copies of (p, v, g), so it
+    reads them from HBM, as in a sweep step, whose forwards and backwards
+    evict the L2 between updates; one copy alone (L2-resident) is timed
+    beside it."""
+    from ursabench_tpu_torch.kernels.sghmc import (sghmc_update_flat,
+                                                   sghmc_update_flat_reference)
+    from ursabench_tpu_torch.ops.sgmcmc import sghmc_scalars
+    from ursabench_tpu_torch.profiling.int8_microbench import graph_ms
+
+    rows, n_train = HP_ROWS, float(HP_TRAIN)
+    gen = torch.Generator(device=device).manual_seed(11)
+    p, v, g = (torch.randn(rows, row_len, generator=gen, device=device) for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=device)
+    lr = torch.tensor([0.1, 0.05, 0.02, 0.005], **f32)
+    mom = torch.tensor([0.9, 0.5, 0.99, 0.0], **f32)
+    wd = torch.tensor([1e-4, 3e-5, 1e-3, 0.0], **f32)
+    for first in (False, True):
+        table = sghmc_scalars(lr=lr, momentum=mom, wd_over_n=wd, n_train=n_train,
+                              noise_on=0.0, is_first_step=first, device=device)
+        pk, vk = p.clone(), v.clone()
+        sghmc_update_flat(pk, vk, g, table, seed=3)
+        pr, vr = p.clone(), v.clone()
+        sghmc_update_flat_reference(pr, vr, g, table, torch.zeros_like(p))
+        torch.cuda.synchronize()
+        check(torch.equal(pk, pr) and torch.equal(vk, vr),
+              f"K1's table != plain at {rows} x {row_len}, first={first}")
+    one = sghmc_scalars(lr=0.05, momentum=0.9, wd_over_n=1e-4, n_train=n_train, noise_on=1.0,
+                        is_first_step=False, device=device)
+    a, b = [p.clone(), v.clone()], [p.clone(), v.clone()]
+    sghmc_update_flat(*a, g, one, seed=17)
+    sghmc_update_flat(*b, g, one.view(1, 5), seed=17)
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), "a (1, 5) table != the float32[5]")
+    # per-row noise from zeros: row 0's noise_scale is 0, the others' differ
+    gate = torch.tensor([0.0, 1.0, 1.0, 1.0], **f32)
+    table = sghmc_scalars(lr=lr, momentum=mom, wd_over_n=torch.zeros_like(wd), n_train=n_train,
+                          noise_on=gate, is_first_step=False, device=device)
+    z = torch.zeros(rows, row_len, **f32)
+    pn, vn = z.clone(), z.clone()
+    sghmc_update_flat(pn, vn, z, table, seed=5)
+    scale = table[:, 3].double()
+    ratio = (pn.double().std(dim=1)[1:] / scale[1:]).cpu()
+    check(float(pn[0].abs().max()) == 0.0, "noise in the row whose noise_scale is 0")
+    check(bool(((ratio - 1).abs() < 0.01).all()), f"per-row noise std / scale {ratio.tolist()}")
+    corr = float(torch.corrcoef(pn[1:].double())[0, 1])
+    check(abs(corr) < 0.01, f"rows' noise correlates: {corr}")
+
+    single = [sghmc_scalars(lr=float(lr[r]), momentum=float(mom[r]), wd_over_n=float(wd[r]),
+                            n_train=n_train, noise_on=1.0, is_first_step=False, device=device)
+              for r in range(rows)]
+    table = sghmc_scalars(lr=lr, momentum=mom, wd_over_n=wd, n_train=n_train, noise_on=1.0,
+                          is_first_step=False, device=device)
+
+    copies = [(p, v, g)] + [tuple(t.clone() for t in (p, v, g)) for _ in range(HP_COPIES - 1)]
+
+    def table_call(p, v, g):
+        return lambda: sghmc_update_flat(p, v, g, table, seed=1)
+
+    def row_calls(p, v, g):
+        def call():
+            for r in range(rows):
+                sghmc_update_flat(p[r], v[r], g[r], single[r], seed=1 + r)
+        return call
+
+    def plain_call(p, v, g):
+        return lambda: sghmc_update_flat_reference(p, v, g, table,
+                                                   torch.randn(p.shape, device=device))
+
+    ms, rows_ms, plain_ms = (graph_ms([call(*c) for c in copies], HP_TABLE_CALLS)
+                             for call in (table_call, row_calls, plain_call))
+    l2_ms = graph_ms([table_call(p, v, g)], HP_TABLE_CALLS)
+    n = rows * row_len
+    bound_ms, bound_by = bound(SGHMC_BYTES * n, SGHMC_FLOPS * n, "f32")
+    print(f"  K1 table at {rows} x {row_len} ({n} floats): noise-off bit-equal to plain, "
+          f"(1, 5) = float32[5], row 0 noiseless, rows 1-3 std/scale "
+          f"{', '.join(f'{x:.4f}' for x in ratio.tolist())}, correlation {corr:.2g}; device "
+          f"{ms * 1e3:.2f} us vs {rows} single-row launches {rows_ms * 1e3:.2f} us vs plain "
+          f"{plain_ms * 1e3:.2f} us (graphs of {HP_TABLE_CALLS}, {HP_COPIES} copies in turn); "
+          f"bound {bound_ms * 1e3:.2f} us ({bound_by}), {bound_ms / ms * 100:.1f}% of it; "
+          f"one copy (L2-resident) {l2_ms * 1e3:.2f} us", flush=True)
+    return {"n": n, "ms": ms, "rows_ms": rows_ms, "plain_ms": plain_ms, "l2_ms": l2_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "noise_ratio": ratio.tolist(),
+            "corr": corr}
+
+
+def _in_bounds(hyp, domain) -> bool:
+    return all(d["domain"][0] * (1 - 1e-6) <= hyp[d["name"]] <= d["domain"][1] * (1 + 1e-6)
+               for d in domain if d["type"] == "continuous")
+
+
+def config5_run(device) -> dict:
+    """BASELINE.md config 5 through hyperopt.batched_bayesopt, then one of
+    its configs run solo for comparison."""
+    from ursabench_tpu_torch import data, hyperopt, inference, models, tasks
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    cfg = models.get_model("PreResNet20")
+    t0 = time.perf_counter()
+    splits, c = data.loaders("CIFAR10", None, batch_size=BATCH, use_validation=False,
+                             transform_train=cfg.transform_train,
+                             transform_test=cfg.transform_test,
+                             synthetic_n_train=HP_TRAIN, synthetic_n_test=HP_TEST)
+    data_s = time.perf_counter() - t0
+    train, test = splits["train"], splits["test"]
+
+    def task_factory():
+        return tasks.Prediction({"in_distribution_test": test}, c, metric_list=["ll"])
+
+    before = sghmc_update_flat.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rounds = []
+    best_hyp, best_obj, hyps, objs = hyperopt.batched_bayesopt_sghmc(
+        HP_DOMAIN, cfg.build(c), train, task_factory, device=device, round_seconds=rounds,
+        **HP_BO)
+    torch.cuda.synchronize()
+    bo_s = time.perf_counter() - t0
+    launches = sghmc_update_flat.launches - before
+    sweeps = 1 + HP_BO["rounds"]
+    epochs = HP_DOMAIN[4]["domain"] + 1
+    steps = sweeps * epochs * train.num_batches
+    check(launches == steps, f"config 5: K1 launched {launches} times for {steps} sweep steps")
+    n_obj = HP_BO["init_evaluations"] + HP_BO["rounds"] * HP_BO["q"]
+    finite = [o for o in objs if math.isfinite(o)]
+    check(len(objs) == len(hyps) == n_obj and finite, f"config 5: objectives {objs}")
+    check(best_obj == max(objs), f"config 5: best {best_obj} is not the max of {objs}")
+    check(all(o <= 0 for o in finite), f"config 5: a log-likelihood above 0: {objs}")
+    check(all(_in_bounds(h, HP_DOMAIN) for h in hyps), f"config 5: out of bounds {hyps}")
+    forwards = HP_BO["q"] * epochs * train.num_batches
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo = inference.SGHMC(dict(hyps[0]), model=cfg.build(c), train=train, seed=0,
+                           device=device)
+    solo.sample()
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    solo_rate = epochs * train.num_batches / solo_s
+    rates = [forwards / r["sample"] for r in rounds]
+    print(f"  config 5 (PreResNet-20 / CIFAR-10 {train.n} train, {test.n} test; batched BO "
+          f"{HP_BO}): {bo_s:.1f} s, K1 {launches} launches = {steps} sweep steps (4 configs "
+          f"a launch); sweep step-forwards/s {', '.join(f'{x:.1f}' for x in rates)} vs one "
+          f"config solo {solo_rate:.1f} steps/s ({solo_s:.2f} s with set-up); best ll "
+          f"{best_obj:.4f} at {json.dumps(best_hyp)}; all ll "
+          f"{[round(o, 4) for o in objs]}; data {data_s:.1f} s", flush=True)
+    for i, r in enumerate(rounds):
+        gp = (f", GP refit {r['gp_fit'] * 1e3:.1f} ms, acquisition "
+              f"{r['acquisition'] * 1e3:.1f} ms" if "gp_fit" in r else "")
+        print(f"    sweep {i}: sampling {r['sample']:.2f} s, BMA {r['bma']:.2f} s{gp}",
+              flush=True)
+    return {"seconds": bo_s, "launches": launches, "steps": steps, "objs": objs,
+            "best_hyp": best_hyp, "best_obj": best_obj, "rounds": rounds,
+            "sweep_step_forwards_per_s": rates, "solo_steps_per_s": solo_rate,
+            "solo_s": solo_s, "solo_epochs": epochs, "data_s": data_s}
+
+
+def sweep_equals_solo(device) -> float:
+    """An SGD sweep and a noise-off SGHMC sweep of 2 configs on MLP200MNIST
+    against the 2 solo samplers of the same seeds; returns the largest
+    difference over the largest weight."""
+    from ursabench_tpu_torch import data, inference, models
+    from ursabench_tpu_torch.util import derive_seed
+
+    splits, c = data.loaders("MNIST", None, batch_size=BATCH, use_validation=False,
+                             synthetic_n_train=MNIST_TRAIN, synthetic_n_test=MNIST_TEST)
+    build = lambda: models.get_model("MLP200MNIST").build(c)  # noqa: E731
+    cases = {
+        "SGD": [{"lr": lr, "epochs": 1, "momentum": 0.9, "weight_decay": 5e-4}
+                for lr in (0.05, 0.1)],
+        "SGHMC": [{"lr": lr, "prior_std": ps, "num_samples": 1, "alpha": 0.1,
+                   "burn_in_epochs": 0} for lr, ps in ((0.05, 1.0), (0.02, 0.5))],
+    }
+    worst = 0.0
+    for method, hyps in cases.items():
+        sweep = inference.MethodSweep(hyps, model=build(), train=splits["train"], seed=3,
+                                      method=method, device=device)
+        if method == "SGD":
+            got = [e.state for e in sweep.sample()]
+        else:
+            sweep.sampler._run_epoch(noise_on=False)
+            got = [m.state_dict() for m in sweep.modules]
+        for k, h in enumerate(hyps):
+            solo = getattr(inference, method)(h, model=build(), train=splits["train"],
+                                              seed=derive_seed(3, "config", k), device=device)
+            if method == "SGD":
+                want = solo.sample().state
+            else:
+                solo._run_epoch(noise_on=False)
+                want = solo.module.state_dict()
+            for name, w in want.items():
+                diff = float((got[k][name].float() - w.float()).abs().max())
+                worst = max(worst, diff / float(w.float().abs().max()))
+    check(worst <= 1e-6, f"a sweep config differs from its solo run by {worst:.3g} of the max")
+    return worst
+
+
+def hypopt_entry_points(device, tmp) -> dict:
+    """`cli hypopt` (sequential BayesOpt) and `cli hypopt-par --dry_run`, one of
+    whose commands is then run."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+
+    from ursabench_tpu_torch import cli, run_hypopt
+
+    domain_path = os.path.join(tmp, "domain.json")
+    with open(domain_path, "w") as f:
+        json.dump([{"name": "lr", "type": "continuous", "domain": [1e-3, 0.1],
+                    "option": "logspace"},
+                   {"name": "prior_std", "type": "continuous", "domain": [0.5, 2.0],
+                    "option": "linspace"},
+                   {"name": "num_samples", "type": "constant", "domain": 2},
+                   {"name": "burn_in_epochs", "type": "constant", "domain": 1}], f)
+    common = ["--domain_path", domain_path, "--dataset", "MNIST", "--model", "MLP200MNIST",
+              "--synthetic_n_train", str(MNIST_TRAIN), "--synthetic_n_test", str(MNIST_TEST)]
+    save = os.path.join(tmp, "bo")
+    t0 = time.perf_counter()
+    check(cli.main(["hypopt", *common, "--inference_method", "SGHMC", "--N_evaluations", "3",
+                    "--init_evaluations", "3", "--save_path", save]) == 0, "cli hypopt failed")
+    seq_s = time.perf_counter() - t0
+    with open(save + "_best.json") as f:
+        best = json.load(f)
+    check(len(best["times"]) == 6 and math.isfinite(best["max_obj"]),
+          f"cli hypopt's _best.json: {best}")
+
+    par = common + ["--inference_method", "SGLD", "--N_evaluations", "2", "--dry_run"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(cli.main(["hypopt-par", *par]) == 0, "cli hypopt-par failed")
+    lines = [ln for ln in out.getvalue().splitlines() if "-m ursabench_tpu_torch.experiment" in ln]
+    check(len(lines) == 2, f"hypopt-par printed {out.getvalue()!r}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        commands = run_hypopt.main_par(par, device=device)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, *commands[0][1:], "--synthetic_n_train",
+                          str(MNIST_TRAIN), "--synthetic_n_test", str(MNIST_TEST)],
+                         cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+    par_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"the hypopt-par command failed:\n{run.stderr[-2000:]}")
+    print(f"  cli hypopt: BayesOpt 3 + 3 evaluations in {seq_s:.1f} s, best ll "
+          f"{best['max_obj']:.4f} at {json.dumps(best['best_hyp'])}; cli hypopt-par --dry_run: "
+          f"2 commands, the first run to rc 0 in {par_s:.1f} s", flush=True)
+    return {"seq_s": seq_s, "best": best, "par_command_s": par_s}
+
+
+def config2_run(device) -> dict:
+    """BASELINE.md config 2, cut: LeNet5MNIST / FashionMNIST, SGHMC with 4
+    chains and SWA, then one SGHMC epoch of ResNet20 / CIFAR-10, each scored
+    by Prediction."""
+    from ursabench_tpu_torch import data, inference, models, tasks
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    out = {}
+    resnet_hyp = {"lr": 0.05, "prior_std": 1.0, "num_samples": 1, "alpha": 0.1,
+                  "burn_in_epochs": 0}
+    runs = (("LeNet5MNIST", "FashionMNIST", "SGHMC",
+             dict(hyperparameters=C2_HYP, chains=C2_CHAINS), 3 * C2_CHAINS, C2_TRAIN),
+            ("LeNet5MNIST", "FashionMNIST", "SWA", dict(hyperparameters=C2_SWA),
+             C2_SWA["num_iterates"], C2_TRAIN),
+            ("ResNet20", "CIFAR10", "SGHMC", dict(hyperparameters=resnet_hyp), 1,
+             C2_TRAIN // 2))
+    for name, dataset, method, kw, members, n_train in runs:
+        cfg = models.get_model(name)
+        splits, c = data.loaders(dataset, None, batch_size=BATCH, use_validation=False,
+                                 transform_train=cfg.transform_train,
+                                 transform_test=cfg.transform_test,
+                                 synthetic_n_train=n_train, synthetic_n_test=C2_TEST)
+        before = sghmc_update_flat.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler = getattr(inference, method)(model=cfg.build(c), train=splits["train"], seed=2,
+                                             device=device, **kw)
+        ens = sampler.sample()
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        launches = sghmc_update_flat.launches - before
+        steps = sampler.epochs_run * splits["train"].num_batches
+        check(ens.num_members == members, f"{name} {method}: {ens.num_members} members")
+        check(launches == (steps if method == "SGHMC" else 0),
+              f"{name} {method}: K1 launched {launches} times for {steps} steps")
+        losses = torch.stack([torch.as_tensor(x).float().reshape(-1)
+                              for x in sampler.epoch_losses])
+        check(bool(torch.isfinite(losses).all()), f"{name} {method}: losses {losses.tolist()}")
+        task = tasks.Prediction({"in_distribution_test": splits["test"]}, c,
+                                metric_list=["error_rate", "nll", "ece"])
+        task.update_statistics(ens, output_performance=False)
+        metrics = task.get_performance_metrics()
+        check(all(math.isfinite(x) for x in metrics.values()), f"{name} {method}: {metrics}")
+        out[f"{name}_{method}"] = {"sample_s": sample_s, "launches": launches, "steps": steps,
+                                   "members": members, "chains": sampler.chains,
+                                   "metrics": metrics, "losses": losses.tolist()}
+        print(f"  {name} / {dataset} {method} x{sampler.chains} chain(s): {members} members, "
+              f"{sampler.epochs_run} epochs of {splits['train'].num_batches} steps in "
+              f"{sample_s:.2f} s, K1 {launches}; epoch losses "
+              f"{[[round(x, 4) for x in row] for row in losses.tolist()]}; "
+              f"{json.dumps(metrics)}", flush=True)
+    return out
+
+
+def hypopt_phase(device, row_len: int) -> dict:
+    """The hyperparameter-optimization layer on the card: K1's table, then
+    config 5, the sweep against solo runs, the two CLI commands and config 2,
+    whose K1 launches are counted."""
+    import os
+    import tempfile
+
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    table = k1_table_check(device, row_len)
+    sghmc_update_flat.launches = 0
+    res = {"k1_table": table, "config5": config5_run(device)}
+    res["sweep_vs_solo"] = sweep_equals_solo(device)
+    print(f"  sweep vs solo (MLP200MNIST, SGD and noise-off SGHMC, 2 configs): largest "
+          f"difference {res['sweep_vs_solo']:.3g} of the largest weight", flush=True)
+    os.makedirs(HP_OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HP_OUT) as tmp:
+        res["cli"] = hypopt_entry_points(device, tmp)
+    res["config2"] = config2_run(device)
+    res["launches"] = sghmc_update_flat.launches
+    with open(f"{HP_OUT}/hypopt_phase.json", "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", flush=True)
@@ -1238,13 +1616,14 @@ def main() -> int:
     imagenet = phase("imagenet slice", imagenet_phase, device)
     samplers = phase("samplers", samplers_phase, device)
     experiment = phase("experiment", experiment_phase, device)
+    hypopt = phase("hypopt", hypopt_phase, device, n_slice)
 
     kernels = [{
         "name": "sghmc_update", "route": "cuda",
         "source": "ursabench_tpu_torch/csrc/sghmc_update.cu",
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
         "launches": (launches + imagenet["k1_launches"] + samplers["launches"]
-                     + experiment["launches"]),
+                     + experiment["launches"] + hypopt["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], samplers["k1"]["max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": None,

@@ -127,12 +127,21 @@ def test_validation_mode_matches_jax(tmp_path, injected):
     (["--stream"], 13), (["--stream_chunk", "4"], 13),
     (["--checkpoint_path", "ck"], 14), (["--pretrained_model_path", "w.npz"], 14),
     (["--inference_method", "HMC"], 10), (["--inference_method", "PCASubspaceSampler"], 10),
-    (["--inference_method", "MethodSweep"], 11), (["--inference_method", "SGHMCSweep"], 11),
     (["--chain_strategy", "vmap"], 7),
 ])
 def test_unported_flags_raise(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"open item {item}"):
         texp.main(ARGV + ["--save_path", str(tmp_path / "x")] + extra, device="cpu")
+
+
+@pytest.mark.parametrize("method", ["MethodSweep", "SGHMCSweep"])
+def test_sweeps_are_not_runner_samplers(tmp_path, method):
+    """A sweep runs K configurations; the runner samples one: it names the
+    hyperopt entry points instead."""
+    assert tinference.get_inference(method) is getattr(tinference, method)
+    with pytest.raises(ValueError, match="hyperopt"):
+        texp.main(ARGV + ["--save_path", str(tmp_path / "x"), "--inference_method", method],
+                  device="cpu")
 
 
 def test_default_method_is_hmc_and_unknown_ones_raise():
@@ -177,9 +186,14 @@ def test_cli_dispatch(monkeypatch, capsys):
     listed = capsys.readouterr().out.split()
     assert listed == tmodels.list_models() and "WideResNet28x10" in listed
     assert set(listed) <= set(jmodels.list_models())
-    for cmd, item in (("time", 14), ("hypopt", 11), ("hypopt-par", 11)):
-        with pytest.raises(NotImplementedError, match=f"open item {item}"):
-            tcli.main([cmd])
+    with pytest.raises(NotImplementedError, match="open item 14"):
+        tcli.main(["time"])
+    from ursabench_tpu_torch import run_hypopt
+
+    for cmd, fn in (("hypopt", "main_seq"), ("hypopt-par", "main_par")):
+        monkeypatch.setattr(run_hypopt, fn, lambda argv=None, device=None, c=cmd: seen.append(c))
+        assert tcli.main([cmd, "--domain_path", "d.json"]) == 0
+    assert seen[-2:] == ["hypopt", "hypopt-par"]
     assert tcli.main(["nope"]) == 2
     assert tcli.main([]) == 0
 

@@ -71,6 +71,7 @@ else:
     "ursabench_tpu_torch.profiling.conv1x1_probe",
     "ursabench_tpu_torch.profiling.imagenet_train",
     "ursabench_tpu_torch.profiling.step_profile",
+    "ursabench_tpu_torch.profiling.k1_regression",
     "chip_smoke.py",
 ])
 def test_gpu_entry_points_refuse_without_a_gpu(target):
@@ -87,7 +88,12 @@ def test_gpu_entry_points_refuse_without_a_gpu(target):
 
 NEW_MODULES = ["ursabench_tpu_torch.models.wideresnet", "ursabench_tpu_torch.models.mlp",
                "ursabench_tpu_torch.inference.sgd_map", "ursabench_tpu_torch.inference.swa",
-               "ursabench_tpu_torch.inference.swag", "ursabench_tpu_torch.inference.subspaces"]
+               "ursabench_tpu_torch.inference.swag", "ursabench_tpu_torch.inference.subspaces",
+               "ursabench_tpu_torch.inference.vectorized", "ursabench_tpu_torch.hyperopt",
+               "ursabench_tpu_torch.hyperopt.search", "ursabench_tpu_torch.hyperopt.gp",
+               "ursabench_tpu_torch.hyperopt.bayesopt", "ursabench_tpu_torch.hyperopt.vectorized",
+               "ursabench_tpu_torch.run_hypopt", "ursabench_tpu_torch.models.lenet",
+               "ursabench_tpu_torch.models.resnet_cifar"]
 
 
 def test_sampler_modules_import_without_jax():
@@ -103,7 +109,7 @@ def test_sampler_modules_import_without_jax():
 
 
 @pytest.mark.parametrize("name", ["SGHMC", "SGLD", "cSGHMC", "cSGLD", "SGD", "DeepEnsemble",
-                                  "MCdropout", "SWA", "SWAG"])
+                                  "MCdropout", "SWA", "SWAG", "MethodSweep"])
 def test_samplers_default_to_cuda_and_refuse_without_it(name):
     import torch
 
@@ -113,6 +119,8 @@ def test_samplers_default_to_cuda_and_refuse_without_it(name):
         pytest.skip("a CUDA device is present")
     splits, c = data.loaders("MNIST", None, batch_size=8, use_validation=False,
                              synthetic_n_train=16, synthetic_n_test=8)
+    hyp = ([{"lr": 0.01, "prior_std": 1.0, "num_samples": 1, "burn_in_epochs": 0}]
+           if name == "MethodSweep" else None)  # a sweep takes a list of configs
     with pytest.raises(RuntimeError, match="CUDA"):
-        getattr(inference, name)(None, model=models.get_model("MLP200MNIST_dropout").build(c),
+        getattr(inference, name)(hyp, model=models.get_model("MLP200MNIST_dropout").build(c),
                                  train=splits["train"])

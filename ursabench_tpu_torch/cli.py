@@ -1,19 +1,20 @@
 """Unified CLI: ``python -m ursabench_tpu_torch.cli <command> ...``
 
 Commands (counterpart of ``ursabench_tpu/cli.py``):
-  run      — the benchmark runner (experiment.py)
-  profile  — ensemble latency profiling (profiling/latency.py)
-  models   — list the registered models
-  time, hypopt, hypopt-par — not ported yet (ROADMAP.md open items 14, 11)
+  run        — the benchmark runner (experiment.py)
+  hypopt     — sequential BayesOpt (run_hypopt.py main_seq)
+  hypopt-par — RandomSearch, one runner process per configuration
+               (run_hypopt.py main_par; --dry_run prints the commands)
+  profile    — ensemble latency profiling (profiling/latency.py)
+  models     — list the registered models
+  time       — not ported yet (ROADMAP.md open item 14)
 """
 
 from __future__ import annotations
 
 import sys
 
-_NOT_PORTED = {"time": "time_script.py (ROADMAP.md open item 14)",
-               "hypopt": "run_hypopt.py (ROADMAP.md open item 11)",
-               "hypopt-par": "run_hypopt.py (ROADMAP.md open item 11)"}
+_NOT_PORTED = {"time": "time_script.py (ROADMAP.md open item 14)"}
 
 
 def main(argv=None):
@@ -26,6 +27,14 @@ def main(argv=None):
         from .experiment import main as run_main
 
         run_main(rest)
+    elif cmd == "hypopt":
+        from .run_hypopt import main_seq
+
+        main_seq(rest)
+    elif cmd == "hypopt-par":
+        from .run_hypopt import main_par
+
+        main_par(rest)
     elif cmd == "profile":
         from .profiling.latency import main as prof_main
 

@@ -24,7 +24,13 @@
 // share a counter.
 //
 // The scalars (lr, momentum, wd_over_n, noise_scale, is_first) are read from a
-// device float32[5], so changing a hyperparameter changes data, not code.
+// device float32 table of R rows of 5, so changing a hyperparameter changes
+// data, not code. The n elements are R rows of n / R (the (R, P) buffer of R
+// chains or of R sweep configurations), and row r takes the table's row r;
+// R = 1 is one set for the whole buffer. A group of four whose elements lie in
+// two rows (P % 4 != 0) is updated element by element, each with its own
+// row's scalars; the noise is on for a row whose noise_scale is not zero.
+// The group's row costs one 64-bit division, and none when R = 1.
 // The arithmetic uses the _rn intrinsics, which the compiler never contracts
 // into fused multiply-adds, so the result rounds exactly like the plain
 // PyTorch version (kernels/sghmc.py::sghmc_update_flat_reference).
@@ -83,6 +89,17 @@ struct Scalars {
   bool first;
 };
 
+__device__ __forceinline__ Scalars load_row(const float* __restrict__ table, long long row) {
+  const float* t = table + row * 5;
+  Scalars s;
+  s.lr = t[0];
+  s.momentum = t[1];
+  s.wd_over_n = t[2];
+  s.noise_scale = t[3];
+  s.first = t[4] > 0.5f;
+  return s;
+}
+
 __device__ __forceinline__ void update_one(float& p, float& v, float g, float z,
                                            const Scalars& s, bool noise) {
   const float d = __fadd_rn(g, __fmul_rn(s.wd_over_n, p));
@@ -96,37 +113,51 @@ __device__ __forceinline__ void update_one(float& p, float& v, float g, float z,
 __global__ void __launch_bounds__(kThreads)
 sghmc_update_kernel(float* __restrict__ p, float* __restrict__ v,
                     const float* __restrict__ g, const float* __restrict__ scalars,
-                    long long n, unsigned long long seed, int vectorized) {
-  Scalars s;
-  s.lr = scalars[0];
-  s.momentum = scalars[1];
-  s.wd_over_n = scalars[2];
-  s.noise_scale = scalars[3];
-  s.first = scalars[4] > 0.5f;
-  const bool noise = s.noise_scale != 0.0f;
-
+                    long long n, long long rows, unsigned long long seed, int vectorized) {
+  const long long row_len = n / rows;
   const long long groups = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        grp < groups; grp += stride) {
-    float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (noise) z = normals4(seed, (unsigned long long)grp);
     const long long base = grp * 4;
-    if (vectorized && base + 4 <= n) {
-      float4 pp = reinterpret_cast<const float4*>(p)[grp];
-      float4 vv = reinterpret_cast<const float4*>(v)[grp];
-      const float4 gg = reinterpret_cast<const float4*>(g)[grp];
-      update_one(pp.x, vv.x, gg.x, z.x, s, noise);
-      update_one(pp.y, vv.y, gg.y, z.y, s, noise);
-      update_one(pp.z, vv.z, gg.z, z.z, s, noise);
-      update_one(pp.w, vv.w, gg.w, z.w, s, noise);
-      reinterpret_cast<float4*>(p)[grp] = pp;
-      reinterpret_cast<float4*>(v)[grp] = vv;
-    } else {
+    long long row = rows == 1 ? 0 : base / row_len;
+    long long row_end = (row + 1) * row_len;  // one past the row's last element
+    Scalars s = load_row(scalars, row);
+    const long long last = base + 4 < n ? base + 4 : n;
+    if (last <= row_end) {  // the whole group lies in one row
+      const bool noise = s.noise_scale != 0.0f;
+      float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (noise) z = normals4(seed, (unsigned long long)grp);
+      if (vectorized && base + 4 <= n) {
+        float4 pp = reinterpret_cast<const float4*>(p)[grp];
+        float4 vv = reinterpret_cast<const float4*>(v)[grp];
+        const float4 gg = reinterpret_cast<const float4*>(g)[grp];
+        update_one(pp.x, vv.x, gg.x, z.x, s, noise);
+        update_one(pp.y, vv.y, gg.y, z.y, s, noise);
+        update_one(pp.z, vv.z, gg.z, z.z, s, noise);
+        update_one(pp.w, vv.w, gg.w, z.w, s, noise);
+        reinterpret_cast<float4*>(p)[grp] = pp;
+        reinterpret_cast<float4*>(v)[grp] = vv;
+      } else {
+        const float zs[4] = {z.x, z.y, z.z, z.w};
+        for (int j = 0; j < 4 && base + j < n; ++j) {
+          float pj = p[base + j], vj = v[base + j];
+          update_one(pj, vj, g[base + j], zs[j], s, noise);
+          p[base + j] = pj;
+          v[base + j] = vj;
+        }
+      }
+    } else {  // the group straddles rows: element by element, each with its row
+      const float4 z = normals4(seed, (unsigned long long)grp);
       const float zs[4] = {z.x, z.y, z.z, z.w};
       for (int j = 0; j < 4 && base + j < n; ++j) {
+        while (base + j >= row_end) {  // more than one step only when P < 4
+          ++row;
+          row_end += row_len;
+          s = load_row(scalars, row);
+        }
         float pj = p[base + j], vj = v[base + j];
-        update_one(pj, vj, g[base + j], zs[j], s, noise);
+        update_one(pj, vj, g[base + j], zs[j], s, s.noise_scale != 0.0f);
         p[base + j] = pj;
         v[base + j] = vj;
       }
@@ -138,8 +169,11 @@ sghmc_update_kernel(float* __restrict__ p, float* __restrict__ v,
 
 // Launch on `stream`; allocates nothing and does not synchronise. Returns the
 // launch's cudaError_t (0 on success).
+// `scalars` is a float32 table of `rows` rows of 5; `rows` must divide n.
 extern "C" int sghmc_update_f32(void* p, void* v, const void* g, const void* scalars,
-                                long long n, unsigned long long seed, void* stream) {
+                                long long n, long long rows, unsigned long long seed,
+                                void* stream) {
+  if (rows <= 0 || n % rows != 0) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   const int vectorized =
       ((reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(v) |
@@ -163,6 +197,6 @@ extern "C" int sghmc_update_f32(void* p, void* v, const void* g, const void* sca
   if (blocks > max_blocks) blocks = max_blocks;
   sghmc_update_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<float*>(p), static_cast<float*>(v), static_cast<const float*>(g),
-      static_cast<const float*>(scalars), n, seed, vectorized);
+      static_cast<const float*>(scalars), n, rows, seed, vectorized);
   return (int)cudaGetLastError();
 }

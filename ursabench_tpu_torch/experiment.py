@@ -137,6 +137,10 @@ def _check_mesh(args, device: torch.device) -> None:
 
 def _make_sampler(args, hyp, module, train_split, seed, device):
     method = inference.get_inference(args.inference_method)
+    if isinstance(method, type) and issubclass(method, inference.MethodSweep):
+        raise ValueError(f"{args.inference_method} runs K configurations, not one: "
+                         "sweep them with ursabench_tpu_torch.hyperopt "
+                         "(vectorized_random_search, batched_bayesopt)")
     _check_mesh(args, device)
     kwargs = {}
     if "chain_strategy" in inspect.signature(method.__init__).parameters:

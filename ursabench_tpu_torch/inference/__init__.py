@@ -6,13 +6,14 @@ from .sgmcmc import SGHMC, SGLD, cSGHMC, cSGLD
 from .subspaces import Subspace, SubspaceModel
 from .swa import SWA
 from .swag import SWAG
+from .vectorized import MethodSweep, SGHMCSweep
 
-__all__ = ["DeepEnsemble", "Ensemble", "EntropyHead", "MCdropout", "SGD", "SGHMC", "SGLD",
-           "SWA", "SWAG", "Subspace", "SubspaceModel", "_Inference", "cSGHMC", "cSGLD",
-           "distill_ensemble"]
+__all__ = ["DeepEnsemble", "Ensemble", "EntropyHead", "MCdropout", "MethodSweep", "SGD",
+           "SGHMC", "SGHMCSweep", "SGLD", "SWA", "SWAG", "Subspace", "SubspaceModel",
+           "_Inference", "cSGHMC", "cSGLD", "distill_ensemble"]
 
 # samplers of the JAX package that are not ported yet -> their ROADMAP.md item
-_NOT_PORTED = {"HMC": 10, "PCASubspaceSampler": 10, "MethodSweep": 11, "SGHMCSweep": 11}
+_NOT_PORTED = {"HMC": 10, "PCASubspaceSampler": 10}
 
 
 def get_inference(name: str):

@@ -119,11 +119,13 @@ class _Inference:
 class _EpochSampler(_Inference):
     """C chains (``self.modules``), each with its own module and so its own
     BatchNorm buffers, batch plans, crops and flips (``self._data_gens``)
-    and dropout streams; their parameters, momenta and gradients are the
-    rows of one (C, P) buffer each (``self._state``). Hyperparameters live
-    in 0-dim device tensors (``self._hyp``, keys ``_HYP_KEYS``) that
-    ``_setup`` fills in place, so changing them rebuilds nothing; the
-    Langevin noise gate is one more (``self._noise_gate``)."""
+    and dropout streams (``self._dropout_gens``); their parameters, momenta
+    and gradients are the rows of one (C, P) buffer each (``self._state``).
+    Hyperparameters live in 0-dim device tensors (``self._hyp``, keys
+    ``_HYP_KEYS``) that ``_setup`` fills in place, so changing them rebuilds
+    nothing; the Langevin noise gate is one more (``self._noise_gate``). A
+    sweep (``inference/vectorized.py``) makes the chains its configurations,
+    with (C,) hyperparameter tensors and each row's generators."""
 
     _HYP_KEYS: tuple = ()
     _LR_FN = None  # (hyp, epoch, batch_idx, step) -> lr
@@ -165,7 +167,9 @@ class _EpochSampler(_Inference):
         self._data_gens = [make_generator(self.device, run, "data", *((c,) if c else ()))
                            for c in range(self.chains)]
         self._noise_gen = torch.Generator().manual_seed(derive_seed(run, "noise"))
-        self._dropout_gen = torch.Generator().manual_seed(derive_seed(run, "dropout"))
+        # (generator, rows): the chains' dropout seeds, drawn in row order
+        self._dropout_gens = [(torch.Generator().manual_seed(derive_seed(run, "dropout")),
+                               self.chains)]
 
     def _run_epoch(self, noise_on: Optional[bool] = None) -> torch.Tensor:
         """One epoch on every chain; ``noise_on`` sets the noise gate first
@@ -182,8 +186,8 @@ class _EpochSampler(_Inference):
                         for j in range(3))
         seeds = torch.randint(0, 2 ** 63 - 1, (idx.shape[1],),
                               generator=self._noise_gen).tolist()
-        dropout_seeds = (torch.randint(0, 2 ** 63 - 1, (self.chains,),
-                                       generator=self._dropout_gen).tolist()
+        dropout_seeds = ([s for gen, rows in self._dropout_gens
+                          for s in torch.randint(0, 2 ** 63 - 1, (rows,), generator=gen).tolist()]
                          if self._has_dropout else None)
         loss = train_steps(
             self._state, self._images, self._labels, idx, spec=split.spec,

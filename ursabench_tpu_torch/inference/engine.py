@@ -14,8 +14,11 @@ in place. A step runs every chain's forward and backward, then one update
 over the whole buffer: on the GPU, one launch of kernel K1 for all chains.
 The chains share the learning rate, the noise gate and the first-step flag,
 as they do in the JAX package's vmapped and scanned epochs; advancing them
-in turn is the ``"scan"`` strategy (``"auto"`` resolves to it). The gradient
-buffer is zeroed with ``zero_()`` before each step, never set to None.
+in turn is the ``"scan"`` strategy (``"auto"`` resolves to it). A sweep
+(``inference/vectorized.py``) gives each row its own hyperparameters as
+(K,) tensors, and its update applies them row by row in the same one call.
+The gradient buffer is zeroed with ``zero_()`` before each step, never set
+to None.
 
 ``bn_refresh`` recomputes BatchNorm's running statistics with one exact
 pass over a split; ``eval_loss`` is the mean cross entropy over a split in
@@ -85,6 +88,15 @@ def flatten_chains(modules: Sequence[nn.Module]):
                 p.grad = flat_g[c, offset: offset + k].view_as(p)
                 offset += k
     return flat_p, flat_g
+
+
+def update_buffers(state: TrainState, hyp: dict):
+    """``(params, momentum, grads)`` for the update: flat (C * P,) views when
+    the hyperparameters are 0-dim (shared by every row), the (K, P) buffers
+    when they are (K,) tensors, one value a row (a sweep's configs)."""
+    if next(iter(hyp.values())).dim():
+        return state.params, state.momentum, state.grads
+    return state.params.view(-1), state.momentum.view(-1), state.grads.view(-1)
 
 
 def flatten_parameters(module: nn.Module):

@@ -25,17 +25,19 @@ import torch
 from ..models.common import dropout_twin
 from ..ops.sgmcmc import sgd_momentum_update
 from .base import _EpochSampler
-from .engine import TrainState
+from .engine import TrainState, update_buffers
 from .ensemble import Ensemble
 from .sgmcmc import _cosine_hyp_lr
 
 
 def _sgd_hyp_update(state: TrainState, hyp, *, lr, noise_on, is_first_step, seed):
+    """As ``_sghmc_hyp_update``: a sweep's (K,) hyperparameters act as (K, 1)
+    columns on the (K, P) buffers."""
     del noise_on, seed
+    col = (lambda t: t.reshape(-1, 1)) if hyp["momentum"].dim() else (lambda t: t)
     sgd_momentum_update(
-        state.params.view(-1), state.momentum.view(-1), state.grads.view(-1), lr=lr,
-        momentum=hyp["momentum"], weight_decay=hyp["weight_decay"],
-        is_first_step=is_first_step,
+        *update_buffers(state, hyp), lr=col(lr), momentum=col(hyp["momentum"]),
+        weight_decay=col(hyp["weight_decay"]), is_first_step=is_first_step,
     )
 
 

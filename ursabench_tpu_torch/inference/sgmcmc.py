@@ -31,7 +31,7 @@ import torch
 
 from ..ops.sgmcmc import sghmc_update
 from .base import _EpochSampler
-from .engine import TrainState
+from .engine import TrainState, update_buffers
 from .ensemble import Ensemble
 
 
@@ -55,8 +55,10 @@ def _cyclic_hyp_lr(hyp, epoch, batch_idx, step):
 
 
 def _sghmc_hyp_update(state: TrainState, hyp, *, lr, noise_on, is_first_step, seed):
+    """One update of every row: over the flat buffers with 0-dim
+    hyperparameters, over the (K, P) buffers with a sweep's (K,) ones."""
     sghmc_update(
-        state.params.view(-1), state.momentum.view(-1), state.grads.view(-1), lr=lr,
+        *update_buffers(state, hyp), lr=lr,
         momentum=hyp["momentum"], wd_over_n=hyp["wd_over_n"],
         n_train=hyp["n_train"], noise_on=noise_on,
         is_first_step=is_first_step, seed=seed,

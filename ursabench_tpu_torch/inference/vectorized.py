@@ -1,0 +1,137 @@
+"""Multi-config sweeps of the epoch-driven samplers.
+
+Counterpart of ``ursabench_tpu/inference/vectorized.py``. K configurations
+of one sampler (SGHMC, SGLD, cSGHMC, cSGLD or SGD) advance together: each
+config is a row of one (K, P) parameter buffer, as a sampler's chains are
+(``engine.flatten_chains``), and its hyperparameters are row k of (K,)
+device tensors, so one update a step serves every config (on the GPU, one
+launch of kernel K1 with its per-row table). The configs' forwards and
+backwards run in turn (the ``"scan"`` strategy).
+
+One solo sampler is built per config, with the seed ``derive_seed(seed,
+"config", k)`` (the counterpart of ``jax.random.split(key, K)``): it supplies
+config k's initial weights, hyperparameter tensors, batch plans, crops,
+flips and dropout stream. Config 0's sampler then takes the K configs as its
+chains and runs the method's own epochs and protocol over them, so config k
+of a sweep equals its solo sampler exactly while the noise gate is off. The
+Langevin noise of a step is one draw over the whole buffer (row k from flat
+indices k * P + j), so with the noise on the two agree in distribution only.
+The configs share the schedule's integers (``_SHARED_FIELDS``); continuous
+hyperparameters vary freely.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from typing import List, Sequence
+
+import torch
+
+from ..util import derive_seed
+from .engine import TrainState, flatten_chains
+from .ensemble import Ensemble
+
+_METHODS = ("SGHMC", "SGLD", "cSGHMC", "cSGLD", "SGD")
+
+# schedule fields every config of a sweep must share, per method
+_SHARED_FIELDS = {
+    "SGHMC": ("num_samples", "burn_in_epochs"),
+    "SGLD": ("num_samples", "burn_in_epochs"),
+    "cSGHMC": ("num_samples_per_cycle", "cycle_length", "burn_in_epochs", "num_cycles"),
+    "cSGLD": ("num_samples_per_cycle", "cycle_length", "burn_in_epochs", "num_cycles"),
+    "SGD": ("burn_in_epochs",),
+}
+
+
+def _method_class(name: str):
+    from . import sgd_map, sgmcmc
+
+    classes = {"SGHMC": sgmcmc.SGHMC, "SGLD": sgmcmc.SGLD, "cSGHMC": sgmcmc.cSGHMC,
+               "cSGLD": sgmcmc.cSGLD, "SGD": sgd_map.SGD}
+    if name not in classes:
+        raise ValueError(f"unknown sweep method {name!r}; supported: {_METHODS}")
+    return classes[name]
+
+
+class MethodSweep:
+    """K configurations of one epoch-driven sampler, advanced together.
+
+    ``hyp_list`` holds one hyperparameter dict per config; ``model`` is
+    copied once per config. ``sampler`` is config 0's sampler with the K
+    configs as its chains: their weights in one (K, P) buffer, their
+    hyperparameters as (K,) tensors, each row with its own solo sampler's
+    data and dropout generators. ``sample()`` runs the method's protocol on
+    it and returns K ensembles; ``objectives(task_factory)`` scores them.
+    ``seconds`` holds the last ``objectives`` call's sampling and BMA
+    seconds."""
+
+    def __init__(self, hyp_list: Sequence[dict], model=None, train=None, seed: int = 0,
+                 method: str = "SGHMC", chain_strategy: str = "auto", mesh=None,
+                 device=None):
+        if len(hyp_list) < 1:
+            raise ValueError("a sweep needs at least one configuration")
+        if mesh is not None:
+            raise NotImplementedError("a sweep over a device mesh is not ported yet "
+                                      "(ROADMAP.md open item 15)")
+        cls = _method_class(method)
+        self.method = method
+        self.hyp_list = [dict(h) for h in hyp_list]
+        self.K = len(hyp_list)
+        solos = [cls(h, model=copy.deepcopy(model), train=train,
+                     seed=derive_seed(seed, "config", k), device=device,
+                     chain_strategy=chain_strategy)
+                 for k, h in enumerate(self.hyp_list)]
+        sampler = self.sampler = solos[0]
+        for s in solos[1:]:
+            for f in _SHARED_FIELDS[method]:
+                if getattr(s, f) != getattr(sampler, f):
+                    raise ValueError(f"sweep configs must share {f!r}: "
+                                     f"{getattr(s, f)} != {getattr(sampler, f)}")
+        self.device = sampler.device
+        self.modules = [s.module for s in solos]
+        params, grads = flatten_chains(self.modules)  # each config keeps its weights
+        sampler.chains, sampler.modules = self.K, self.modules
+        sampler._state = TrainState(self.modules[0], params, torch.zeros_like(params), grads,
+                                    modules=self.modules)
+        sampler._hyp = {k: torch.stack([s._hyp[k] for s in solos]) for k in cls._HYP_KEYS}
+        sampler._data_gens = [s._data_gens[0] for s in solos]
+        sampler._dropout_gens = [(s._dropout_gens[0][0], 1) for s in solos]
+        self.seconds: dict = {}
+
+    def sample(self) -> List[Ensemble]:
+        """Every config's ensemble, by the method's own ``sample()``: its
+        draw-major members, split by config."""
+        ens, K = self.sampler.sample(), self.K
+        return [Ensemble(self.modules[k], {n: v[k::K].contiguous() for n, v in ens.state.items()},
+                         ens.num_members // K)
+                for k in range(K)]
+
+    def objectives(self, task_factory) -> List[float]:
+        """Each config's ensemble scored by a fresh ``task_factory()`` (a
+        single-metric task, in output_performance mode)."""
+        t0 = time.perf_counter()
+        ensembles = self.sample()
+        self._sync()
+        t1 = time.perf_counter()
+        objs = []
+        for ens in ensembles:
+            task = task_factory()
+            task.reset()
+            objs.append(task.update_statistics(ens, output_performance=True))
+        self._sync()
+        self.seconds = {"sample": t1 - t0, "bma": time.perf_counter() - t1}
+        return objs
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+class SGHMCSweep(MethodSweep):
+    """``MethodSweep(method="SGHMC")``."""
+
+    def __init__(self, hyp_list: Sequence[dict], model=None, train=None, seed: int = 0,
+                 device=None):
+        super().__init__(hyp_list, model=model, train=train, seed=seed, method="SGHMC",
+                         device=device)

@@ -5,6 +5,11 @@ Replaces the TPU kernel ``benchmarks/pallas_sgmcmc.py::sghmc_update_flat``.
 anything else; ``sghmc_update_flat_reference`` is the plain PyTorch version
 of the same step, with the normals passed in.
 
+The scalars are a float32[5] for the whole buffer, or a table of R rows of 5
+for a buffer of R rows (row r of the (R, P) buffer takes table row r: a
+sweep's K configurations, ``inference/vectorized.py``). A (1, 5) table is
+the float32[5]: the same launch and the same random stream.
+
 The library is built and loaded by ``kernels/build.py`` at first use.
 """
 
@@ -19,7 +24,7 @@ from .build import BUILD_DIR, CSRC, NVCC_FLAGS, Library, load
 
 SOURCE = CSRC / "sghmc_update.cu"
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCE", "load_library",
-           "sghmc_update_flat", "sghmc_update_flat_reference"]
+           "sghmc_update_flat", "sghmc_update_flat_reference", "table_rows"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,10 +33,19 @@ def load_library() -> Library:
     library = load(SOURCE)
     fn = library.lib.sghmc_update_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_ulonglong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return library
+
+
+def table_rows(scalars: torch.Tensor) -> int:
+    """The rows R of a scalar table: 1 for a float32[5], R for (R, 5)."""
+    if scalars.dim() == 1 and scalars.numel() == 5:
+        return 1
+    if scalars.dim() == 2 and scalars.shape[1] == 5 and scalars.shape[0] >= 1:
+        return scalars.shape[0]
+    raise ValueError(f"scalars must be (5,) or (R, 5), got {tuple(scalars.shape)}")
 
 
 def _check(p, v, g, scalars):
@@ -45,27 +59,31 @@ def _check(p, v, g, scalars):
             raise ValueError(f"{name} must be contiguous")
         if t.device != p.device:
             raise ValueError(f"{name} is on {t.device}, params on {p.device}")
-    if p.dim() != 1 or v.shape != p.shape or g.shape != p.shape:
-        raise ValueError(f"flat buffers of one size expected, got "
+    if v.shape != p.shape or g.shape != p.shape:
+        raise ValueError(f"buffers of one shape expected, got "
                          f"{tuple(p.shape)} {tuple(v.shape)} {tuple(g.shape)}")
-    if scalars.numel() != 5:
-        raise ValueError(f"scalars must hold 5 values, got {scalars.numel()}")
+    rows = table_rows(scalars)
+    if p.numel() % rows:
+        raise ValueError(f"{rows} rows of scalars for {p.numel()} elements")
+    return rows
 
 
 def sghmc_update_flat(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                       scalars: torch.Tensor, seed: int):
-    """One SGHMC/SGLD step in place on flat float32 CUDA buffers.
+    """One SGHMC/SGLD step in place on contiguous float32 CUDA buffers.
 
-    ``scalars`` is a device float32[5]: (lr, momentum, wd_over_n,
-    noise_scale, is_first). ``seed`` keys the in-kernel Philox stream and
-    must differ between steps. Launches on the current stream, without
+    ``scalars`` is a device float32[5], (lr, momentum, wd_over_n,
+    noise_scale, is_first), or an (R, 5) table of them, row r for row r of
+    the buffers seen as (R, numel / R). ``seed`` keys the in-kernel Philox
+    stream (element i of the flat buffer draws from (seed, i)) and must
+    differ between steps. Launches on the current stream, without
     synchronising. Returns ``(p, v)``."""
-    _check(p, v, g, scalars)
+    rows = _check(p, v, g, scalars)
     fn = load_library().lib.sghmc_update_f32
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = fn(p.data_ptr(), v.data_ptr(), g.data_ptr(), scalars.data_ptr(),
-                 p.numel(), int(seed) & (2 ** 64 - 1), stream)
+                 p.numel(), rows, int(seed) & (2 ** 64 - 1), stream)
     if err != 0:
         raise RuntimeError(f"sghmc_update_f32 launch failed with CUDA error {err}")
     sghmc_update_flat.launches += 1
@@ -78,12 +96,16 @@ sghmc_update_flat.launches = 0  # kernel launches since the last reset
 def sghmc_update_flat_reference(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                                 scalars: torch.Tensor, noise: torch.Tensor):
     """The plain PyTorch version of ``sghmc_update_flat``, in place, with the
-    standard normals ``noise`` given. Same operations in the same order."""
-    lr, momentum, wd_over_n, noise_scale, is_first = scalars.unbind()
-    d = g + wd_over_n * p
-    v_prev = torch.where(is_first > 0.5, d, v)
+    standard normals ``noise`` given (as many as ``p`` holds). Same
+    operations in the same order; an (R, 5) table applies its rows as (R, 1)
+    columns to the buffers seen as (R, numel / R)."""
+    rows = table_rows(scalars)
+    lr, momentum, wd_over_n, noise_scale, is_first = scalars.reshape(rows, 5, 1).unbind(1)
+    pr, vr, gr = p.view(rows, -1), v.view(rows, -1), g.view(rows, -1)
+    d = gr + wd_over_n * pr
+    v_prev = torch.where(is_first > 0.5, d, vr)
     v_new = momentum * v_prev - lr * d
-    v_new = v_new + noise_scale * noise
-    v.copy_(v_new)
-    p.add_(v_new)
+    v_new = v_new + noise_scale * noise.reshape(rows, -1)
+    vr.copy_(v_new)
+    pr.add_(v_new)
     return p, v

@@ -10,7 +10,9 @@ call updates the whole model, in place:
     buf += noise_on * sqrt(2*(1-momentum)*lr) / n_train * N(0,1)
     p  += buf
 
-``momentum == 0`` gives SGLD. On CUDA tensors the step is kernel K1
+``momentum == 0`` gives SGLD. The hyperparameters may be (K,) tensors, one
+value per row of (K, P) buffers: a sweep's K configurations in one call.
+On CUDA tensors the step is kernel K1
 (``kernels/sghmc.py``), which makes its normals in the kernel; on CPU
 tensors it is the plain version, with normals from a generator seeded by
 ``seed``.
@@ -29,15 +31,19 @@ def _f32(x, device) -> torch.Tensor:
 
 def sghmc_scalars(*, lr, momentum, wd_over_n, n_train, noise_on,
                   is_first_step, device) -> torch.Tensor:
-    """The kernel's float32[5] on ``device``: (lr, momentum, wd_over_n,
-    noise_scale, is_first), noise_scale = sqrt(2(1-m)lr)/n_train*noise_on.
-    Tensor inputs stay on the device; nothing is read back."""
+    """The kernel's scalars on ``device``: (lr, momentum, wd_over_n,
+    noise_scale, is_first), noise_scale = sqrt(2(1-m)lr)/n_train*noise_on;
+    a float32[5] from 0-dim values, an (K, 5) table, one row a config, when
+    any of them is a (K,) tensor. Tensor inputs stay on the device; nothing
+    is read back."""
     lr, momentum = _f32(lr, device), _f32(momentum, device)
     noise_scale = torch.sqrt(2.0 * (1.0 - momentum) * lr) / _f32(n_train, device)
     noise_scale = noise_scale * _f32(noise_on, device)
     first = torch.full((), float(bool(is_first_step)), dtype=torch.float32,
                        device=device)
-    return torch.stack([lr, momentum, _f32(wd_over_n, device), noise_scale, first])
+    columns = torch.broadcast_tensors(lr, momentum, _f32(wd_over_n, device),
+                                      noise_scale, first)
+    return torch.stack(columns, dim=-1)
 
 
 def sghmc_update(
@@ -55,7 +61,8 @@ def sghmc_update(
     noise: torch.Tensor | None = None,
 ):
     """One SGHMC/SGLD step over flat buffers, in place. Returns
-    ``(params, momentum_buf)``.
+    ``(params, momentum_buf)``. With (K,) hyperparameters the buffers are
+    (K, P) and row k takes config k's (one launch, K1's per-row table).
 
     ``noise`` (CPU only) supplies the standard normals, so a test can hand
     in the JAX package's draw."""
