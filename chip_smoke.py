@@ -112,11 +112,37 @@ Phases, each ending with its seconds:
    with 4 chains (one K1 launch a step over 4 rows) and SWA, then one SGHMC
    epoch of ResNet20 / CIFAR-10 at full depth, each with Prediction: finite
    losses and metrics, the member counts.
+14. HMC, the PCA-subspace ESS sampler, checkpoints and the timing entry point
+   (hmc_ess): (a) HMC on MLP200MNIST over 60,000 synthetic MNIST images at
+   the reference's tuned step size, L, tau and mass (float32, TF32 allowed
+   outside the potential), 4 draws from the init (their log ratios
+   printed), then 20 draws after 10 burn-in (cut from 300 after 200) from a
+   1-epoch SGD warm start: some draw accepted, Prediction on the 11 kept
+   members finite, the first draw's float32 log ratio within 1e-3 of its
+   float64 recompute (its CE-sum difference against a float64 model's
+   printed), the TF32 flags restored; seconds a draw and full-batch
+   gradients/s; (b) HMC on PreResNet-20 at full width and depth, 2 chains,
+   2,048 CIFAR-10 images, L 3, 4 draws after 1 burn-in: 8 members,
+   Prediction finite; (c) the PCA-subspace ESS sampler on WideResNet-28x10
+   bf16 at full width and depth over the samplers' CIFAR-100 cut, at the
+   tuned values (lr_init 0.1, swag_lr 0.05, momentum 0.9, wd 5e-4,
+   temperature 5000, prior_std 2, rank 20) with the SWA phase cut from 160
+   burn-in epochs and 140 iterates to 1 and 20, 2 chains, 3 draws: subspace
+   rank 20, the SWA's BatchNorm buffers unchanged by every log-density
+   call, Prediction finite; bracket proposals and seconds a draw; (d) HMC
+   (checkpoint every 2 draws, killed after 4 of 6), SGLD (every epoch) and
+   PCA-ESS on MLP200MNIST killed and resumed: each equal to its
+   uninterrupted run within 1e-6 of its largest weight (the largest
+   difference printed); (e) `cli time` over the nine methods on
+   MLP200MNIST / MNIST (10,000 train images, cut from 60,000), S=3, T cut
+   from 10 to 2 after 1 warm-up trial: every method's mean beside the
+   torch-CPU baseline, K1 once a step of the SGHMC, SGLD, cSGHMC and cSGLD
+   trials.
 The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
 32, in the three precisions under both member strategies.
 Then a JSON line describing each kernel (its launches on the main path,
 K1's summed over the slice, the ImageNet slice, the samplers, the
-experiment and the hypopt phases; its
+experiment, the hypopt and the hmc_ess phases; its
 error against its plain version, its time, the plain version's, its
 bound and the single library call's where there is one), and last the JSON
 line {"ok": true, "device": {...}}. Any failed check exits non-zero before
@@ -236,6 +262,36 @@ C2_HYP = {"lr": 0.01, "prior_std": 1.0, "num_samples": 3, "alpha": 0.1, "burn_in
 C2_SWA = {"swag_lr": 0.005, "swag_wd": 1e-4, "lr_init": 0.02, "num_samples": 1,
           "momentum": 0.9, "burn_in_epochs": 1, "num_iterates": 2}
 C2_TRAIN, C2_TEST, C2_CHAINS = 8192, 2048, 4
+# the hmc_ess phase. (a) HMC at the reference's tuned MLP200MNIST values
+# (assets/tuned_hyperparams.json) on full-size synthetic MNIST; its 300 draws
+# after 200 burn-in cut to 20 after 10, from a 1-epoch SGD warm start (from the
+# init, the tuned trajectories' energy error rejects nearly every draw: the
+# cold run beside it shows it)
+HE_MNIST_TRAIN, HE_MNIST_TEST = 60000, 10000
+HE_DRAWS, HE_BURN, HE_COLD_DRAWS = 20, 10, 4
+HE_WARM_SGD = {"lr": 0.01, "epochs": 0, "momentum": 0.9, "weight_decay": 3e-4}
+# (b) HMC on PreResNet-20, 2 chains, eval-mode BatchNorm in the potential
+HE_CONV_HYP = {"step_size": 1e-4, "num_samples": 4, "L": 3, "tau": 1.0, "burn": 1,
+               "mass": 1.0}
+HE_CONV_TRAIN, HE_CONV_TEST, HE_CONV_CHAINS = 2048, 512, 2
+# (c) PCA-ESS on WRN-28x10 at the tuned WideResNet28x10CIFAR100 values, the SWA
+# phase's 160 burn-in epochs and 140 iterates cut to 1 and 20
+HE_PCA_CUT = {"swag_burn_in_epochs": 1, "num_swag_iterates": 20, "num_samples": 3}
+HE_PCA_CHAINS = 2
+# (d) kill and resume, MLP200MNIST on MNIST_TRAIN images
+HE_RESUME = {
+    "HMC": ({"step_size": 2e-4, "num_samples": 6, "L": 3, "tau": 100.0, "burn": 0,
+             "mass": 0.19, "draw_chunk": 2}, 2, 4),
+    "SGLD": ({"lr": 0.03, "prior_std": 1.0, "num_samples": 3, "burn_in_epochs": 1}, 1, 1),
+    "PCASubspaceSampler": ({"swag_lr": 0.01, "swag_wd": 1e-4, "lr_init": 0.02,
+                            "num_samples": 4, "swag_momentum": 0.9, "swag_burn_in_epochs": 1,
+                            "num_swag_iterates": 3, "rank": 2, "max_rank": 3,
+                            "temperature": 100.0, "prior_std": 1.0}, 1, 2),
+}  # method -> (hyperparameters, checkpoint every, draws before the kill)
+# (e) cli time over the nine methods: S=3, T cut from 10 to 2 after 1 warm-up
+# trial, the train split from 60,000 images
+HE_TIME_T, HE_TIME_WARMUP, HE_TIME_TRAIN, HE_TIME_TEST = 2, 1, 10000, 2000
+HE_OUT = "smoke_out/hmc_ess"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1566,6 +1622,336 @@ def hypopt_phase(device, row_len: int) -> dict:
     return res
 
 
+def _metrics_finite(name, metrics) -> None:
+    err = metrics["error_rate"]
+    for k, val in metrics.items():
+        nan_by_design = k.startswith("misclass") and err in (0.0, 1.0)
+        check(math.isfinite(val) or nan_by_design, f"{name}: metric {k} = {val}")
+
+
+def _predict(name, ens, split, num_classes) -> dict:
+    from ursabench_tpu_torch import tasks
+
+    task = tasks.Prediction({"in_distribution_test": split}, num_classes, metric_list="ALL")
+    task.update_statistics(ens, output_performance=False)
+    metrics = task.get_performance_metrics()
+    _metrics_finite(name, metrics)
+    return metrics
+
+
+def _timed_sample(sampler, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = sampler.sample(**kw)
+    torch.cuda.synchronize()
+    return ens, time.perf_counter() - t0
+
+
+def _ce_sum_f64(module, theta, split, device) -> float:
+    """The CE sum over ``split`` in float64, of a float64 copy of ``module``
+    with flat weights ``theta`` (``parameters()`` order)."""
+    import copy
+
+    from ursabench_tpu_torch.data.transforms import normalize
+
+    m = copy.deepcopy(module).double().eval()
+    with torch.no_grad():
+        offset = 0
+        for p in m.parameters():
+            p.copy_(theta[offset: offset + p.numel()].view_as(p))
+            offset += p.numel()
+        images, labels = split.device_tensors(device)
+        total = torch.zeros((), dtype=torch.float64, device=device)
+        for i in range(0, split.n, 4096):
+            x = normalize(images[i: i + 4096], split.spec).double().permute(0, 3, 1, 2)
+            total += torch.nn.functional.cross_entropy(m(x.contiguous()), labels[i: i + 4096],
+                                                       reduction="sum")
+    return float(total)
+
+
+def hmc_tuned_run(device) -> dict:
+    """(a) HMC on MLP200MNIST at the reference's tuned values over 60,000
+    synthetic MNIST images (float32, grad_batch 4096), TF32 allowed around it
+    (HMC turns it off in its potential): a cold start from the init, then
+    the cut chain from a 1-epoch SGD warm start, Prediction on its kept
+    draws, and its first draw's float32 log ratio against float64."""
+    from ursabench_tpu_torch import data, inference, models, time_script
+
+    splits, c = data.loaders("MNIST", None, batch_size=BATCH, use_validation=False,
+                             synthetic_n_train=HE_MNIST_TRAIN, synthetic_n_test=HE_MNIST_TEST)
+    tuned = time_script.load_method_hyp(None, "HMC")
+    check(tuned["L"] == 40 and abs(tuned["step_size"] - 2.0897e-4) < 1e-7,
+          f"tuned HMC values: {tuned}")
+    build = lambda: models.get_model("MLP200MNIST").build(c)  # noqa: E731
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cold = inference.HMC({**tuned, "num_samples": HE_COLD_DRAWS, "burn": 0}, model=build(),
+                             train=splits["train"], seed=0, device=device)
+        cold_ratios = []
+        transition = cold._transition
+
+        def record_cold(theta, ll, draws=None):
+            out = transition(theta, ll, draws)
+            cold_ratios.append(out[3])
+            return out
+
+        cold._transition = record_cold
+        cold.sample()
+        cold_ratios = [float(r) for r in cold_ratios]
+        check(all(math.isfinite(r) for r in cold_ratios), f"cold log ratios {cold_ratios}")
+
+        sgd = inference.SGD(HE_WARM_SGD, model=build(), train=splits["train"], seed=0,
+                            device=device)
+        sgd.sample()
+        hmc = inference.HMC({**tuned, "num_samples": HE_DRAWS, "burn": HE_BURN}, model=build(),
+                            train=splits["train"], seed=0, device=device)
+        hmc._theta0 = sgd._state.params.detach().clone().reshape(1, -1)
+        first = []
+        transition = hmc._transition
+
+        def record_first(theta, ll, draws=None):
+            out = transition(theta, ll, draws)
+            if not first:
+                first.append((theta.clone(), ll.clone(), out))
+            return out
+
+        hmc._transition = record_first
+        ens, sample_s = _timed_sample(hmc)
+        check(torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32,
+              "HMC did not restore the TF32 flags")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    check(hmc.accept_rate > 0, f"HMC accepted no draw of {HE_DRAWS}")
+    check(ens.num_members == HE_DRAWS + 1 - HE_BURN, f"HMC: {ens.num_members} members")
+    for k, t in ens.state.items():
+        check(bool(torch.isfinite(t).all()), f"HMC: non-finite ensemble entry {k}")
+    metrics = _predict("HMC", ens, splits["test"], c)
+
+    theta, ll_cur, (_, _, _, log_ratio, (th, p0, p_new, ll_new)) = first[0]
+    f64 = [t.double() for t in (theta, th, p0, p_new)]
+    tau, inv_mass = hmc.tau, 1.0 / hmc.mass
+    sq = lambda a, b: float(torch.sum(a * a) - torch.sum(b * b))  # noqa: E731
+    ratio64 = ((float(ll_cur) - float(ll_new)) - 0.5 * tau * sq(f64[1], f64[0])
+               - 0.5 * inv_mass * sq(f64[3], f64[2]))
+    ratio_err = abs(float(log_ratio) - ratio64)
+    check(ratio_err < 1e-3, f"HMC's first log ratio {float(log_ratio)} vs float64 {ratio64}")
+    # for the record: the float32 model's own error in the data term
+    ce64 = [_ce_sum_f64(hmc.module, t, splits["train"], device) for t in (theta, th)]
+    ce_err = abs((float(ll_cur) - float(ll_new)) - (ce64[0] - ce64[1]))
+    grads = HE_DRAWS * (hmc.L + 1)
+    out = {"accept_rate": hmc.accept_rate, "cold_accept_rate": cold.accept_rate,
+           "cold_log_ratios": cold_ratios, "sample_s": sample_s,
+           "s_per_draw": sample_s / HE_DRAWS, "grads_per_s": grads / sample_s,
+           "log_ratio": float(log_ratio), "log_ratio_f64": ratio64, "log_ratio_err": ratio_err,
+           "ce_diff_err_vs_f64_model": ce_err, "metrics": metrics,
+           "warm_sgd_losses": [float(x) for x in sgd.epoch_losses]}
+    print(f"  (a) HMC MLP200MNIST / MNIST {HE_MNIST_TRAIN}, tuned step {hmc.step_size:.4g}, "
+          f"L {hmc.L}, tau {hmc.tau:g}, mass {hmc.mass:.4g}: cold start accept rate "
+          f"{cold.accept_rate:.3f} over {HE_COLD_DRAWS} draws (log ratios "
+          f"{[round(r, 3) for r in cold_ratios]}); from the SGD warm start (loss "
+          f"{out['warm_sgd_losses'][-1]:.4f}) {HE_DRAWS} draws in {sample_s:.2f} s, accept rate "
+          f"{hmc.accept_rate:.3f}, {sample_s / HE_DRAWS:.4f} s/draw, {grads / sample_s:.1f} "
+          f"full-batch gradients/s; first log ratio {float(log_ratio):.6f}, float64 "
+          f"{ratio64:.6f} (|diff| {ratio_err:.3g}), CE-sum difference vs a float64 model "
+          f"{ce_err:.3g}; {ens.num_members} members: {json.dumps(metrics)}", flush=True)
+    return out
+
+
+def hmc_conv_run(device) -> dict:
+    """(b) HMC on PreResNet-20 at full width and depth, 2 chains, over 2,048
+    synthetic CIFAR-10 images: eval-mode BatchNorm and cuDNN convolutions in
+    the potential; members = kept draws x 2."""
+    from ursabench_tpu_torch import data, inference, models
+
+    cfg = models.get_model("PreResNet20")
+    splits, c = data.loaders("CIFAR10", None, batch_size=BATCH, use_validation=False,
+                             transform_train=cfg.transform_train,
+                             transform_test=cfg.transform_test,
+                             synthetic_n_train=HE_CONV_TRAIN, synthetic_n_test=HE_CONV_TEST)
+    hmc = inference.HMC(HE_CONV_HYP, model=cfg.build(c), train=splits["train"], seed=1,
+                        device=device, chains=HE_CONV_CHAINS)
+    ens, sample_s = _timed_sample(hmc)
+    kept = HE_CONV_HYP["num_samples"] + 1 - HE_CONV_HYP["burn"]
+    check(ens.num_members == kept * HE_CONV_CHAINS,
+          f"HMC x{HE_CONV_CHAINS} chains: {ens.num_members} members, not {kept} x 2")
+    metrics = _predict("HMC PreResNet-20", ens, splits["test"], c)
+    grads = HE_CONV_HYP["num_samples"] * HE_CONV_CHAINS * (HE_CONV_HYP["L"] + 1)
+    print(f"  (b) HMC PreResNet-20 x{HE_CONV_CHAINS} chains, {HE_CONV_TRAIN} images, L "
+          f"{HE_CONV_HYP['L']}: {ens.num_members} members in {sample_s:.2f} s, "
+          f"{grads / sample_s:.1f} full-batch gradients/s, accept rate {hmc.accept_rate:.3f}; "
+          f"{json.dumps(metrics)}", flush=True)
+    return {"sample_s": sample_s, "members": ens.num_members, "accept_rate": hmc.accept_rate,
+            "grads_per_s": grads / sample_s, "metrics": metrics}
+
+
+def pca_wrn_run(device) -> dict:
+    """(c) The PCA-subspace ESS sampler on WideResNet-28x10 bf16 at full
+    width and depth over the samplers phase's synthetic CIFAR-100 cut, 2
+    chains, 3 draws: the SWA's trained BatchNorm buffers untouched by every
+    log-density call, Prediction finite."""
+    from ursabench_tpu_torch import data, inference, models, time_script
+    from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN
+
+    splits, c = data.loaders("CIFAR100", None, batch_size=BATCH, use_validation=False,
+                             transform_train=CIFAR_TRAIN, transform_test=CIFAR_TEST,
+                             synthetic_n_train=WRN_TRAIN, synthetic_n_test=WRN_TEST)
+    tuned = time_script.load_method_hyp(None, "PCASubspaceSampler", model="WideResNet28x10",
+                                        dataset="CIFAR100")
+    check((tuned["lr_init"], tuned["swag_lr"], tuned["swag_momentum"], tuned["swag_wd"],
+           tuned["temperature"], tuned["prior_std"], tuned["rank"])
+          == (0.1, 0.05, 0.9, 5e-4, 5000, 2.0, 20), f"tuned PCA-ESS values: {tuned}")
+    pca = inference.PCASubspaceSampler(
+        {**tuned, **HE_PCA_CUT}, model=models.get_model("WideResNet28x10").build(
+            c, dtype=torch.bfloat16), train=splits["train"], seed=2, device=device,
+        chains=HE_PCA_CHAINS)
+    swa_sample, lnpdf, state = pca.swa.sample, pca.lnpdf, {"calls": 0}
+
+    def timed_swa(*a, **kw):
+        t0 = time.perf_counter()
+        out = swa_sample(*a, **kw)
+        torch.cuda.synchronize()
+        state["swa_s"] = time.perf_counter() - t0
+        return out
+
+    def checked_lnpdf(theta):
+        if "trained" not in state:
+            state["trained"] = {k: b.clone() for k, b in pca.module.named_buffers()}
+        out = lnpdf(theta)
+        state["calls"] += 1
+        for k, b in pca.module.named_buffers():
+            check(torch.equal(b, state["trained"][k]),
+                  f"PCA-ESS: log-density call {state['calls']} changed the SWA's {k}")
+        return out
+
+    pca.swa.sample, pca.lnpdf = timed_swa, checked_lnpdf
+    ens, sample_s = _timed_sample(pca)
+    draws = HE_PCA_CUT["num_samples"]
+    check(ens.num_members == draws * HE_PCA_CHAINS, f"PCA-ESS: {ens.num_members} members")
+    check(pca.subspace.rank == tuned["rank"], f"PCA-ESS subspace rank {pca.subspace.rank}")
+    for k, t in ens.state.items():
+        check(bool(torch.isfinite(t).all()), f"PCA-ESS: non-finite ensemble entry {k}")
+    metrics = _predict("PCA-ESS", ens, splits["test"], c)
+    ess_s = sample_s - state["swa_s"]
+    out = {"rank": pca.subspace.rank, "bracket_iters": pca.bracket_iters,
+           "lnpdf_calls": state["calls"], "sample_s": sample_s, "swa_s": state["swa_s"],
+           "ess_s_per_draw": ess_s / draws, "metrics": metrics}
+    print(f"  (c) PCA-ESS WRN-28x10 bf16 x{HE_PCA_CHAINS} chains: SWA {pca.swa.epochs_run} "
+          f"epochs in {state['swa_s']:.2f} s, subspace rank {pca.subspace.rank}; {draws} draws: "
+          f"bracket proposals per draw and chain {pca.bracket_iters}, {state['calls']} "
+          f"full-data log densities, {ess_s / draws:.2f} s a draw (both chains, the last with "
+          f"its BatchNorm refresh); SWA's BatchNorm buffers unchanged; {json.dumps(metrics)}",
+          flush=True)
+    return out
+
+
+def resume_checks(device, tmp) -> dict:
+    """(d) HMC, SGLD and PCA-ESS on MLP200MNIST killed mid-chain and
+    resumed from their checkpoints: each ensemble against its uninterrupted
+    run's."""
+    import os
+
+    from ursabench_tpu_torch import data, inference, models
+
+    splits, c = data.loaders("MNIST", None, batch_size=BATCH, use_validation=False,
+                             synthetic_n_train=MNIST_TRAIN, synthetic_n_test=MNIST_TEST)
+    out = {}
+    for method, (hyp, every, kill_at) in HE_RESUME.items():
+        def make():
+            return getattr(inference, method)(hyp, model=models.get_model("MLP200MNIST").build(c),
+                                              train=splits["train"], seed=3, device=device)
+
+        path = os.path.join(tmp, f"{method}.npz")
+        full, part = make(), make()
+        part.enable_auto_checkpoint(path, every_epochs=every, resume=False)
+        if method == "SGLD":  # an epoch sampler: its chain resumes, its draws do not
+            want = [full.sample_iterative() for _ in range(hyp["num_samples"])]
+            got = [part.sample_iterative() for _ in range(kill_at)]
+            res = make()
+            check(res.enable_auto_checkpoint(path, every_epochs=every), f"{method}: no resume")
+            got += [res.sample_iterative() for _ in range(hyp["num_samples"] - kill_at)]
+            pairs = [(g[k], w[k]) for g, w in zip(got, want) for k in w]
+        else:
+            want = full.sample().state
+            part.sample(num_samples=kill_at)
+            res = make()
+            check(res.enable_auto_checkpoint(path, every_epochs=every), f"{method}: no resume")
+            got = res.sample().state
+            pairs = [(got[k], want[k]) for k in want]
+        diff = max(float((g - w).abs().max()) for g, w in pairs)
+        scale = max(float(w.abs().max()) for _, w in pairs)
+        check(diff <= 1e-6 * scale, f"{method}: the resumed run differs by {diff}")
+        out[method] = {"max_abs_diff": diff, "bit_equal": diff == 0.0}
+    print(f"  (d) kill and resume on MLP200MNIST: "
+          + ", ".join(f"{m} largest difference {r['max_abs_diff']:.3g}"
+                      + (" (bit-equal)" if r["bit_equal"] else "") for m, r in out.items()),
+          flush=True)
+    return out
+
+
+def time_run(device, tmp) -> dict:
+    """(e) ``cli time`` over the nine methods on MLP200MNIST / MNIST at the
+    tuned values, beside the torch-CPU baseline; K1 once a step of the
+    SGHMC-family trials."""
+    import os
+
+    from ursabench_tpu_torch import cli, time_script
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    save = os.path.join(tmp, "times")
+    sghmc_update_flat.launches = 0
+    t0 = time.perf_counter()
+    check(cli.main(["time", "--dataset", "MNIST", "--model", "MLP200MNIST", "--S", "3",
+                    "--T", str(HE_TIME_T), "--warmup_trials", str(HE_TIME_WARMUP),
+                    "--save_path", save, "--synthetic_n_train", str(HE_TIME_TRAIN),
+                    "--synthetic_n_test", str(HE_TIME_TEST)]) == 0, "cli time failed")
+    seconds = time.perf_counter() - t0
+    launches = sghmc_update_flat.launches
+    with open(save + ".json") as f:
+        timer = json.load(f)
+    steps_per_epoch = -(-HE_TIME_TRAIN // BATCH)
+    epochs = 0
+    for m in ("SGHMC", "SGLD", "cSGHMC", "cSGLD"):
+        hyp = time_script.normalize_burnin(m, time_script.load_method_hyp(None, m), 3)
+        epochs += hyp["cycle_length"] if m.startswith("c") else hyp["burn_in_epochs"] + 3
+    want = (HE_TIME_T + HE_TIME_WARMUP) * epochs * steps_per_epoch
+    check(launches == want, f"cli time: K1 launched {launches} times, expected {want}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "assets", "method_times_mlp200_cpu.json")) as f:
+        cpu = json.load(f)
+    for m in time_script.DEFAULT_METHODS:
+        check(timer[f"{m}_trials"] == HE_TIME_T and math.isfinite(timer[f"{m}_mean"]),
+              f"cli time: {m} {timer.get(m + '_mean')} over {timer.get(m + '_trials')}")
+        base = (f"{cpu[m + '_mean']:.3f} s over {cpu[m + '_trials']} trials"
+                if m + "_mean" in cpu else "none")
+        print(f"    {m}: {timer[m + '_mean']:.3f} +- {timer[m + '_std']:.3f} s over "
+              f"{HE_TIME_T} trials; torch-CPU baseline (60,000 images) {base}", flush=True)
+    print(f"  (e) cli time: {seconds:.1f} s, K1 {launches} launches", flush=True)
+    return {"seconds": seconds, "launches": launches, "times": timer}
+
+
+def hmc_ess_phase(device) -> dict:
+    """HMC, the PCA-subspace ESS sampler, mid-chain resume and the timing
+    entry point on the card; K1's launches are those of (e)."""
+    import os
+    import tempfile
+
+    os.makedirs(HE_OUT, exist_ok=True)
+    res = {}
+    for key, fn in (("hmc_tuned", hmc_tuned_run), ("hmc_conv", hmc_conv_run),
+                    ("pca_wrn", pca_wrn_run)):
+        t0 = time.perf_counter()
+        res[key] = fn(device)
+        res[key]["phase_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=HE_OUT) as tmp:
+        res["resume"] = resume_checks(device, tmp)
+        res["time"] = time_run(device, tmp)
+    res["launches"] = res["time"]["launches"]
+    with open(f"{HE_OUT}/hmc_ess_phase.json", "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", flush=True)
@@ -1617,13 +2003,14 @@ def main() -> int:
     samplers = phase("samplers", samplers_phase, device)
     experiment = phase("experiment", experiment_phase, device)
     hypopt = phase("hypopt", hypopt_phase, device, n_slice)
+    hmc_ess = phase("hmc_ess", hmc_ess_phase, device)
 
     kernels = [{
         "name": "sghmc_update", "route": "cuda",
         "source": "ursabench_tpu_torch/csrc/sghmc_update.cu",
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
         "launches": (launches + imagenet["k1_launches"] + samplers["launches"]
-                     + experiment["launches"] + hypopt["launches"]),
+                     + experiment["launches"] + hypopt["launches"] + hmc_ess["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], samplers["k1"]["max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": None,

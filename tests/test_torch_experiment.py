@@ -2,7 +2,9 @@
 package's: both drivers' ``main`` with the same arguments and, in place of
 the sampler, the same two-member ensemble (transferred from flax), give
 the same results, CSV rows and ``.npz`` keys; the flags whose machinery is
-not ported raise naming their ROADMAP.md item; ``cli`` dispatches."""
+not ported raise naming their ROADMAP.md item; ``cli`` dispatches; the
+default method (HMC) and the PCA subspace sampler run, ``--checkpoint_path``
+resumes and ``--pretrained_model_path`` warm-starts."""
 
 import csv
 import json
@@ -124,10 +126,9 @@ def test_validation_mode_matches_jax(tmp_path, injected):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--stream"], 13), (["--stream_chunk", "4"], 13),
-    (["--checkpoint_path", "ck"], 14), (["--pretrained_model_path", "w.npz"], 14),
-    (["--inference_method", "HMC"], 10), (["--inference_method", "PCASubspaceSampler"], 10),
-    (["--chain_strategy", "vmap"], 7),
+    pytest.param(["--stream"], 13, id="extra0-13"),
+    pytest.param(["--stream_chunk", "4"], 13, id="extra1-13"),
+    pytest.param(["--chain_strategy", "vmap"], 7, id="extra6-7"),
 ])
 def test_unported_flags_raise(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"open item {item}"):
@@ -186,9 +187,11 @@ def test_cli_dispatch(monkeypatch, capsys):
     listed = capsys.readouterr().out.split()
     assert listed == tmodels.list_models() and "WideResNet28x10" in listed
     assert set(listed) <= set(jmodels.list_models())
-    with pytest.raises(NotImplementedError, match="open item 14"):
-        tcli.main(["time"])
-    from ursabench_tpu_torch import run_hypopt
+    from ursabench_tpu_torch import run_hypopt, time_script
+
+    monkeypatch.setattr(time_script, "main", lambda argv=None, device=None: seen.append(argv))
+    assert tcli.main(["time", "--save_path", "t"]) == 0
+    assert seen[-1] == ["--save_path", "t"]
 
     for cmd, fn in (("hypopt", "main_seq"), ("hypopt-par", "main_par")):
         monkeypatch.setattr(run_hypopt, fn, lambda argv=None, device=None, c=cmd: seen.append(c))
@@ -211,3 +214,81 @@ def test_cli_run_refuses_without_a_gpu():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert "CUDA" in out.stderr
+
+
+HMC_HYP = {"step_size": 1e-3, "num_samples": 3, "L": 2, "tau": 1.0, "burn": 1, "mass": 1.0}
+PCA_HYP = {"swag_lr": 0.01, "swag_wd": 1e-4, "lr_init": 0.02, "num_samples": 2,
+           "swag_momentum": 0.9, "swag_burn_in_epochs": 1, "num_swag_iterates": 2, "rank": 2,
+           "max_rank": 2, "temperature": 100.0, "prior_std": 1.0}
+RUN = ["--dataset", "MNIST", "--model", "MLP200MNIST", "--batch_size", "32",
+       "--synthetic_n_train", "96", "--synthetic_n_test", "40"]
+
+
+@pytest.mark.parametrize("method,hyp", [(None, HMC_HYP), ("PCASubspaceSampler", PCA_HYP)])
+def test_default_hmc_and_pca_run_and_write_their_row(tmp_path, method, hyp):
+    """``cli run`` with its default method, HMC, and with the PCA subspace
+    sampler (``experiment.main``, as ``cli run`` calls it, on the CPU)."""
+    argv = RUN + ["--hyperparams", json.dumps(hyp), "--use_val", "--save_path",
+                  str(tmp_path / "v")]
+    if method is not None:
+        argv += ["--inference_method", method]
+    perf = texp.main(argv, device="cpu")
+    rows = _rows(tmp_path / "vresults.csv")
+    assert len(rows) == 1 and rows[0][3] == (method or "HMC")
+    assert len(rows[0]) == 6 + len(hyp) + len(perf)
+    assert all(np.isfinite(v) for k, v in perf.items() if "auroc" not in k)
+
+
+@pytest.mark.parametrize("method,hyp,where", [("SGLD", HYP, "epoch 3"),
+                                              ("HMC", HMC_HYP, "draw 3")])
+def test_checkpoint_path_resumes(tmp_path, capsys, method, hyp, where):
+    """A second run with the same --checkpoint_path resumes each trial's
+    chain from its file; the message counts epochs, or draws for HMC (the
+    JAX runner reads ``epochs_run``, which HMC does not have). An epoch
+    sampler's resumed chain draws its samples anew from there, as in the
+    JAX package; HMC's holds every draw already, so its results repeat."""
+    argv = RUN + ["--inference_method", method, "--hyperparams", json.dumps(hyp),
+                  "--num_trials", "2", "--checkpoint_path", str(tmp_path / "ck"),
+                  "--checkpoint_every", "1"]
+    first = texp.main(argv, device="cpu")
+    assert sorted(os.listdir(tmp_path)) == ["ck.seed0.npz", "ck.seed1.npz"]
+    assert "resumed" not in capsys.readouterr().out
+    again = texp.main(argv, device="cpu")
+    assert capsys.readouterr().out.count(f"resumed chain at {where}") == 2
+    if method == "HMC":
+        for k in first:
+            assert again[k] == first[k] or (np.isnan(again[k]) and np.isnan(first[k])), k
+    else:  # two more draws, one epoch each
+        from ursabench_tpu_torch.utils_checkpoint import load_pytree
+
+        assert int(load_pytree(str(tmp_path / "ck.seed0.npz"))["epochs_run"]) == 5
+
+
+def test_pretrained_model_path_warm_starts_sgld(tmp_path):
+    """A variables file written by the JAX package warm-starts every chain
+    of an epoch sampler; HMC, which has no training state, refuses it."""
+    from ursabench_tpu.utils_checkpoint import save_variables
+
+    variables = jax.tree.map(np.asarray, jinit(jmodels.get_model("MLP200MNIST").build(10),
+                                               jax.random.PRNGKey(9), (28, 28, 1)))
+    path = str(tmp_path / "w.npz")
+    save_variables(path, variables)
+    want = params_from_jax(tmodels.get_model("MLP200MNIST").build(10), variables)
+    args = texp.build_parser().parse_args(RUN + ["--inference_method", "SGLD", "--chains", "2",
+                                                 "--pretrained_model_path", path])
+    from ursabench_tpu_torch import data as tdata
+
+    splits, c = tdata.loaders("MNIST", None, batch_size=32, use_validation=False,
+                              synthetic_n_train=96, synthetic_n_test=40)
+    sampler = texp._make_sampler(args, HYP, tmodels.get_model("MLP200MNIST").build(c),
+                                 splits["train"], 0, torch.device("cpu"))
+    for module in sampler.modules:
+        for k, v in want.state_dict().items():
+            assert torch.equal(module.state_dict()[k], v), k
+    args.inference_method = "HMC"
+    with pytest.raises(NotImplementedError, match="pretrained_model_path"):
+        texp._make_sampler(args, HMC_HYP, tmodels.get_model("MLP200MNIST").build(c),
+                           splits["train"], 0, torch.device("cpu"))
+    results = texp.main(RUN + ["--inference_method", "SGLD", "--hyperparams", json.dumps(HYP),
+                               "--pretrained_model_path", path], device="cpu")
+    assert np.isfinite(results["error_rate_mean"])

@@ -93,7 +93,10 @@ NEW_MODULES = ["ursabench_tpu_torch.models.wideresnet", "ursabench_tpu_torch.mod
                "ursabench_tpu_torch.hyperopt.search", "ursabench_tpu_torch.hyperopt.gp",
                "ursabench_tpu_torch.hyperopt.bayesopt", "ursabench_tpu_torch.hyperopt.vectorized",
                "ursabench_tpu_torch.run_hypopt", "ursabench_tpu_torch.models.lenet",
-               "ursabench_tpu_torch.models.resnet_cifar"]
+               "ursabench_tpu_torch.models.resnet_cifar", "ursabench_tpu_torch.inference.hmc",
+               "ursabench_tpu_torch.inference.pca_subspace", "ursabench_tpu_torch.ops.ess",
+               "ursabench_tpu_torch.utils_checkpoint", "ursabench_tpu_torch.logging_utils",
+               "ursabench_tpu_torch.time_script"]
 
 
 def test_sampler_modules_import_without_jax():
@@ -109,7 +112,8 @@ def test_sampler_modules_import_without_jax():
 
 
 @pytest.mark.parametrize("name", ["SGHMC", "SGLD", "cSGHMC", "cSGLD", "SGD", "DeepEnsemble",
-                                  "MCdropout", "SWA", "SWAG", "MethodSweep"])
+                                  "MCdropout", "SWA", "SWAG", "MethodSweep", "HMC",
+                                  "PCASubspaceSampler"])
 def test_samplers_default_to_cuda_and_refuse_without_it(name):
     import torch
 

@@ -7,14 +7,12 @@ Commands (counterpart of ``ursabench_tpu/cli.py``):
                (run_hypopt.py main_par; --dry_run prints the commands)
   profile    — ensemble latency profiling (profiling/latency.py)
   models     — list the registered models
-  time       — not ported yet (ROADMAP.md open item 14)
+  time       — per-method sampler wall time (time_script.py)
 """
 
 from __future__ import annotations
 
 import sys
-
-_NOT_PORTED = {"time": "time_script.py (ROADMAP.md open item 14)"}
 
 
 def main(argv=None):
@@ -44,8 +42,10 @@ def main(argv=None):
 
         for name in models.list_models():
             print(name)
-    elif cmd in _NOT_PORTED:
-        raise NotImplementedError(f"{cmd!r}: {_NOT_PORTED[cmd]} is not ported yet")
+    elif cmd == "time":
+        from .time_script import main as time_main
+
+        time_main(rest)
     else:
         print(f"Unknown command {cmd!r}.\n{__doc__}")
         return 2

@@ -13,10 +13,17 @@ results.
 ``main(argv, device=None)`` runs on ``cuda:<device_num>`` unless the caller
 passes a device (the tests pass ``"cpu"``). Flags whose machinery is not
 ported yet raise ``NotImplementedError`` naming their ROADMAP.md item:
-``--stream``/``--stream_chunk`` (13), ``--checkpoint_path`` and
-``--pretrained_model_path`` (14), and a ``--mesh`` that would span more
+``--stream``/``--stream_chunk`` (13) and a ``--mesh`` that would span more
 than one device (15). ``TIMINGS`` holds the seconds of the last ``main``
 call by stage.
+
+``--checkpoint_path P`` checkpoints every sampler of the run to
+``P.seed<seed>.npz`` every ``--checkpoint_every`` epochs (draws, for HMC and
+the PCA subspace sampler) and resumes from that file when it exists.
+``--pretrained_model_path`` loads a variables file (either package's
+``utils_checkpoint.save_variables``) into every chain of an epoch sampler
+before it samples, and before a checkpoint is restored, so that a resumed
+chain keeps its checkpoint; samplers without a training state refuse it.
 """
 
 from __future__ import annotations
@@ -32,9 +39,11 @@ import numpy as np
 import torch
 
 from . import data, inference, models, tasks
-from .inference.base import resolve_device
+from .inference.base import _EpochSampler, resolve_device
 from .tasks.base import accumulate_split
+from .transfer import params_from_jax, params_to_jax
 from .util import json_open_from_file
+from .utils_checkpoint import load_pytree
 
 OOD_PAIRINGS = {
     "MNIST": ["FashionMNIST", "KMNIST"],
@@ -69,8 +78,7 @@ def build_parser():
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--save_path", type=str, default=None)
     p.add_argument("--device_num", type=int, default=0, help="runs on cuda:<device_num>")
-    p.add_argument("--pretrained_model_path", type=str, default=None,
-                   help="not ported yet (ROADMAP.md open item 14)")
+    p.add_argument("--pretrained_model_path", type=str, default=None)
     p.add_argument("--chains", type=int, default=1)
     p.add_argument("--chain_strategy", choices=["auto", "scan", "vmap"], default="auto",
                    help="how chains > 1 run on one device: 'auto' and 'scan' advance "
@@ -81,7 +89,8 @@ def build_parser():
                    help="device layout; on one device all three mean no mesh, "
                         "a layout over several is not ported yet (ROADMAP.md open item 15)")
     p.add_argument("--checkpoint_path", type=str, default=None,
-                   help="not ported yet (ROADMAP.md open item 14)")
+                   help="checkpoint each sampler's chain to <path>.seed<seed>.npz and "
+                        "resume from it if present")
     p.add_argument("--checkpoint_every", type=int, default=10)
     p.add_argument("--synthetic_n_train", type=int, default=None)
     p.add_argument("--synthetic_n_test", type=int, default=None)
@@ -101,10 +110,6 @@ def _check_flags(args) -> None:
         _not_ported("--stream", 13)
     if args.stream_chunk != 1:
         _not_ported("--stream_chunk", 13)
-    if args.checkpoint_path is not None:
-        _not_ported("--checkpoint_path", 14)
-    if args.pretrained_model_path is not None:
-        _not_ported("--pretrained_model_path", 14)
 
 
 def _load_hyp(args):
@@ -135,6 +140,24 @@ def _check_mesh(args, device: torch.device) -> None:
         _not_ported(f"--mesh auto over {n} devices (pass --mesh none)", 15)
 
 
+def _load_pretrained(sampler, pretrained: dict) -> None:
+    """Warm-start every chain of an epoch sampler from flax-layout
+    variables; BatchNorm statistics absent from them stay as they are."""
+    if not isinstance(sampler, _EpochSampler):
+        raise NotImplementedError(
+            f"--pretrained_model_path is not supported for {type(sampler).__name__}")
+    for module in sampler.modules:
+        params_from_jax(module, {**params_to_jax(module), **pretrained})
+
+
+def _progress(sampler) -> str:
+    """Where a resumed chain stands: epochs for an epoch sampler, draws for
+    HMC and the PCA subspace sampler, which have no epochs."""
+    if isinstance(sampler, _EpochSampler):
+        return f"epoch {sampler.epochs_run}"
+    return f"draw {sampler.draws_done}"
+
+
 def _make_sampler(args, hyp, module, train_split, seed, device):
     method = inference.get_inference(args.inference_method)
     if isinstance(method, type) and issubclass(method, inference.MethodSweep):
@@ -145,8 +168,15 @@ def _make_sampler(args, hyp, module, train_split, seed, device):
     kwargs = {}
     if "chain_strategy" in inspect.signature(method.__init__).parameters:
         kwargs["chain_strategy"] = args.chain_strategy
-    return method(hyperparameters=hyp, model=module, train=train_split, seed=seed,
-                  chains=args.chains, device=device, **kwargs)
+    sampler = method(hyperparameters=hyp, model=module, train=train_split, seed=seed,
+                     chains=args.chains, device=device, **kwargs)
+    if args.pretrained_model_path is not None:
+        _load_pretrained(sampler, load_pytree(args.pretrained_model_path))
+    if args.checkpoint_path:
+        if sampler.enable_auto_checkpoint(f"{args.checkpoint_path}.seed{seed}.npz",
+                                          args.checkpoint_every):
+            print(f"resumed chain at {_progress(sampler)}")
+    return sampler
 
 
 def _load_ood(args, cfg):

@@ -2,18 +2,24 @@
 split); ``update_hyp`` re-initialises; ``sample_iterative`` returns one
 posterior draw; ``sample`` returns the ``Ensemble``.
 
-Counterpart of ``ursabench_tpu/inference/base.py`` without the device mesh
-and checkpointing, plus the chain bookkeeping that every epoch-driven
-sampler of ``ursabench_tpu/inference/{sgmcmc,sgd_map,swa}.py`` shares
+Counterpart of ``ursabench_tpu/inference/base.py`` without the device mesh,
+plus the chain bookkeeping that every epoch-driven sampler of
+``ursabench_tpu/inference/{sgmcmc,sgd_map,swa}.py`` shares
 (``_EpochSampler``). Randomness comes from ``seed`` through generators
 seeded with sha256-derived sub-seeds, one per purpose, where the JAX
 package splits a PRNG key.
+
+Mid-chain checkpoints (``enable_auto_checkpoint``): an epoch sampler saves
+its chain state every N epochs (``utils_checkpoint.save_sampler_state``)
+and restores it at once; HMC and the PCA subspace sampler save theirs every
+N draws and resume inside ``sample()``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional
+import os
+from typing import Dict, Optional
 
 import torch
 
@@ -74,6 +80,8 @@ class _Inference:
         self.chains = int(chains)
         self.hyperparameters = hyperparameters
         self._draws = 0
+        self._ckpt_path: Optional[str] = None
+        self._ckpt_every = 1
 
     # -- protocol ------------------------------------------------------------
 
@@ -113,6 +121,34 @@ class _Inference:
         return float(eval_loss(self.module, val_split, state=state))
 
     def _single_member(self) -> StateDict:
+        raise NotImplementedError
+
+    def _ensemble_from_draws(self, draws) -> Ensemble:
+        """S draws -> an ensemble of S * chains members, draw-major (the
+        JAX package's (S, chains) -> (S * chains) merge)."""
+        state = stack_state_dicts(draws)
+        if self.chains > 1:
+            state = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in state.items()}
+        return Ensemble(self.module, state, len(draws) * self.chains)
+
+    # -- mid-chain checkpoints ---------------------------------------------------
+
+    def enable_auto_checkpoint(self, path: str, every_epochs: int = 10,
+                               resume: bool = True) -> bool:
+        """Save the chain to ``path`` every ``every_epochs`` epochs (draws,
+        for HMC and the PCA subspace sampler); with ``resume``, restore an
+        existing checkpoint there. Returns True if one was restored."""
+        self._ckpt_path = path
+        self._ckpt_every = max(1, int(every_epochs))
+        if resume and os.path.exists(path):
+            self._restore_checkpoint(path)
+            return True
+        return False
+
+    def _checkpoint_due(self, count: int) -> bool:
+        return self._ckpt_path is not None and count % self._ckpt_every == 0
+
+    def _restore_checkpoint(self, path: str) -> None:
         raise NotImplementedError
 
 
@@ -214,10 +250,20 @@ class _EpochSampler(_Inference):
     def _single_member(self) -> StateDict:
         return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
 
-    def _ensemble_from_draws(self, draws) -> Ensemble:
-        """S draws -> an ensemble of S * chains members, draw-major (the
-        JAX package's (S, chains) -> (S * chains) merge)."""
-        state = stack_state_dicts(draws)
-        if self.chains > 1:
-            state = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in state.items()}
-        return Ensemble(self.module, state, len(draws) * self.chains)
+    def _generators(self) -> Dict[str, torch.Generator]:
+        """Every generator the chains draw from, by a stable name."""
+        gens = {f"data{c}": g for c, g in enumerate(self._data_gens)}
+        gens["noise"] = self._noise_gen
+        gens.update({f"dropout{i}": g for i, (g, _) in enumerate(self._dropout_gens)})
+        return gens
+
+    def _maybe_checkpoint(self) -> None:
+        if self._checkpoint_due(self.epochs_run):
+            from ..utils_checkpoint import save_sampler_state
+
+            save_sampler_state(self._ckpt_path, self)
+
+    def _restore_checkpoint(self, path: str) -> None:
+        from ..utils_checkpoint import restore_sampler_state
+
+        restore_sampler_state(path, self)

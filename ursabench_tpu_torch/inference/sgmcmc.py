@@ -13,6 +13,9 @@ reference protocols:
   after each of the last samples_per_cycle epochs of a cycle. cSGLD is
   cSGHMC with alpha pinned to 1.
 
+SGHMC and cSGHMC (and so SGLD and cSGLD) save a mid-chain checkpoint
+after every epoch the schedule of ``enable_auto_checkpoint`` asks for.
+
 With ``chains`` C, every epoch advances all C chains (``_EpochSampler``)
 and each draw holds one member per chain: S draws make an ensemble of S * C
 members, draw-major, as the JAX package merges them.
@@ -122,7 +125,9 @@ class SGHMC(_EpochSampler):
         epochs = self.burn_in_epochs + 1 if not self.burnt_in else 1
         self.burnt_in = True
         for _ in range(epochs):
-            self._log_val_loss(self._run_epoch(), val_loader, debug_val_loss)
+            loss = self._run_epoch()
+            self._maybe_checkpoint()
+            self._log_val_loss(loss, val_loader, debug_val_loss)
         return self._harvest()
 
     def sample(self, num_samples=None, val_loader=None, debug_val_loss=False) -> Ensemble:
@@ -212,6 +217,7 @@ class cSGHMC(_EpochSampler):
     def sample_iterative(self, val_loader=None, debug_val_loss=False):
         while True:
             loss = self._run_epoch(noise_on=self._noise_on())
+            self._maybe_checkpoint()
             self._log_val_loss(loss, val_loader, debug_val_loss)
             if self._harvested():
                 return self._harvest()

@@ -1,3 +1,3 @@
-from . import metrics, sgmcmc
+from . import ess, metrics, sgmcmc
 
-__all__ = ["metrics", "sgmcmc"]
+__all__ = ["ess", "metrics", "sgmcmc"]

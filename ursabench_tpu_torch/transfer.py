@@ -1,4 +1,5 @@
-"""Load flax variables (as numpy arrays) into a module of this package.
+"""Move weights between flax variables (as numpy arrays) and a module of
+this package: ``params_from_jax`` loads them, ``params_to_jax`` exports them.
 
 Flax names a compact module's children ``<Type>_<k>``, counting each type in
 creation order. The modules of this package register their children in the
@@ -13,8 +14,8 @@ dense kernels (in, out) -> (out, in); BatchNorm ``scale``/``bias`` and
 ``batch_stats`` ``mean``/``var`` map to ``weight``/``bias`` and
 ``running_mean``/``running_var``.
 
-Takes numpy arrays only (``jax.tree.map(np.asarray, variables)`` on the JAX
-side), so this module imports no JAX.
+Takes and returns numpy arrays only (``jax.tree.map(np.asarray, variables)``
+on the JAX side), so this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -99,3 +100,35 @@ def _load(module: nn.Module, params: Mapping, stats: Mapping, scope: str):
         raise KeyError(f"flax scopes without a torch layer under "
                        f"{scope or '/'}: {sorted(missing)}")
 
+
+def params_to_jax(module: nn.Module) -> dict:
+    """``module``'s weights as flax variables: ``{"params": ...,
+    "batch_stats": ...}`` (the latter only if it has BatchNorm), nested
+    dicts of float32 numpy arrays; the inverse of ``params_from_jax``."""
+    params, stats = _export(module)
+    return {"params": params, **({"batch_stats": stats} if stats else {})}
+
+
+def _numpy(t: torch.Tensor, perm=None) -> np.ndarray:
+    t = t.detach().to("cpu", torch.float32)
+    return (t if perm is None else t.permute(*perm)).contiguous().numpy().copy()
+
+
+def _export(module: nn.Module):
+    params, stats = {}, {}
+    for name, child in _flax_children(module):
+        if isinstance(child, nn.Conv2d):
+            params[name] = {"kernel": _numpy(child.weight, (2, 3, 1, 0))}
+            if child.bias is not None:
+                params[name]["bias"] = _numpy(child.bias)
+        elif isinstance(child, nn.Linear):
+            params[name] = {"kernel": _numpy(child.weight, (1, 0)), "bias": _numpy(child.bias)}
+        elif isinstance(child, BatchNorm2d):
+            params[name] = {"scale": _numpy(child.weight), "bias": _numpy(child.bias)}
+            stats[name] = {"mean": _numpy(child.running_mean),
+                           "var": _numpy(child.running_var)}
+        else:
+            params[name], sub = _export(child)
+            if sub:
+                stats[name] = sub
+    return params, stats
