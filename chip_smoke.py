@@ -138,11 +138,31 @@ Phases, each ending with its seconds:
    from 10 to 2 after 1 warm-up trial: every method's mean beside the
    torch-CPU baseline, K1 once a step of the SGHMC, SGLD, cSGHMC and cSGLD
    trials.
+15. host streaming and the rest of the profiling layer (stream): (a)
+   PreResNet-20 / synthetic CIFAR-10 at full size (50,000 images, batch
+   128, fp32, SGHMC on one chain), resident, streamed through
+   HostStreamingSplit (M = 1) and chunked (M = 16): a warm-up epoch each,
+   every streamed transfer of it compared on the card, after its step, with
+   the host's gather of native.permutation(n, seed + epoch), then one timed
+   epoch each in the order resident, streamed, chunked, chunked, streamed,
+   resident: steps/s, streamed_pct_of_in_hbm, the host's time in the
+   stream and in ursa_stream_next a step, H2D GB/s; K1 once a step; three
+   float32-mode batches equal to gather_normalize; (b) TVResNet-50 bf16 at
+   224x224, batch 128, SGHMC streamed from a uint8 memmap of 4,096 synthetic
+   images written under smoke_out/stream/ (cut from ImageNet's 1,281,167):
+   a checked warm-up epoch, a timed epoch beside the ImageNet slice's
+   resident rate, an epoch under torch.profiler for the device's busy share
+   and the copies' rate, finite losses; (c) `cli run --stream
+   --stream_chunk 4`, SGLD on MLP200MNIST / MNIST, 2 trials: the result
+   keys, K1 once a step; (d) PreResNet-20, S=6, batch 128, exported (fp32
+   and bf16), saved and loaded: within 1e-5 (fp32) and 1e-2 (bf16) of the
+   eager engine, one loaded call's ms; (e) profile_config with a trace_dir
+   (MLP200MNIST, S=1, batch 1): the trace names CUDA kernels.
 The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
 32, in the three precisions under both member strategies.
 Then a JSON line describing each kernel (its launches on the main path,
 K1's summed over the slice, the ImageNet slice, the samplers, the
-experiment, the hypopt and the hmc_ess phases; its
+experiment, the hypopt, the hmc_ess and the stream phases; its
 error against its plain version, its time, the plain version's, its
 bound and the single library call's where there is one), and last the JSON
 line {"ok": true, "device": {...}}. Any failed check exits non-zero before
@@ -292,6 +312,13 @@ HE_RESUME = {
 # trial, the train split from 60,000 images
 HE_TIME_T, HE_TIME_WARMUP, HE_TIME_TRAIN, HE_TIME_TEST = 2, 1, 10000, 2000
 HE_OUT = "smoke_out/hmc_ess"
+# the stream phase: (a) PreResNet-20 streamed per batch and in chunks of 16
+# (bench.py:146-148's chunk_batches), (b) TVResNet-50 from a memmap of
+# ST_IMAGENET_N images (cut from ImageNet's 1,281,167), (c) cli run --stream,
+# (d) export, (e) trace_dir
+STREAM_CHUNK = 16
+ST_IMAGENET_N = 4096
+ST_OUT = "smoke_out/stream"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -587,7 +614,8 @@ def microbench_phase(device) -> dict:
 def latency_phase(device, ens, test) -> list:
     from ursabench_tpu_torch.data.transforms import normalize
     from ursabench_tpu_torch.profiling.latency import (ProfileConfig, build_engine,
-                                                       profile_config, random_ensemble,
+                                                       member_cost, profile_config,
+                                                       random_ensemble,
                                                        resolve_member_strategy)
     from ursabench_tpu_torch.profiling.tables import make_latex_table
 
@@ -614,7 +642,8 @@ def latency_phase(device, ens, test) -> list:
     for prec in ("fp32", "bf16", "int8"):
         for b in (1, 128):
             cfg = ProfileConfig("PreResNet20", "CIFAR10", prec, LATENCY_S, b)
-            auto = resolve_member_strategy("auto", LATENCY_S, b, (3, 32, 32), prec)
+            auto = resolve_member_strategy("auto", LATENCY_S, b, (3, 32, 32), prec,
+                                           *member_cost("PreResNet20", 10, (3, 32, 32)))
             for strategy in (("scan", "vmap") if prec == "bf16" else (auto,)):
                 r = profile_config(cfg, amortize_k=AMORTIZE_K, member_strategy=strategy,
                                    device=device)
@@ -627,7 +656,8 @@ def latency_phase(device, ens, test) -> list:
     for prec in ("fp32", "bf16", "int8"):
         for b in batches:
             cfg = ProfileConfig("TVResNet50", "ImageNet", prec, s, b)
-            auto = resolve_member_strategy("auto", s, b, (3, 224, 224), prec)
+            auto = resolve_member_strategy("auto", s, b, (3, 224, 224), prec,
+                                           *member_cost("TVResNet50", 1000, (3, 224, 224)))
             by = {}
             for strategy in ("scan", "vmap"):
                 r = profile_config(cfg, amortize_k=TV_AMORTIZE_K, member_strategy=strategy,
@@ -1952,6 +1982,314 @@ def hmc_ess_phase(device) -> dict:
     return res
 
 
+class _CheckedStream:
+    """A ``HostStreamingSplit`` whose every device batch is compared, on the
+    device, with ``expected`` (the host's gather of the epoch's permutation,
+    on the card) after the consumer has queued its step on the batch: a
+    pinned slot overwritten before its copy finished, or a device batch
+    reused while the step still read it, leaves a mismatch. ``bad`` counts
+    the mismatched bytes and labels (a device tensor, read once)."""
+
+    def __init__(self, split, expected):
+        self.split, self.expected = split, expected  # (images, labels) on the card
+        self.bad = torch.zeros((), dtype=torch.int64, device=expected[0].device)
+        self.checked = 0
+
+    def __getattr__(self, name):
+        return getattr(self.split, name)
+
+    def epoch(self, device):
+        rows = self.split.batch_size * self.split.chunk_batches
+        for t, (x, y) in enumerate(self.split.epoch(device)):
+            yield x, y
+            xe = self.expected[0][t * rows:(t + 1) * rows].view(x.shape)
+            ye = self.expected[1][t * rows:(t + 1) * rows].view(y.shape)
+            self.bad += (x != xe).sum() + (y != ye).sum()
+            self.checked += 1
+
+
+def _expected_epoch(split, device):
+    """The next epoch's batches as the host gathers them: ``images[perm]``
+    and ``labels[perm]`` for ``perm = native.permutation(n, seed + epoch)``,
+    the tail dropped, on the card."""
+    from ursabench_tpu_torch.data import native
+
+    perm = native.permutation(split.n, split.seed + split.epochs_started)
+    perm = perm[:split.num_batches * split.batch_size]
+    return (torch.from_numpy(split.images[perm]).to(device),
+            torch.from_numpy(split.labels[perm]).to(device))
+
+
+def _stream_sampler(device, train, model, chunk):
+    """An SGHMC sampler on a uint8 stream of ``train`` (seed 0, ``chunk``
+    batches a transfer), after one warm-up epoch through ``_CheckedStream``
+    (every transfer byte-equal to the host's gather). Returns (sampler,
+    stream, checked transfers)."""
+    from ursabench_tpu_torch import inference
+    from ursabench_tpu_torch.data.native import HostStreamingSplit
+
+    stream = HostStreamingSplit(train.images, train.labels, train.batch_size, train.spec,
+                                seed=0, chunk_batches=chunk)
+    checked = _CheckedStream(stream, _expected_epoch(stream, device))
+    sampler = inference.SGHMC(HYP, model=model, train=checked, seed=0, device=device)
+    sampler._run_epoch()
+    bad = int(checked.bad)
+    check(bad == 0 and checked.checked == stream.num_chunks,
+          f"streamed batches (M={chunk}): {bad} mismatched bytes over {checked.checked} "
+          f"transfers")
+    sampler.train = stream
+    return sampler, stream, checked.checked
+
+
+def _timed_epoch(sampler, stats=None) -> float:
+    """ms a step of one epoch of ``sampler`` (CUDA events); ``stats`` (a
+    dict) gains the epoch's change of its stream's counters."""
+    from ursabench_tpu_torch.profiling.hw import event_ms
+
+    split = sampler.train
+    before = dict(split.stats) if stats is not None else None
+    ms = event_ms(sampler._run_epoch, 1) / split.num_batches
+    if stats is not None:
+        for k, v in split.stats.items():
+            stats[k] = stats.get(k, 0) + v - before[k]
+    return ms
+
+
+def _stream_line(stats, steps) -> str:
+    gbs = stats["bytes"] / stats["copy_s"] / 1e9 if stats["copy_s"] else float("nan")
+    return (f"host in the stream's iterator {stats['host_s'] / steps * 1e3:.3f} ms a step "
+            f"(of it in ursa_stream_next {stats['wait_s'] / steps * 1e3:.3f}), H2D "
+            f"{gbs:.1f} GB/s over {stats['transfers']} copies of "
+            f"{stats['bytes'] / max(stats['transfers'], 1) / 1e6:.2f} MB (events around "
+            f"the copies)")
+
+
+def stream_cifar(device, splits) -> dict:
+    """(a) PreResNet-20 / CIFAR-10 (50,000 images, batch 128, fp32, SGHMC, one
+    chain), resident, streamed (M=1) and chunked (M=16): a warm-up epoch
+    each (every streamed transfer checked byte for byte), then one timed
+    epoch each in the order resident, streamed, chunked, chunked, streamed,
+    resident; float32-mode batches against gather_normalize."""
+    from ursabench_tpu_torch import inference, models
+    from ursabench_tpu_torch.data import native
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    train = splits["train"]
+    cfg = models.get_model("PreResNet20")
+    sghmc_update_flat.launches = 0
+    resident = inference.SGHMC(HYP, model=cfg.build(10), train=train, seed=0, device=device)
+    resident._run_epoch()
+    modes = {"resident": (resident, None, 0)}
+    for name, chunk in (("streamed", 1), ("chunked", STREAM_CHUNK)):
+        modes[name] = _stream_sampler(device, train, cfg.build(10), chunk)
+    ms = {name: [] for name in modes}
+    stats = {name: {} for name in modes}
+    for name in ("resident", "streamed", "chunked", "chunked", "streamed", "resident"):
+        sampler = modes[name][0]
+        ms[name].append(_timed_epoch(sampler, None if name == "resident" else stats[name]))
+    steps = sum(3 * m[0].train.num_batches for m in modes.values())
+    launches = sghmc_update_flat.launches
+    check(launches == steps, f"stream (a): K1 launched {launches} times for {steps} steps")
+    out = {"launches": launches}
+    for name, (sampler, stream, checked) in modes.items():
+        losses = [float(v) for v in sampler.epoch_losses]
+        check(len(losses) == 3 and all(map(math.isfinite, losses)), f"{name}: losses {losses}")
+        sps = [1e3 / v for v in ms[name]]
+        out[name] = {"steps_per_sec": sps, "steps": sampler.train.num_batches,
+                     "checked_transfers": checked, "stats": stats[name], "losses": losses}
+        if stream is not None:
+            print(f"  {name} (M={stream.chunk_batches}): "
+                  f"{' / '.join(f'{v:.1f}' for v in sps)} steps/s over {stream.num_batches} "
+                  f"steps; {checked} transfers of the warm-up epoch byte-equal to the host's "
+                  f"gather; {_stream_line(stats[name], 2 * stream.num_batches)}", flush=True)
+    mean = {name: sum(out[name]["steps_per_sec"]) / 2 for name in modes}
+    out["streamed_pct_of_in_hbm"] = 100 * mean["streamed"] / mean["resident"]
+    out["chunked_pct_of_in_hbm"] = 100 * mean["chunked"] / mean["resident"]
+
+    # float32 mode: dataio.cc's normalization, moved as it is
+    stream = native.HostStreamingSplit(train.images, train.labels, BATCH, train.spec, seed=5,
+                                       transfer_dtype="float32")
+    perm = native.permutation(train.n, 5)
+    for t, (x, y) in enumerate(stream.epoch(device)):
+        if t == 3:
+            break
+        wx, wy = native.gather_normalize(train.images, train.labels,
+                                         perm[t * BATCH:(t + 1) * BATCH],
+                                         train.spec.mean, train.spec.std)
+        check(x.dtype == torch.float32 and torch.equal(x.cpu(), torch.from_numpy(wx))
+              and torch.equal(y.cpu(), torch.from_numpy(wy).long()),
+              f"float32 streamed batch {t} differs from gather_normalize")
+    print(f"  PreResNet-20 / CIFAR-10 bs{BATCH} fp32 SGHMC, steps/s in the order R S C C S R: "
+          f"resident {' / '.join(f'{v:.1f}' for v in out['resident']['steps_per_sec'])}, "
+          f"streamed {' / '.join(f'{v:.1f}' for v in out['streamed']['steps_per_sec'])}, "
+          f"chunked (M={STREAM_CHUNK}) "
+          f"{' / '.join(f'{v:.1f}' for v in out['chunked']['steps_per_sec'])}; "
+          f"streamed_pct_of_in_hbm {out['streamed_pct_of_in_hbm']:.1f}, chunked "
+          f"{out['chunked_pct_of_in_hbm']:.1f} (means of the two); K1 {launches} launches = "
+          f"{steps} steps; 3 float32-mode batches equal to gather_normalize", flush=True)
+    return out
+
+
+def stream_imagenet(device, resident_sps) -> dict:
+    """(b) TVResNet-50 bf16 at 224^2, batch 128, SGHMC, streamed from a uint8
+    memmap of ``ST_IMAGENET_N`` synthetic images (cut from 1,281,167): one
+    checked warm-up epoch, one timed epoch, one epoch under torch.profiler
+    for the device's busy share."""
+    import os
+
+    from ursabench_tpu_torch import models
+    from ursabench_tpu_torch.data.arrays import DataSplit
+    from ursabench_tpu_torch.data.transforms import IMAGENET_TRAIN
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+    from ursabench_tpu_torch.profiling import imagenet_train as IT
+    from ursabench_tpu_torch.profiling.step_profile import device_times
+
+    os.makedirs(ST_OUT, exist_ok=True)
+    path = f"{ST_OUT}/imagenet_train.npy"
+    t0 = time.perf_counter()
+    images, labels = IT.synth_imagenet(ST_IMAGENET_N, 0)
+    np.save(path, images)
+    del images
+    images = np.load(path, mmap_mode="r")
+    data_s = time.perf_counter() - t0
+    check(not images.flags.writeable and images.shape == (ST_IMAGENET_N, 224, 224, 3),
+          "the ImageNet memmap")
+    train = DataSplit(images, labels, BATCH, IMAGENET_TRAIN)
+    model = models.get_model("TVResNet50").build(IT.CLASSES, dtype=torch.bfloat16)
+    sghmc_update_flat.launches = 0
+    sampler, stream, checked = _stream_sampler(device, train, model, 1)
+    steps = stream.num_batches
+    delta = {}
+    ms = _timed_epoch(sampler, delta)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        sampler._run_epoch()
+        torch.cuda.synchronize()
+    launches = sghmc_update_flat.launches
+    check(launches == 3 * steps, f"stream (b): K1 launched {launches} times for {3 * steps} steps")
+    losses = [float(v) for v in sampler.epoch_losses]
+    check(len(losses) == 3 and all(map(math.isfinite, losses)), f"stream (b): losses {losses}")
+    times = device_times(prof)
+    copy_us = sum(us for k, (_, us) in times.items() if k.startswith("Memcpy"))
+    kernel_us = sum(us for k, (_, us) in times.items() if not k.startswith("Mem"))
+    busy = kernel_us / 1e3 / steps / ms * 100
+    slot_bytes = delta["bytes"] / delta["transfers"]
+    prof_gbs = slot_bytes * steps / copy_us / 1e3 if copy_us else float("nan")
+    del sampler, stream, train, images
+    os.remove(path)
+    out = {"n": ST_IMAGENET_N, "steps": steps, "steps_per_sec": 1e3 / ms,
+           "resident_steps_per_sec": resident_sps, "pct_of_resident": 1e3 / ms / resident_sps * 100,
+           "stats": delta, "device_busy_pct": busy,
+           "kernel_ms_per_step": kernel_us / 1e3 / steps, "copy_ms_per_step": copy_us / 1e3 / steps,
+           "profiled_h2d_gb_per_s": prof_gbs,
+           "losses": losses, "launches": launches, "memmap_seconds": data_s}
+    print(f"  TVResNet-50 bf16 224^2 bs{BATCH} SGHMC from a {ST_IMAGENET_N}-image uint8 memmap: "
+          f"streamed {1e3 / ms:.2f} steps/s beside the resident slice's {resident_sps:.2f} "
+          f"({out['pct_of_resident']:.1f}%); {_stream_line(delta, steps)}; device busy "
+          f"{busy:.1f}% ({kernel_us / 1e3 / steps:.2f} ms of kernels a step, "
+          f"{copy_us / 1e3 / steps:.2f} ms of copies beside them: "
+          f"{prof_gbs:.1f} GB/s by the profiler); {checked} transfers "
+          f"byte-equal; losses {[round(v, 4) for v in losses]}; K1 {launches} launches; "
+          f"memmap written in {data_s:.1f} s", flush=True)
+    return out
+
+
+def stream_cli(device) -> dict:
+    """(c) ``cli run --stream --stream_chunk 4``: SGLD on MLP200MNIST / MNIST, 2
+    trials; the result keys of a resident run, finite, K1 once a step."""
+    from ursabench_tpu_torch import tasks
+
+    runs = []
+    save = f"{ST_OUT}/mnist_stream"
+    argv = ["--dataset", "MNIST", "--model", "MLP200MNIST", "--inference_method", "SGLD",
+            "--batch_size", str(BATCH), "--synthetic_n_train", str(MNIST_TRAIN),
+            "--synthetic_n_test", str(MNIST_TEST), "--hyperparams", json.dumps(MNIST_HYP),
+            "--num_trials", "2", "--stream", "--stream_chunk", "4", "--save_path", save]
+    seconds, launches = _run_cli(argv, runs)
+    check(len(runs) == 2, f"stream (c): {len(runs)} samplers")
+    steps = _check_launches("stream (c)", launches, runs)
+    check(runs[0]["batches"] == (MNIST_TRAIN // (4 * BATCH)) * 4,
+          f"stream (c): {runs[0]['batches']} batches an epoch")
+    res = dict(np.load(save + "_tests.npz"))
+    metrics = (list(tasks.Prediction.supported_metric_list)
+               + [f"{kind}_uncertainty_auroc_{d}" for d in ("FashionMNIST", "KMNIST")
+                  for kind in ("total", "model")] + ["cost"])
+    want = {f"{m}_{stat}" for m in metrics for stat in ("mean", "std")}
+    check(set(res) == want, f"stream (c) keys: {sorted(set(res) ^ want)}")
+    for k, v in res.items():
+        check(math.isfinite(float(v)) or k.startswith("misclass"), f"stream (c): {k} = {v}")
+    print(f"  cli run --stream --stream_chunk 4 (MLP200MNIST / MNIST, SGLD, 2 trials): "
+          f"{seconds:.1f} s, K1 {launches} launches = {steps} steps, error "
+          f"{float(res['error_rate_mean']):.4f}, {len(res)} result keys", flush=True)
+    return {"seconds": seconds, "launches": launches,
+            "error_rate": float(res["error_rate_mean"])}
+
+
+def stream_export(device) -> dict:
+    """(d) PreResNet-20, S=6, batch 128: the BMA engine exported, saved,
+    loaded and held against the eager engine, fp32 and bf16."""
+    from ursabench_tpu_torch.profiling import export as E
+    from ursabench_tpu_torch.profiling import latency as L
+    from ursabench_tpu_torch.profiling.hw import event_ms
+
+    ens = L.random_ensemble("PreResNet20", 10, LATENCY_S, device)
+    out = {}
+    for prec, tol in (("fp32", 1e-5), ("bf16", 1e-2)):
+        t0 = time.perf_counter()
+        ep = E.export_bma_engine(ens.module, ens.state, BATCH, (3, 32, 32), prec)
+        path = f"{ST_OUT}/preresnet20_s{LATENCY_S}_{prec}.pt2"
+        E.save_engine(path, ep)
+        engine = E.load_engine(path)
+        export_s = time.perf_counter() - t0
+        # the eager engine that runs the members as the exported one does
+        eager, x = L.build_engine(ens.module, ens.state, BATCH, (3, 32, 32), prec, "scan")
+        got, want = engine(x), eager(x)
+        err = float((got - want).abs().max())
+        check(got.shape == (BATCH, 10) and bool(torch.isfinite(got).all()) and err <= tol,
+              f"exported {prec} engine differs from the eager one by {err}")
+        ms = event_ms(lambda: engine(x), 20, warm_up=3)
+        eager_ms = event_ms(lambda: eager(x), 20, warm_up=3)
+        out[prec] = {"max_abs_err": err, "ms": ms, "eager_ms": eager_ms, "export_s": export_s}
+        print(f"  export PreResNet-20 S={LATENCY_S} bs{BATCH} {prec}: loaded engine within "
+              f"{err:.2g} of the eager one (<= {tol}); {ms:.3f} ms a call, eager {eager_ms:.3f} "
+              f"ms; export + save + load {export_s:.1f} s", flush=True)
+    return out
+
+
+def stream_trace(device) -> dict:
+    """(e) ``profile_config(trace_dir=)``: the trace file names CUDA kernels
+    (MLP200MNIST, S=1, batch 1: the per-call protocol's 230 calls with the
+    fewest ops a call, so the smallest trace)."""
+    from ursabench_tpu_torch.profiling import latency as L
+
+    cfg = L.ProfileConfig("MLP200MNIST", "MNIST", "fp32", 1, 1)
+    res = L.profile_config(cfg, device=device, trace_dir=f"{ST_OUT}/traces")
+    with open(res["trace_path"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    check(len(kernels) > 0, f"no CUDA kernel in {res['trace_path']}")
+    print(f"  trace_dir: {res['trace_path']}, {len(events)} events, {len(kernels)} distinct "
+          f"CUDA kernels (e.g. {sorted(kernels)[0][:60]}); {res['latency_mean_s'] * 1e3:.3f} ms "
+          f"a call under the profiler", flush=True)
+    return {"trace_events": len(events), "kernels": len(kernels)}
+
+
+def stream_phase(device, splits, imagenet) -> dict:
+    """Host streaming and the rest of the profiling layer: (a)-(e)."""
+    import os
+
+    os.makedirs(ST_OUT, exist_ok=True)
+    out = {"cifar": stream_cifar(device, splits),
+           "imagenet": stream_imagenet(device, imagenet["train"]["steps_per_sec"]),
+           "cli": stream_cli(device), "export": stream_export(device),
+           "trace": stream_trace(device)}
+    out["launches"] = sum(out[k]["launches"] for k in ("cifar", "imagenet", "cli"))
+    with open(f"{ST_OUT}/stream_phase.json", "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", flush=True)
@@ -2004,13 +2342,15 @@ def main() -> int:
     experiment = phase("experiment", experiment_phase, device)
     hypopt = phase("hypopt", hypopt_phase, device, n_slice)
     hmc_ess = phase("hmc_ess", hmc_ess_phase, device)
+    stream = phase("stream", stream_phase, device, splits, imagenet)
 
     kernels = [{
         "name": "sghmc_update", "route": "cuda",
         "source": "ursabench_tpu_torch/csrc/sghmc_update.cu",
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
         "launches": (launches + imagenet["k1_launches"] + samplers["launches"]
-                     + experiment["launches"] + hypopt["launches"] + hmc_ess["launches"]),
+                     + experiment["launches"] + hypopt["launches"] + hmc_ess["launches"]
+                     + stream["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], samplers["k1"]["max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": None,

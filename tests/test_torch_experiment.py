@@ -126,8 +126,6 @@ def test_validation_mode_matches_jax(tmp_path, injected):
 
 
 @pytest.mark.parametrize("extra,item", [
-    pytest.param(["--stream"], 13, id="extra0-13"),
-    pytest.param(["--stream_chunk", "4"], 13, id="extra1-13"),
     pytest.param(["--chain_strategy", "vmap"], 7, id="extra6-7"),
 ])
 def test_unported_flags_raise(tmp_path, extra, item):

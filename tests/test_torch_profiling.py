@@ -1,9 +1,13 @@
 """The latency-profiling path of ursabench_tpu_torch against the JAX
 package: int8 weight quantization of state dicts, the fp32/bf16/int8
-ensemble engines on a PreResNet-8 ensemble transferred from flax, the
-30/10/10 timing protocol, the sweep cache, the LaTeX table, the device peak
-table and Prediction in latency mode. The device engine (CUDA graphs) and
+ensemble engines on PreResNet-8, MLP200MNIST and a small WideResNet
+(biased convolutions) ensembles transferred from flax, the 30/10/10 timing
+protocol, the sweep cache, ``trace_dir``'s profiler trace, the LaTeX table,
+the device peak table and Prediction in latency mode. The device engine (CUDA graphs) and
 every time on the card are checked by ``chip_smoke.py``."""
+
+import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ from ursabench_tpu import models as jmodels
 from ursabench_tpu import tasks as jtasks
 from ursabench_tpu.inference.engine import init_variables as jinit
 from ursabench_tpu.inference.ensemble import Ensemble as JEnsemble
+from ursabench_tpu.models.wideresnet import WideResNet as JWideResNet
 from ursabench_tpu.profiling.latency import build_engine as j_build_engine
 from ursabench_tpu.profiling.quantize import quantize_tree
 from ursabench_tpu.util import tree_stack
@@ -183,6 +188,63 @@ def test_engines_match_jax(engines, prec, tol, strategy):
     np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
 
 
+def _small_models():
+    """(JAX module, port factory, NHWC input) of MLP200MNIST (no BatchNorm,
+    linear layers only) and WideResNet-10-1 (convolutions with biases)."""
+    return {
+        "MLP200MNIST": (jmodels.get_model("MLP200MNIST").build(10),
+                        lambda: tmodels.get_model("MLP200MNIST").build(10), (28, 28, 1)),
+        "WRN10x1": (JWideResNet(depth=10, widen_factor=1, num_classes=10),
+                    lambda: tmodels.WideResNet(depth=10, widen_factor=1, num_classes=10),
+                    (32, 32, 3)),
+    }
+
+
+@pytest.fixture(scope="module", params=["MLP200MNIST", "WRN10x1"])
+def more_engines(request):
+    """As ``engines``, for a 2-member ensemble of each of ``_small_models``."""
+    jm, make, hwc = _small_models()[request.param]
+    variables = []
+    for k in range(MEMBERS):
+        v = jax.tree.map(np.array, jinit(jm, jax.random.PRNGKey(10 + k), hwc))
+        head = sorted(n for n in v["params"] if n.startswith("Dense"))[-1]
+        v["params"][head]["kernel"] = v["params"][head]["kernel"] * 20.0
+        variables.append(v)
+    state = stack_state_dicts([{k: t.clone() for k, t in params_from_jax(make(), v)
+                               .state_dict().items()} for v in variables])
+    params = tree_stack([v["params"] for v in variables])
+    bstats = (tree_stack([v["batch_stats"] for v in variables])
+              if "batch_stats" in variables[0] else None)
+    x = np.random.default_rng(1).normal(size=(BATCH,) + hwc).astype(np.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    chw = (hwc[2],) + hwc[:2]
+    out = {"model": request.param}
+    for prec in L.PRECISIONS:
+        je, _ = j_build_engine(jm, params, bstats, BATCH, hwc, prec, "vmap")
+        out[("jax", prec)] = np.asarray(je(jnp.asarray(x)))
+        for strategy in L.MEMBER_STRATEGIES:
+            te, _ = L.build_engine(make(), state, BATCH, chw, prec, strategy)
+            out[(strategy, prec)] = te(xt).numpy()
+    return out
+
+
+@pytest.mark.parametrize("prec,tol", [("fp32", 1e-5), ("bf16", 1e-3), ("int8", 5e-3)])
+def test_engines_match_jax_on_mlp_and_wideresnet(more_engines, prec, tol):
+    """The tolerances of ``test_engines_match_jax``, but for the MLP in bf16:
+    it runs in bf16 throughout, logits included (flax promotes its bf16
+    input and weights to bf16), and XLA and torch round a layer's product
+    and bias at different points, so the logits differ by up to one bf16
+    ulp of the largest (0.0156 measured at |logit| <= 3.3), which moves a
+    probability by up to ~4e-3: 1e-2 there, the export's bf16 tolerance.
+    The WRN's head runs in float32 on the pooled float32 features."""
+    if prec == "bf16" and more_engines["model"] == "MLP200MNIST":
+        tol = 1e-2
+    for strategy in L.MEMBER_STRATEGIES:
+        got = more_engines[(strategy, prec)]
+        np.testing.assert_allclose(got, more_engines[("jax", prec)], rtol=0, atol=tol)
+        np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
+
+
 @pytest.mark.parametrize("prec", ["bf16", "int8"])
 def test_low_precision_engines_within_envelope_of_fp32(engines, prec):
     """The envelope of tests/test_quantize.py:60."""
@@ -251,35 +313,51 @@ def test_time_engine_protocol(monkeypatch):
 
 
 def test_member_strategy_auto_rule():
-    """The faster strategy as measured on an H100: at S > 1 and 32x32, vmap
-    for bf16 and int8, and for fp32 at batch 1; scan for fp32 from batch 8.
-    At 224x224 (S=2), vmap at batch 1 and for int8 up to batch 4, scan
-    above. Scan for one member."""
+    """The faster strategy as measured on an H100, from one member's FLOPs on
+    one image: scan for one member; vmap without convolutions; with them,
+    vmap while a member's forward stays within 40 (fp32), 14 (bf16) and 46
+    (int8) GFLOP, in fp32 only at batch 1 (under 64 pixels up to batch 7)."""
     r = L.resolve_member_strategy
-    cifar = (3, 32, 32)
+    cifar, imagenet = (3, 32, 32), (3, 224, 224)
+    pre, _ = L.member_cost("PreResNet20", 10, cifar)
+    wrn, _ = L.member_cost("WideResNet28x10", 10, cifar)
+    tv, convs = L.member_cost("TVResNet50", 1000, imagenet)
+    inr, _ = L.member_cost("INResNet50", 1000, imagenet)
+    mlp, mlp_convs = L.member_cost("MLP200MNIST", 10, (1, 28, 28))
+    assert convs and not mlp_convs
+    assert 0.08e9 < pre < 0.09e9 and 11.8e9 < wrn < 12e9 and 8.1e9 < tv < 8.3e9
+    assert 126e9 < inr < 128e9
     for prec in ("bf16", "int8"):
-        assert r("auto", 6, 1, cifar, prec) == "vmap"
-        assert r("auto", 6, 128, cifar, prec) == "vmap"
-    assert r("auto", 6, 1, cifar, "fp32") == "vmap"
-    assert r("auto", 6, 8, cifar, "fp32") == "scan"
-    assert r("auto", 6, 128, cifar, "fp32") == "scan"
-    imagenet = (3, 224, 224)
+        assert r("auto", 6, 1, cifar, prec, pre) == "vmap"
+        assert r("auto", 6, 128, cifar, prec, pre) == "vmap"
+        assert r("auto", 6, 1, cifar, prec, wrn) == "vmap"
+        assert r("auto", 6, 128, cifar, prec, wrn) == "scan"
+    assert r("auto", 6, 1, cifar, "fp32", pre) == "vmap"
+    assert r("auto", 6, 8, cifar, "fp32", pre) == "scan"
+    assert r("auto", 6, 128, cifar, "fp32", pre) == "scan"
+    assert r("auto", 6, 1, cifar, "fp32", wrn) == "vmap"
+    assert r("auto", 6, 128, cifar, "fp32", wrn) == "scan"
     for prec in L.PRECISIONS:
-        assert r("auto", 2, 1, imagenet, prec) == "vmap"
-        assert r("auto", 2, 8, imagenet, prec) == "scan"
-    assert r("auto", 2, 32, imagenet, "bf16") == "scan"
-    assert r("auto", 2, 2, imagenet, "fp32") == "scan"
-    assert r("auto", 2, 2, imagenet, "bf16") == "scan"
-    assert r("auto", 2, 4, imagenet, "int8") == "vmap"
-    assert r("auto", 1, 1, imagenet, "int8") == "scan"
-    assert r("auto", 1, 1, cifar, "bf16") == "scan"
-    assert r("scan", 6, 1, cifar, "bf16") == "scan"
+        assert r("auto", 2, 1, imagenet, prec, tv) == "vmap"
+        assert r("auto", 2, 8, imagenet, prec, tv) == "scan"
+        assert r("auto", 2, 1, imagenet, prec, inr) == "scan"
+        for b in (1, 128):
+            assert r("auto", 6, b, (1, 28, 28), prec, mlp, convs=False) == "vmap"
+            assert r("auto", 1, b, (1, 28, 28), prec, mlp, convs=False) == "scan"
+    assert r("auto", 2, 32, imagenet, "bf16", tv) == "scan"
+    assert r("auto", 2, 2, imagenet, "fp32", tv) == "scan"
+    assert r("auto", 2, 2, imagenet, "bf16", tv) == "scan"
+    assert r("auto", 2, 4, imagenet, "int8", tv) == "vmap"
+    assert r("auto", 1, 1, imagenet, "int8", tv) == "scan"
+    assert r("auto", 1, 1, cifar, "bf16", pre) == "scan"
+    assert r("scan", 6, 1, cifar, "bf16", pre) == "scan"
 
 
 def test_run_sweep_resumes_from_cache_and_table_renders(tmp_path, monkeypatch):
     measured = []
 
-    def fake(cfg, amortize_k=0, per_call=True, member_strategy="vmap", device=None):
+    def fake(cfg, amortize_k=0, per_call=True, member_strategy="vmap", device=None,
+             trace_dir=None):
         measured.append((cfg.key(), per_call, amortize_k))
         out = {**L.asdict(cfg), "device": "fake", "achieved_tflops": 1.0}
         if per_call:
@@ -392,6 +470,23 @@ def test_profile_config_and_profile_prediction_on_cpu():
     for k, v in plain.get_performance_metrics().items():
         tol = 0.05 if k.endswith(("auroc", "aucpr")) else 1e-5
         assert abs(v - out["metrics"][k]) < tol or (np.isnan(v) and np.isnan(out["metrics"][k]))
+
+
+def test_trace_dir_writes_a_profiler_trace_on_the_cpu(tmp_path, monkeypatch):
+    """``profile_config(trace_dir=)`` times the per-call protocol under
+    ``torch.profiler`` and writes ``<trace_dir>/<key>.json``; ``run_sweep``
+    passes it through."""
+    cfg = L.ProfileConfig("MLP200MNIST", "MNIST", "fp32", 1, 1)
+    res = L.profile_config(cfg, device="cpu", trace_dir=str(tmp_path / "traces"))
+    path = tmp_path / "traces" / f"{cfg.key()}.json"
+    assert res["trace_path"] == str(path) and path.exists()
+    events = json.loads(path.read_text())["traceEvents"]
+    assert sum(e.get("name") == "aten::linear" for e in events) >= L.WARM_UP_ITERS * 3
+    assert res["latency_mean_s"] > 0
+    monkeypatch.setattr(L, "profile_config", functools.partial(L.profile_config, device="cpu"))
+    cache = L.run_sweep([cfg], str(tmp_path / "cache.json"), trace_dir=str(tmp_path / "t2"))
+    assert (tmp_path / "t2" / f"{cfg.key()}.json").exists()
+    assert cache[cfg.key()]["trace_path"].endswith(".json")
 
 
 def test_train_step_flops_on_the_meta_device_match_a_real_step():

@@ -11,11 +11,17 @@ rerun on an imbalanced train set, and a CSV row plus an ``.npz`` of the
 results.
 
 ``main(argv, device=None)`` runs on ``cuda:<device_num>`` unless the caller
-passes a device (the tests pass ``"cpu"``). Flags whose machinery is not
-ported yet raise ``NotImplementedError`` naming their ROADMAP.md item:
-``--stream``/``--stream_chunk`` (13) and a ``--mesh`` that would span more
-than one device (15). ``TIMINGS`` holds the seconds of the last ``main``
-call by stage.
+passes a device (the tests pass ``"cpu"``). A ``--mesh`` that would span
+more than one device is not ported yet and raises ``NotImplementedError``
+naming ROADMAP.md item 15. ``TIMINGS`` holds the seconds of the last
+``main`` call by stage.
+
+``--stream`` keeps the train split on the host and streams it to the
+device (``data.native.HostStreamingSplit``, seeded with ``--seed``, M =
+``--stream_chunk`` batches a transfer, the tail dropped), for the six
+epoch-driven samplers that read the train split only through their epochs;
+any other method exits with the JAX runner's message. As there, the
+imbalanced Decision rerun trains on its own resident split.
 
 ``--checkpoint_path P`` checkpoints every sampler of the run to
 ``P.seed<seed>.npz`` every ``--checkpoint_every`` epochs (draws, for HMC and
@@ -95,21 +101,36 @@ def build_parser():
     p.add_argument("--synthetic_n_train", type=int, default=None)
     p.add_argument("--synthetic_n_test", type=int, default=None)
     p.add_argument("--stream", action="store_true",
-                   help="not ported yet (ROADMAP.md open item 13)")
+                   help="train from the host (HostStreamingSplit: the C++ prefetch "
+                        "stream, pinned staging slots, an asynchronous copy a batch) "
+                        "instead of a train split held on the device")
     p.add_argument("--stream_chunk", type=int, default=1, metavar="M",
-                   help="not ported yet (ROADMAP.md open item 13)")
+                   help="with --stream, move M batches a transfer and train their M "
+                        "steps in turn (the epoch's tail beyond whole chunks is dropped)")
     return p
+
+
+# the samplers whose only reads of the train split are their epochs
+_STREAMED_METHODS = {"SGHMC", "SGLD", "cSGHMC", "cSGLD", "SGD", "MCdropout"}
+
+
+def _stream_split(args, split):
+    """The train split as a ``HostStreamingSplit``, or exit for a method
+    that needs the whole split on the device."""
+    if args.inference_method not in _STREAMED_METHODS:
+        raise SystemExit(
+            f"--stream supports the epoch-driven samplers {sorted(_STREAMED_METHODS)}; "
+            f"{args.inference_method} requires the full train split resident in HBM "
+            "(full-batch gradients / train-epoch BN refresh)")
+    from .data.native import HostStreamingSplit
+
+    return HostStreamingSplit(split.images, split.labels, batch_size=split.batch_size,
+                              spec=split.spec, seed=args.seed,
+                              chunk_batches=args.stream_chunk)
 
 
 def _not_ported(flag: str, item: int):
     raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md open item {item})")
-
-
-def _check_flags(args) -> None:
-    if args.stream:
-        _not_ported("--stream", 13)
-    if args.stream_chunk != 1:
-        _not_ported("--stream_chunk", 13)
 
 
 def _load_hyp(args):
@@ -245,7 +266,6 @@ def _write_row(args, hyperparameters, values) -> None:
 
 def main(argv=None, device=None):
     args = build_parser().parse_args(argv)
-    _check_flags(args)
     device = resolve_device(f"cuda:{args.device_num}" if device is None else device)
     TIMINGS.clear()
     hyperparams = _load_hyp(args)
@@ -261,6 +281,8 @@ def main(argv=None, device=None):
             synthetic_n_test=args.synthetic_n_test,
         )
     train_split, test_split = loaders["train"], loaders["test"]
+    if args.stream:
+        train_split = _stream_split(args, train_split)
     num_classes = int(num_classes)
     build_kw = {"dtype": torch.bfloat16} if args.dtype == "bf16" else {}
     module = cfg.build(num_classes, **build_kw)

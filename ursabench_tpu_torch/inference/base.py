@@ -27,7 +27,7 @@ from ..data.transforms import draw_augment
 from ..models.common import dropout_layers
 from ..util import StateDict, derive_seed, make_generator, stack_state_dicts
 from .engine import (TrainState, epoch_indices, eval_loss, flatten_chains,
-                     init_variables, train_steps)
+                     init_variables, stream_steps, train_steps)
 from .ensemble import Ensemble
 
 _VMAP = ("chain_strategy='vmap' is not ported: chains advance in turn ('scan'); "
@@ -161,7 +161,12 @@ class _EpochSampler(_Inference):
     ``_HYP_KEYS``) that ``_setup`` fills in place, so changing them rebuilds
     nothing; the Langevin noise gate is one more (``self._noise_gate``). A
     sweep (``inference/vectorized.py``) makes the chains its configurations,
-    with (C,) hyperparameter tensors and each row's generators."""
+    with (C,) hyperparameter tensors and each row's generators.
+
+    A train split with ``epoch`` (``data.native.HostStreamingSplit``) stays
+    on the host: each epoch streams its batches through ``engine.
+    stream_steps``, one chain only, and the split's permutation takes the
+    place of the data generator's (which still draws the crops and flips)."""
 
     _HYP_KEYS: tuple = ()
     _LR_FN = None  # (hyp, epoch, batch_idx, step) -> lr
@@ -172,7 +177,13 @@ class _EpochSampler(_Inference):
                  device=None, chain_strategy="auto"):
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
                          device, chain_strategy)
-        self._images, self._labels = train.device_tensors(self.device)
+        self._streamed = hasattr(train, "epoch")
+        if not self._streamed:
+            self._images, self._labels = train.device_tensors(self.device)
+        elif self.chains > 1:
+            raise ValueError(f"host-streaming epochs are single-chain: chains={self.chains}")
+        else:
+            self._images = self._labels = None
         self.modules = [self.module] + [copy.deepcopy(self.module)
                                         for _ in range(self.chains - 1)]
         params, grads = flatten_chains(self.modules)
@@ -213,24 +224,30 @@ class _EpochSampler(_Inference):
         if noise_on is not None:
             self._noise_gate.fill_(1.0 if noise_on else 0.0)
         split = self.train
-        idx = torch.stack([epoch_indices(g, split.n, split.batch_size)
-                           for g in self._data_gens])
+        if self._streamed:  # stream_steps refuses a sweep's K rows
+            shape = (1, split.num_batches, split.batch_size)
+        else:
+            idx = torch.stack([epoch_indices(g, split.n, split.batch_size)
+                               for g in self._data_gens])
+            shape = tuple(idx.shape)
         aug = None
         if split.spec.augments:
-            draws = [draw_augment(g, tuple(idx.shape[1:]), split.spec) for g in self._data_gens]
+            draws = [draw_augment(g, shape[1:], split.spec) for g in self._data_gens]
             aug = tuple(None if draws[0][j] is None else torch.stack([d[j] for d in draws])
                         for j in range(3))
-        seeds = torch.randint(0, 2 ** 63 - 1, (idx.shape[1],),
+        seeds = torch.randint(0, 2 ** 63 - 1, (shape[1],),
                               generator=self._noise_gen).tolist()
         dropout_seeds = ([s for gen, rows in self._dropout_gens
                           for s in torch.randint(0, 2 ** 63 - 1, (rows,), generator=gen).tolist()]
                          if self._has_dropout else None)
-        loss = train_steps(
-            self._state, self._images, self._labels, idx, spec=split.spec,
-            epoch=self.epochs_run, noise_on=self._noise_gate, hyp=self._hyp,
-            lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds, aug=aug,
-            dropout_seeds=dropout_seeds,
-        )
+        kw = dict(epoch=self.epochs_run, noise_on=self._noise_gate, hyp=self._hyp,
+                  lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds, aug=aug,
+                  dropout_seeds=dropout_seeds)
+        if self._streamed:
+            loss = stream_steps(self._state, split, **kw)
+        else:
+            loss = train_steps(self._state, self._images, self._labels, idx, spec=split.spec,
+                               **kw)
         self.epochs_run += 1
         self.epoch_losses.append(loss)
         return loss

@@ -4,7 +4,11 @@ Counterpart of ``ursabench_tpu/inference/engine.py:54-313`` and ``:733-857``.
 The JAX package compiles one epoch into a ``lax.scan``; here an epoch is two
 pieces: ``epoch_indices`` draws the shuffled batch plan and ``train_steps``
 runs it, step by step, eagerly: gather -> normalize -> augment -> forward,
-cross entropy, backward -> learning rate -> parameter update.
+cross entropy, backward -> learning rate -> parameter update. That step,
+from normalize on, is ``train_step``; ``stream_steps`` runs it over the
+batches a ``data.native.HostStreamingSplit`` streams from the host (the
+JAX package's ``run_streaming_epoch`` and its chunked epoch), where the
+stream's permutation takes the place of the batch plan.
 
 C chains each have their own module (and so their own BatchNorm buffers),
 batch plan, crops, flips and dropout streams. Their parameters, momenta and
@@ -129,6 +133,53 @@ def epoch_indices(gen: torch.Generator, n: int, bsz: int) -> torch.Tensor:
     return perm.view(nb, bsz)
 
 
+def train_step(
+    state: TrainState,
+    batches: Sequence[tuple],
+    *,
+    spec: ImageSpec,
+    epoch: int,
+    batch_idx: int,
+    noise_on: torch.Tensor,
+    hyp: dict,
+    lr_fn: LrFn,
+    update_fn: UpdateFn,
+    seed: int,
+    aug: Optional[Sequence[tuple]] = None,
+    dropout_seeds: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """One training step of every chain of ``state``, in place; returns the
+    chains' losses, (C,), on the device. The body of both epochs, resident
+    (``train_steps``) and streamed (``stream_steps``).
+
+    ``batches[c]`` is chain c's ``(x, y)``: x NHWC, uint8 (normalized here
+    with ``normalize``) or float32 (taken as normalized), y int64 labels;
+    ``aug[c]`` is its ``(ox, oy, flip)`` or None for none; chain c's
+    dropout draws from ``make_generator(device, dropout_seeds[c],
+    batch_idx)`` (a model with dropout raises without ``dropout_seeds``);
+    ``seed`` keys the step's Langevin noise (one update over all
+    chains)."""
+    state.grads.zero_()
+    losses = []
+    for c, module in enumerate(state.modules):
+        x, y = batches[c]
+        if not x.is_floating_point():
+            x = normalize(x, spec)
+        if aug is not None:
+            x = augment_normalized(x, spec, *aug[c])
+        x = x.permute(0, 3, 1, 2).contiguous()
+        gen = (None if dropout_seeds is None
+               else make_generator(x.device, dropout_seeds[c], batch_idx))
+        with dropout_generator(module, gen):
+            loss = cross_entropy_mean(module(x), y)
+        loss.backward()
+        losses.append(loss.detach())
+    lr = lr_fn(hyp, epoch, batch_idx, state.step)
+    update_fn(state, hyp, lr=lr, noise_on=noise_on, is_first_step=state.step == 0, seed=seed)
+    state.step += 1
+    return torch.stack(losses)
+
+
 def train_steps(
     state: TrainState,
     images: torch.Tensor,
@@ -145,9 +196,9 @@ def train_steps(
     aug: Optional[tuple] = None,
     dropout_seeds: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """Run one training step per batch of ``idx`` on every chain of
-    ``state``, in place, and return the mean training loss: a 0-dim tensor
-    for one chain, (C,) for C, on the device (not read back).
+    """Run one training step (``train_step``) per batch of ``idx`` on every
+    chain of ``state``, in place, and return the mean training loss: a 0-dim
+    tensor for one chain, (C,) for C, on the device (not read back).
 
     ``images`` (uint8 NHWC) and ``labels`` live on the device; ``idx`` is
     (C, num_batches, batch) or, for one chain, (num_batches, batch);
@@ -157,41 +208,74 @@ def train_steps(
     dropout, step i drawing from ``make_generator(device, seed, i)`` (the
     counterpart of ``fold_in(k_drop, i)``), and is needed only by models
     with dropout."""
-    modules = state.modules
-    chains = len(modules)
+    chains = len(state.modules)
     idx = idx.reshape(chains, -1, idx.shape[-1])
     if aug is not None:
         aug = tuple(None if a is None else a.reshape(idx.shape) for a in aug)
-    has_dropout = [bool(dropout_layers(m)) for m in modules]
-    if any(has_dropout) and dropout_seeds is None:
-        raise ValueError("a model with dropout needs dropout_seeds")
-    for m in modules:
+    for m in state.modules:
         m.train()
     losses = []
     for bi in range(idx.shape[1]):
-        state.grads.zero_()
-        step_losses = []
-        for c, module in enumerate(modules):
-            b = idx[c, bi]
-            x = normalize(images.index_select(0, b), spec)
-            if aug is not None:
-                ox, oy, flip = (None if a is None else a[c, bi] for a in aug)
-                x = augment_normalized(x, spec, ox, oy, flip)
-            x = x.permute(0, 3, 1, 2).contiguous()
-            y = labels.index_select(0, b)
-            gen = (make_generator(images.device, dropout_seeds[c], bi)
-                   if has_dropout[c] else None)
-            with dropout_generator(module, gen):
-                loss = cross_entropy_mean(module(x), y)
-            loss.backward()
-            step_losses.append(loss.detach())
-        lr = lr_fn(hyp, epoch, bi, state.step)
-        update_fn(state, hyp, lr=lr, noise_on=noise_on,
-                  is_first_step=state.step == 0, seed=seeds[bi])
-        state.step += 1
-        losses.append(torch.stack(step_losses))
+        batches = [(images.index_select(0, idx[c, bi]), labels.index_select(0, idx[c, bi]))
+                   for c in range(chains)]
+        losses.append(train_step(
+            state, batches, spec=spec, epoch=epoch, batch_idx=bi, noise_on=noise_on,
+            hyp=hyp, lr_fn=lr_fn, update_fn=update_fn, seed=seeds[bi],
+            aug=_aug_at(aug, chains, bi), dropout_seeds=dropout_seeds))
     mean = torch.stack(losses).mean(0)
     return mean[0] if chains == 1 else mean
+
+
+def _aug_at(aug: Optional[tuple], chains: int, bi: int) -> Optional[list]:
+    """Each chain's ``(ox, oy, flip)`` of batch ``bi``, from (C, nb, batch)
+    draws."""
+    if aug is None:
+        return None
+    return [tuple(None if a is None else a[c, bi] for a in aug) for c in range(chains)]
+
+
+def stream_steps(
+    state: TrainState,
+    split,
+    *,
+    epoch: int,
+    noise_on: torch.Tensor,
+    hyp: dict,
+    lr_fn: LrFn,
+    update_fn: UpdateFn,
+    seeds: Sequence[int],
+    aug: Optional[tuple] = None,
+    dropout_seeds: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """One epoch of ``train_step`` over the batches a ``HostStreamingSplit``
+    streams to the device of ``state`` (one chain), in place; returns the
+    mean training loss, a 0-dim device tensor. A chunk of M batches trains
+    its M steps in turn, batch ``chunk_idx * M + j``, and the epoch's loss
+    is the mean of the chunks' mean losses (the JAX package's chunked
+    epoch; with M = 1, the mean of the batches'). ``aug`` and ``seeds``
+    are indexed by batch, as in ``train_steps`` with one chain."""
+    if len(state.modules) != 1:
+        raise ValueError("host-streaming epochs are single-chain")
+    state.module.train()
+    m = split.chunk_batches
+    if aug is not None:
+        aug = tuple(None if a is None else a.reshape(1, split.num_batches, -1) for a in aug)
+    chunk_means = []
+    for ci, (x, y) in enumerate(split.epoch(state.params.device)):
+        if m == 1:
+            x, y = x[None], y[None]
+        losses = []
+        for j in range(m):
+            bi = ci * m + j
+            losses.append(train_step(
+                state, [(x[j], y[j])], spec=split.spec, epoch=epoch, batch_idx=bi,
+                noise_on=noise_on, hyp=hyp, lr_fn=lr_fn, update_fn=update_fn,
+                seed=seeds[bi], aug=_aug_at(aug, 1, bi), dropout_seeds=dropout_seeds))
+        chunk_means.append(torch.stack(losses).mean(0))
+    if not chunk_means:
+        raise ValueError(f"the stream has {split.n} samples, fewer than one transfer "
+                         f"({split.batch_size} x {m})")
+    return torch.stack(chunk_means).mean(0)[0]
 
 
 def _padded_batches(n: int, bsz: int, fill, device) -> torch.Tensor:

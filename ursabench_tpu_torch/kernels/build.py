@@ -1,12 +1,15 @@
-"""Build the kernels of ``csrc/`` with ``nvcc`` and load them with ``ctypes``.
+"""Build the libraries of ``csrc/`` and load them with ``ctypes``.
 
-Each source is compiled on its own for ``sm_90a`` into a shared library with
-a plain C interface, at first use, into ``ursabench_tpu_torch/_build/`` under
-a name that carries the source's hash: an edited source builds anew, an
-unchanged one is reused. ``build`` starts one ``nvcc`` per missing library,
-all at once, and waits for them all; ``ptxas_report`` gives what ptxas said
-of each kernel it compiled in this process (registers, shared memory,
-spills). Nothing is built or loaded at import.
+Each source is compiled on its own into a shared library with a plain C
+interface, at first use, into ``ursabench_tpu_torch/_build/`` under a name
+that carries the source's hash: an edited source builds anew, an unchanged
+one is reused. A ``.cu`` source is a kernel, compiled by ``nvcc`` for
+``sm_90a``; a ``.cc`` source is host code (the data pipeline,
+``csrc/dataio.cc``), compiled by the host's C++ compiler with the flags of
+``native/Makefile``. ``build`` starts one compiler per missing library, all
+at once, and waits for them all; ``ptxas_report`` gives what ptxas said of
+each kernel it compiled in this process (registers, shared memory, spills).
+Nothing is built or loaded at import.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
 
 @dataclass(frozen=True)
@@ -47,6 +51,15 @@ def _nvcc() -> str:
     return found
 
 
+def _command(source: Path, out: Path) -> list:
+    if source.suffix == ".cu":
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"no C++ compiler to build {source.name}: set CXX or put g++ on PATH")
+    return [cxx, *HOST_FLAGS, "-o", str(out), str(source), "-lpthread"]
+
+
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
@@ -57,7 +70,7 @@ _PTXAS: Dict[Path, str] = {}
 
 
 def build(sources: Sequence[Path]) -> Dict[Path, float]:
-    """Compile every source whose library is missing, one ``nvcc`` each,
+    """Compile every source whose library is missing, one compiler each,
     all started together. Returns ``{source: seconds}`` (0.0 for a library
     that was already built). Raises with the compiler's output if any
     build fails."""
@@ -68,16 +81,16 @@ def build(sources: Sequence[Path]) -> Dict[Path, float]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
+        proc = subprocess.Popen(_command(source, tmp), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
         jobs[source] = (proc, tmp, path, time.perf_counter())
     failures = []
     for source, (proc, tmp, path, t0) in jobs.items():
         _, stderr = proc.communicate()
         _BUILD_SECONDS[source] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"nvcc failed on {source.name} ({proc.returncode}):\n{stderr}")
+            failures.append(f"{Path(proc.args[0]).name} failed on {source.name} "
+                            f"({proc.returncode}):\n{stderr}")
         else:
             _PTXAS[source] = stderr
             os.replace(tmp, path)

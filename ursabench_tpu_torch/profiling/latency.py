@@ -75,9 +75,12 @@ def _tensors(tree):
         yield tree
 
 
-def _linear_keys(module: nn.Module) -> set:
+def _float32_heads(module: nn.Module) -> set:
+    """The parameters of the plain ``nn.Linear`` heads, which take the conv
+    models' float32 pooled features. ``models.common.Linear`` (the MLPs' and
+    LeNet's layers) takes its input's dtype instead."""
     return {f"{name}.{p}" for name, m in module.named_modules()
-            if isinstance(m, nn.Linear) for p, _ in m.named_parameters(recurse=False)}
+            if type(m) is nn.Linear for p, _ in m.named_parameters(recurse=False)}
 
 
 def _prep_forward(module: nn.Module, state, precision: str,
@@ -90,11 +93,13 @@ def _prep_forward(module: nn.Module, state, precision: str,
     - fp32 keeps ``state``; bf16 casts every float entry and the input to
       bfloat16; int8 stores the weights as per-output-channel int8 and
       dequantizes them to bfloat16 inside the forward, per member.
-    - The models pool in float32 before their linear head. The JAX engine
-      feeds those float32 features to a flax Dense with bfloat16 weights,
-      which promotes to float32, so the head runs in float32 on
+    - The conv models pool in float32 before their linear head. The JAX
+      engine feeds those float32 features to a flax Dense with bfloat16
+      weights, which promotes to float32, so the head runs in float32 on
       bf16-rounded weights. The engine does the same: it upcasts the decoded
-      weights of every ``nn.Linear`` to float32 and leaves the features be.
+      weights of those heads to float32 and leaves the features be. The
+      MLPs and LeNet stay in bfloat16 throughout, as flax promotes a
+      bfloat16 input and bfloat16 weights to bfloat16.
     - ``member_strategy`` "scan" runs the members one after another and sums
       their probabilities; "vmap" runs them as one ``torch.func.vmap`` over
       the stacked state."""
@@ -111,7 +116,7 @@ def _prep_forward(module: nn.Module, state, precision: str,
         stored = {k: v.to(dtype) if v.is_floating_point() else v
                   for k, v in state.items()}
         decode = lambda st: st  # noqa: E731
-    head = _linear_keys(module)
+    head = _float32_heads(module)
     n_members = next(_tensors(stored)).shape[0]
     module.eval()
 
@@ -314,26 +319,52 @@ def random_ensemble(model: str, num_classes: int, ensemble_size: int, device):
     return ens
 
 
-def resolve_member_strategy(member_strategy: str, ensemble_size: int,
-                            batch_size: int, input_shape, precision: str) -> str:
+# the largest forward of one member (FLOPs, batch x image) that runs faster
+# vmapped than alone, by precision, as measured on an H100 (PERF.md): between
+# 11.9 and 127 GFLOP in fp32, 11.9 and 16.4 in bf16, 32.7 and 65.4 in int8
+VMAP_FLOPS = {"fp32": 40e9, "bf16": 14e9, "int8": 46e9}
+
+
+def member_cost(model: str, num_classes: int, input_shape):
+    """``(flops, convs)``: the FLOPs of one member's forward on one image of
+    ``input_shape`` (C, H, W), counted on the meta device, and whether the
+    model has convolutions."""
+    from .. import models
+
+    with torch.device("meta"):
+        module = models.get_model(model).build(num_classes)
+    convs = any(isinstance(m, nn.Conv2d) for m in module.modules())
+    x = torch.empty((1,) + tuple(input_shape), device="meta")
+    return float(forward_flops(module, x)), convs
+
+
+def resolve_member_strategy(member_strategy: str, ensemble_size: int, batch_size: int,
+                            input_shape, precision: str, image_flops: float,
+                            convs: bool = True) -> str:
     """'auto' picks the strategy with the shorter device time as measured on
-    an H100 (PERF.md):
+    an H100 (PERF.md), from one member's FLOPs on one image (``member_cost``):
     - at S=1, scan, a plain forward;
-    - inputs under 64 pixels high (PreResNet-20 at 32x32, S=6): vmap for bf16
-      and int8 at every batch measured (1 to 128) and for fp32 at batch 1,
-      scan for fp32 from batch 8 up (cuDNN's float32 grouped convolutions,
-      which vmap over stacked conv weights becomes, are slow without TF32);
-    - inputs of 64 pixels or more (TVResNet-50 at 224x224, S=2): vmap at
-      batch 1, and for int8 up to batch 4; scan above that, where the
-      grouped convolutions' time grows with the batch faster than two
-      plain forwards do."""
+    - without convolutions (the MLPs), vmap: one batched matrix product
+      a layer, 3-5x faster than the members in turn at every precision and
+      batch measured;
+    - with convolutions, vmap while one member's forward (batch x
+      ``image_flops``) stays within ``VMAP_FLOPS`` of its precision, scan
+      above, where the grouped convolutions that vmap over stacked conv
+      weights becomes take longer than S plain forwards (PreResNet-20 at
+      batch 128 and WideResNet-28x10 and TVResNet-50 at batch 1 under it;
+      INResNet50 at batch 1, WRN-28x10 at 128 and TVResNet-50 from batch 2,
+      int8 from 8, over it); in fp32 also only at batch 1 and, for inputs
+      under 64 pixels high, up to batch 7 (cuDNN's float32 grouped
+      convolutions are slow without TF32)."""
     if member_strategy != "auto":
         return member_strategy
     if ensemble_size == 1:
         return "scan"
-    if input_shape[1] >= 64:
-        return "vmap" if batch_size <= (4 if precision == "int8" else 1) else "scan"
-    return "scan" if precision == "fp32" and batch_size >= 8 else "vmap"
+    if not convs:
+        return "vmap"
+    if precision == "fp32" and batch_size >= (2 if input_shape[1] >= 64 else 8):
+        return "scan"
+    return "vmap" if batch_size * image_flops <= VMAP_FLOPS[precision] else "scan"
 
 
 def _device(device) -> torch.device:
@@ -343,12 +374,30 @@ def _device(device) -> torch.device:
     return device
 
 
+def _traced(fn, path: str, device: torch.device):
+    """``fn()`` under ``torch.profiler`` (the CPU's activity, and the GPU's
+    on a CUDA device), its Chrome trace written to ``path``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    prof.export_chrome_trace(path)
+    return out
+
+
 def profile_config(cfg: ProfileConfig, amortize_k: int = 0, per_call: bool = True,
-                   member_strategy: str = "vmap", device=None) -> dict:
+                   member_strategy: str = "vmap", device=None,
+                   trace_dir: Optional[str] = None) -> dict:
     """Measure one engine configuration on ``device`` (default: the GPU).
 
     ``per_call=True`` runs the per-call protocol (every call pays the host's
-    dispatch and a device->host copy). ``amortize_k=K`` also (or, with
+    dispatch and a device->host copy); with ``trace_dir`` it runs under
+    ``torch.profiler`` and the trace goes to ``<trace_dir>/<cfg.key()>.json``
+    (``trace_path`` in the result). ``amortize_k=K`` also (or, with
     ``per_call=False``, only) times the device engine, K graph replays per
     timing, and records ``graph_max_abs_diff``, the largest difference
     between a replay and the eager forward on the same batch."""
@@ -358,15 +407,20 @@ def profile_config(cfg: ProfileConfig, amortize_k: int = 0, per_call: bool = Tru
     mcfg = models.get_model(cfg.model)
     input_shape, num_classes = _resolve_spec(cfg, mcfg)
     ens = random_ensemble(cfg.model, num_classes, cfg.ensemble_size, device)
-    member_strategy = resolve_member_strategy(member_strategy, cfg.ensemble_size,
-                                              cfg.batch_size, input_shape, cfg.precision)
+    member_strategy = resolve_member_strategy(
+        member_strategy, cfg.ensemble_size, cfg.batch_size, input_shape, cfg.precision,
+        *member_cost(cfg.model, num_classes, input_shape))
     out = {**asdict(cfg), "device": device_name(device),
            "amortized_member_strategy": member_strategy}
     flops = bytes_ = None
     if per_call:
         engine, x = build_engine(ens.module, ens.state, cfg.batch_size, input_shape,
                                  cfg.precision, member_strategy)
-        mean, std = time_engine(engine, x)
+        if trace_dir:
+            out["trace_path"] = os.path.join(trace_dir, f"{cfg.key()}.json")
+            mean, std = _traced(lambda: time_engine(engine, x), out["trace_path"], device)
+        else:
+            mean, std = time_engine(engine, x)
         out.update(latency_mean_s=mean, latency_std_s=std,
                    images_per_sec=cfg.batch_size / mean)
         flops, bytes_ = engine.cost_flops, engine.cost_bytes
@@ -422,7 +476,7 @@ def profile_prediction(cfg: ProfileConfig, splits, num_classes: int,
 
 
 def run_sweep(configs, cache_path: str, amortize_k: int = 0, per_call: bool = True,
-              member_strategy: str = "vmap") -> dict:
+              member_strategy: str = "vmap", trace_dir: Optional[str] = None) -> dict:
     """JSON-cached sweep with resume. A cached entry is measured again only
     for the mode it lacks, or when ``amortize_k`` exceeds the cached one."""
     cache = {}
@@ -441,7 +495,8 @@ def run_sweep(configs, cache_path: str, amortize_k: int = 0, per_call: bool = Tr
         print("profiling:", cfg.key(),
               f"(per_call={need_call}, amortize_k={amortize_k if need_amort else 0})")
         res = profile_config(cfg, amortize_k=amortize_k if need_amort else 0,
-                             per_call=need_call, member_strategy=member_strategy)
+                             per_call=need_call, member_strategy=member_strategy,
+                             trace_dir=trace_dir)
         if not need_amort and "amortized_latency_s" in prev:
             # the cost fields of a cached device-engine run stay: they rest on
             # the device time, not on the per-call time
@@ -463,6 +518,8 @@ def main(argv: Optional[list] = None) -> dict:
     p.add_argument("--ensemble_sizes", nargs="*", type=int, default=[1, 6])
     p.add_argument("--batch_sizes", nargs="*", type=int, default=[1, 128])
     p.add_argument("--cache", type=str, default="latency_cache.json")
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="write a torch.profiler trace of each per-call timing here")
     p.add_argument("--amortize_k", type=int, default=0,
                    help="also time the device engine, K CUDA-graph replays")
     p.add_argument("--no_per_call", action="store_true",
@@ -483,7 +540,7 @@ def main(argv: Optional[list] = None) -> dict:
                for s in args.ensemble_sizes for b in args.batch_sizes]
     cache = run_sweep(configs, args.cache, amortize_k=args.amortize_k,
                       per_call=not args.no_per_call,
-                      member_strategy=args.member_strategy)
+                      member_strategy=args.member_strategy, trace_dir=args.trace_dir)
     if args.table:
         from .tables import make_latex_table
 
