@@ -158,11 +158,30 @@ Phases, each ending with its seconds:
    and bf16), saved and loaded: within 1e-5 (fp32) and 1e-2 (bf16) of the
    eager engine, one loaded call's ms; (e) profile_config with a trace_dir
    (MLP200MNIST, S=1, batch 1): the trace names CUDA kernels.
+16. how C chains advance (chains): SGHMC at batch 128, one epoch a run,
+   under "scan" (in turn) and "vmap" (one batched forward and backward), on
+   MLP200MNIST and LeNet5MNIST (10,240 MNIST images) and PreResNet-20 fp32
+   (2,048 CIFAR-10 images) at C = 1, 2, 4 and 8, and WideResNet-28x10 bf16
+   (2,048 CIFAR-100 images) at C = 1, 2 and 4 (a C whose vmap run would not
+   fit is skipped and printed): a warm-up epoch of each strategy (its peak
+   memory), then epochs timed with CUDA events in the order scan, vmap,
+   vmap, scan: aggregate and per-chain step-forwards/s and vmap/scan; K1
+   once a step in every epoch; each model's vmap against scan from one seed
+   over one batch, the first step's gradients and, after 4 noisy steps,
+   parameters, momenta, BatchNorm statistics and losses: ||vmap - scan|| /
+   ||scan|| within 1e-4 in fp32 (TF32 off); in bf16, vmap's distance from a
+   float32 run of the same seed within twice bf16 scan's own; then HMC x4
+   chains on MLP200MNIST (gradients/s, s a draw, accept rate, the same
+   accepts and draws within 1e-4), PCA-ESS x4 chains on PreResNet-20 (a
+   check draw in turn and in
+   lock step from one state: the same brackets and points; s a draw,
+   proposals) and MethodSweep K=4 on PreResNet-20 (step-forwards/s); the
+   table printed, its JSON under smoke_out/chains/.
 The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
 32, in the three precisions under both member strategies.
 Then a JSON line describing each kernel (its launches on the main path,
 K1's summed over the slice, the ImageNet slice, the samplers, the
-experiment, the hypopt, the hmc_ess and the stream phases; its
+experiment, the hypopt, the hmc_ess, the stream and the chains phases; its
 error against its plain version, its time, the plain version's, its
 bound and the single library call's where there is one), and last the JSON
 line {"ok": true, "device": {...}}. Any failed check exits non-zero before
@@ -319,6 +338,26 @@ HE_OUT = "smoke_out/hmc_ess"
 STREAM_CHUNK = 16
 ST_IMAGENET_N = 4096
 ST_OUT = "smoke_out/stream"
+# the chains phase: one cut SGHMC epoch under scan and vmap at C chains, batch 128;
+# model, dataset, train images, compute dtype, chain counts
+CH_MODELS = (
+    ("MLP200MNIST", "MNIST", 10240, "fp32", (1, 2, 4, 8)),
+    ("LeNet5MNIST", "MNIST", 10240, "fp32", (1, 2, 4, 8)),
+    ("PreResNet20", "CIFAR10", 2048, "fp32", (1, 2, 4, 8)),
+    ("WideResNet28x10", "CIFAR100", 2048, "bf16", (1, 2, 4)),
+)
+CH_CHECK_STEPS, CH_CHECK_CHAINS = 4, 2  # vmap against scan: 4 noisy steps of 2 chains
+# its limits: in float32, ||vmap - scan|| / ||scan|| (TF32 off); in bf16, vmap's
+# distance from a float32 run of the same seed, as a multiple of bf16 scan's own
+CH_FP32, CH_BF16 = 1e-4, 2.0
+CH_ROWS = 4  # chains of the HMC and PCA-ESS rows, configs of the sweep row
+CH_HMC = {"step_size": 2e-4, "num_samples": 2, "L": 10, "tau": 100.0, "burn": 0,
+          "mass": 0.19, "grad_batch": 4096}
+CH_PCA = {"swag_lr": 0.02, "swag_wd": 5e-4, "lr_init": 0.05, "num_samples": 1,
+          "swag_momentum": 0.9, "swag_burn_in_epochs": 1, "num_swag_iterates": 4, "rank": 3,
+          "max_rank": 4, "temperature": 5000.0, "prior_std": 2.0}
+CH_SWEEP_LR = (0.01, 0.02, 0.05, 0.1)
+CH_OUT = "smoke_out/chains"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1498,8 +1537,9 @@ def sweep_equals_solo(device) -> float:
     }
     worst = 0.0
     for method, hyps in cases.items():
+        # in turn, as each solo run: equal to it, not within vmap's rounding
         sweep = inference.MethodSweep(hyps, model=build(), train=splits["train"], seed=3,
-                                      method=method, device=device)
+                                      method=method, device=device, chain_strategy="scan")
         if method == "SGD":
             got = [e.state for e in sweep.sample()]
         else:
@@ -2290,6 +2330,304 @@ def stream_phase(device, splits, imagenet) -> dict:
     return out
 
 
+def _ch_split(name, dataset, n):
+    from ursabench_tpu_torch import data, models
+
+    cfg = models.get_model(name)
+    splits, c = data.loaders(dataset, None, batch_size=BATCH, use_validation=False,
+                             transform_train=cfg.transform_train,
+                             transform_test=cfg.transform_test,
+                             synthetic_n_train=n, synthetic_n_test=BATCH)
+    return splits["train"], c
+
+
+def _ch_sampler(device, name, split, classes, dtype, chains, strategy):
+    """An SGHMC sampler of ``chains`` chains (seed 0) under ``strategy``; at
+    one chain "vmap" runs the batched step over its one row."""
+    from ursabench_tpu_torch import inference, models
+
+    kw = {"dtype": torch.bfloat16} if dtype == "bf16" else {}
+    s = inference.SGHMC(HYP, model=models.get_model(name).build(classes, **kw), train=split,
+                        seed=0, device=device, chains=chains,
+                        chain_strategy="scan" if chains == 1 else strategy)
+    if chains == 1:
+        s._resolved_chain_strategy = strategy
+    return s
+
+
+def _ch_epoch(sampler, launches: list) -> float:
+    """ms of one epoch of ``sampler`` (CUDA events), K1's launches in it
+    appended to ``launches`` and checked against its steps."""
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+    from ursabench_tpu_torch.profiling.hw import event_ms
+
+    sghmc_update_flat.launches = 0
+    ms = event_ms(sampler._run_epoch, 1)
+    steps = sampler.train.num_batches
+    check(sghmc_update_flat.launches == steps,
+          f"chains: K1 launched {sghmc_update_flat.launches} times in an epoch of {steps} "
+          f"steps ({sampler._resolved_chain_strategy}, {sampler.chains} chains)")
+    launches.append(sghmc_update_flat.launches)
+    return ms
+
+
+def _ch_peak(sampler, launches: list):
+    """A warm-up epoch of ``sampler``: (peak GB allocated during it, GB it
+    added over what was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _ch_epoch(sampler, launches)
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 1e9, (peak - base) / 1e9
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, in float64."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-300))
+
+
+def _ch_state(sampler, grads_step1) -> dict:
+    """What the agreement check compares: the first step's gradients, then
+    the parameters, momenta, losses and BatchNorm running statistics."""
+    return {"grads_step1": grads_step1, "params": sampler._state.params.clone(),
+            "momentum": sampler._state.momentum.clone(),
+            "losses": torch.stack(sampler.epoch_losses),
+            "bn_stats": torch.cat([b.reshape(-1) for m in sampler.modules
+                                   for b in m.buffers()] or [torch.zeros(1)])}
+
+
+def _ch_agree(device, name, dataset, dtype, launches: list) -> dict:
+    """vmap against scan from the same seed over one batch of 128 images (an
+    epoch is one step, noise on), CH_CHECK_CHAINS chains: the first step's
+    gradients, then, after CH_CHECK_STEPS steps, the parameters, momenta,
+    losses and BatchNorm running statistics, each as ||vmap - scan|| /
+    ||scan||. In bf16 the scan run also runs in float32 from the same seed,
+    and vmap's distance from that float32 run may be at most CH_BF16 times
+    the bf16 scan run's own."""
+    split, c = _ch_split(name, dataset, BATCH)
+    runs = {}
+    cases = [("scan", dtype), ("vmap", dtype)] + ([("scan", "fp32")] if dtype == "bf16" else [])
+    for strategy, run_dtype in cases:
+        s = _ch_sampler(device, name, split, c, run_dtype, CH_CHECK_CHAINS, strategy)
+        check(s._resolved_chain_strategy == strategy, f"chains: {s._resolved_chain_strategy}")
+        _ch_epoch(s, launches)
+        grads = s._state.grads.clone()
+        for _ in range(CH_CHECK_STEPS - 1):
+            _ch_epoch(s, launches)
+        runs[strategy, run_dtype] = _ch_state(s, grads)
+        del s
+    vmap, scan = runs["vmap", dtype], runs["scan", dtype]
+    out = {"vmap_vs_scan": {q: _rel(vmap[q], scan[q]) for q in scan}}
+    if dtype == "bf16":
+        f32 = runs["scan", "fp32"]
+        out["scan_vs_fp32"] = {q: _rel(scan[q], f32[q]) for q in scan}
+        out["vmap_vs_fp32"] = {q: _rel(vmap[q], f32[q]) for q in scan}
+        out["ok"] = all(out["vmap_vs_fp32"][q] <= CH_BF16 * out["scan_vs_fp32"][q]
+                        for q in scan)
+    else:
+        out["ok"] = max(out["vmap_vs_scan"].values()) <= CH_FP32
+    return out
+
+
+def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
+    """The timed rows of one model: at each C, a warm-up epoch of each
+    strategy (its peak memory), then timed epochs in the order scan, vmap,
+    vmap, scan; a C whose vmap run would not fit beside what is allocated
+    (C times the one-chain vmap epoch's working memory) is skipped."""
+    import gc
+
+    split, c = _ch_split(name, dataset, n)
+    rows, work1 = [], None
+    for chains in counts:
+        free = torch.cuda.mem_get_info()[0] / 1e9
+        if work1 is not None and chains * work1 > 0.9 * free:
+            print(f"  {name} C={chains}: skipped, vmap would need ~{chains * work1:.1f} GB, "
+                  f"{free:.1f} GB free", flush=True)
+            rows.append({"model": name, "chains": chains, "skipped": True})
+            continue
+        samplers, peak, ms = {}, {}, {"scan": [], "vmap": []}
+        try:
+            for strategy in ("scan", "vmap"):
+                samplers[strategy] = _ch_sampler(device, name, split, c, dtype, chains, strategy)
+                peak[strategy] = _ch_peak(samplers[strategy], launches)
+            for strategy in ("scan", "vmap", "vmap", "scan"):
+                ms[strategy].append(_ch_epoch(samplers[strategy], launches))
+        except torch.cuda.OutOfMemoryError:
+            print(f"  {name} C={chains}: skipped, out of memory", flush=True)
+            rows.append({"model": name, "chains": chains, "skipped": True})
+            samplers = {}
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        if chains == 1:
+            work1 = peak["vmap"][1]
+        for strategy, sampler in samplers.items():
+            for loss in sampler.epoch_losses:
+                check(bool(torch.isfinite(loss).all()), f"chains: {name} {strategy} loss {loss}")
+        steps = split.num_batches
+        sf = {k: [chains * steps * 1e3 / v for v in ms[k]] for k in ms}
+        mean = {k: sum(v) / len(v) for k, v in sf.items()}
+        rows.append({"model": name, "dtype": dtype, "chains": chains, "steps": steps,
+                     "images": n, "ms": ms, "step_forwards_per_s": sf,
+                     "per_chain": {k: v / chains for k, v in mean.items()},
+                     "vmap_over_scan": mean["vmap"] / mean["scan"],
+                     "peak_gb": {k: v[0] for k, v in peak.items()},
+                     "epoch_gb": {k: v[1] for k, v in peak.items()}})
+        del samplers
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _ch_hmc(device) -> dict:
+    """HMC x CH_ROWS chains on MLP200MNIST over 10,240 images, in turns scan,
+    vmap, vmap, scan from the same seed: gradients/s, s a draw, the accept
+    rate; vmap's draws against scan's (the same accepts)."""
+    from ursabench_tpu_torch import inference, models
+
+    split, c = _ch_split("MLP200MNIST", "MNIST", 10240)
+    hmcs = {k: inference.HMC(CH_HMC, model=models.get_model("MLP200MNIST").build(c),
+                             train=split, seed=1, device=device, chains=CH_ROWS,
+                             chain_strategy=k) for k in ("scan", "vmap")}
+    secs, runs = {"scan": [], "vmap": []}, {}
+    for k in ("scan", "vmap", "vmap", "scan"):
+        hmcs[k]._gen.manual_seed(7)  # every run draws the same momenta and uniforms
+        ens, sec = _timed_sample(hmcs[k])
+        secs[k].append(sec)
+        runs[k] = (ens, hmcs[k].accept_rate)
+    grads = CH_ROWS * CH_HMC["num_samples"] * (CH_HMC["L"] + 1)
+    worst = max(_rel(runs["vmap"][0].state[n], runs["scan"][0].state[n])
+                for n in runs["scan"][0].state)
+    check(runs["vmap"][1] == runs["scan"][1] and worst <= CH_FP32,
+          f"chains: HMC vmap accept {runs['vmap'][1]} against {runs['scan'][1]}, draws "
+          f"{worst:.3g} apart")
+    return {"grads_per_s": {k: [grads / v for v in secs[k]] for k in secs},
+            "s_per_draw": {k: [v / CH_HMC["num_samples"] for v in secs[k]] for k in secs},
+            "accept_rate": runs["scan"][1], "rel_diff": worst}
+
+
+def _ch_pca(device) -> dict:
+    """PCA-ESS x CH_ROWS chains on PreResNet-20 over 2,048 images: the SWA
+    phase and a first draw, then one check draw in turn and in lock step from
+    the same state and streams (the same points and bracket counts), then
+    draws timed in the order in-turn, lock-step, lock-step, in-turn."""
+    from ursabench_tpu_torch import inference, models
+
+    split, c = _ch_split("PreResNet20", "CIFAR10", 2048)
+    pca = inference.PCASubspaceSampler(CH_PCA, model=models.get_model("PreResNet20").build(c),
+                                       train=split, seed=3, device=device, chains=CH_ROWS,
+                                       chain_strategy="scan")
+    pca.sample_iterative(update_bn=False)
+    state = ([g.get_state() for g in pca._gens], pca.current_theta.clone(),
+             pca.current_lnpdf.clone())
+    check_draw = {}
+    for k in ("scan", "vmap"):
+        for g, st in zip(pca._gens, state[0]):
+            g.set_state(st)
+        pca.current_theta, pca.current_lnpdf = state[1].clone(), state[2].clone()
+        pca._resolved_chain_strategy = k
+        pca.sample_iterative(update_bn=False)
+        check_draw[k] = (pca.current_theta.clone(), pca.bracket_iters[-1])
+    worst = _rel(check_draw["vmap"][0], check_draw["scan"][0])
+    check(check_draw["vmap"][1] == check_draw["scan"][1] and worst <= CH_FP32,
+          f"chains: lock-step ESS brackets {check_draw['vmap'][1]} against in-turn "
+          f"{check_draw['scan'][1]}, points {worst:.3g} apart")
+    secs, props = {"scan": [], "vmap": []}, {"scan": [], "vmap": []}
+    for k in ("scan", "vmap", "vmap", "scan"):
+        pca._resolved_chain_strategy = k
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pca.sample_iterative(update_bn=False)
+        torch.cuda.synchronize()
+        secs[k].append(time.perf_counter() - t0)
+        props[k].append(pca.bracket_iters[-1])
+    return {"s_per_draw": secs, "proposals": props, "check_brackets": check_draw["scan"][1],
+            "rel_diff": worst}
+
+
+def _ch_sweep(device, launches: list) -> dict:
+    """MethodSweep of CH_ROWS SGHMC configs (lr CH_SWEEP_LR) on PreResNet-20
+    over 2,048 images: a warm-up epoch of each strategy, then epochs timed
+    in the order scan, vmap, vmap, scan; sweep step-forwards/s."""
+    from ursabench_tpu_torch import inference, models
+
+    split, c = _ch_split("PreResNet20", "CIFAR10", 2048)
+    hyps = [{**HYP, "lr": lr} for lr in CH_SWEEP_LR]
+    sweeps = {k: inference.MethodSweep(hyps, model=models.get_model("PreResNet20").build(c),
+                                       train=split, seed=5, method="SGHMC", device=device,
+                                       chain_strategy=k) for k in ("scan", "vmap")}
+    for k, sw in sweeps.items():
+        check(sw.sampler._resolved_chain_strategy == k, f"sweep strategy {k}")
+        _ch_epoch(sw.sampler, launches)
+    ms = {"scan": [], "vmap": []}
+    for k in ("scan", "vmap", "vmap", "scan"):
+        ms[k].append(_ch_epoch(sweeps[k].sampler, launches))
+    steps = split.num_batches
+    return {"step_forwards_per_s": {k: [CH_ROWS * steps * 1e3 / v for v in ms[k]] for k in ms}}
+
+
+def chains_phase(device) -> dict:
+    """How C chains advance on the card: scan (in turn) against vmap (one
+    batched forward and backward) for SGHMC on MLP200MNIST, LeNet5MNIST,
+    PreResNet-20 (fp32, TF32 off) and WideResNet-28x10 (bf16), then HMC,
+    PCA-ESS and a sweep; K1 once a step in every epoch; the table printed."""
+    import os
+
+    os.makedirs(CH_OUT, exist_ok=True)
+    launches: list = []
+    out = {"agree": {}, "rows": []}
+    for name, dataset, n, dtype, counts in CH_MODELS:
+        out["agree"][name] = (dtype, _ch_agree(device, name, dataset, dtype, launches))
+        out["rows"] += _ch_model(device, name, dataset, n, dtype, counts, launches)
+    out["hmc"] = _ch_hmc(device)
+    out["pca"] = _ch_pca(device)
+    out["sweep"] = _ch_sweep(device, launches)
+    out["launches"] = sum(launches)
+    fmt = lambda v, d=1: " / ".join(f"{x:.{d}f}" for x in v)  # noqa: E731
+    print(f"  vmap against scan, {CH_CHECK_CHAINS} chains from one seed, ||a - b|| / ||b|| "
+          f"of the first step's gradients, then after {CH_CHECK_STEPS} noisy steps (limit "
+          f"{CH_FP32} in fp32; in bf16, {CH_BF16}x bf16 scan's distance from float32):",
+          flush=True)
+    for name, (dtype, agree) in out["agree"].items():
+        for key in ("vmap_vs_scan", "scan_vs_fp32", "vmap_vs_fp32"):
+            if key in agree:
+                print(f"    {name} {dtype} {key}: " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in agree[key].items()), flush=True)
+    print("  chains table (SGHMC, batch 128, one epoch a run, turns scan vmap vmap scan; "
+          "step-forwards/s aggregate, per chain, vmap/scan, peak GB allocated):", flush=True)
+    for r in out["rows"]:
+        if r.get("skipped"):
+            continue
+        sf = r["step_forwards_per_s"]
+        print(f"    {r['model']} {r['dtype']} C={r['chains']} ({r['steps']} steps of "
+              f"{r['images']} images): scan {fmt(sf['scan'])}, vmap {fmt(sf['vmap'])}; per "
+              f"chain {r['per_chain']['scan']:.1f} / {r['per_chain']['vmap']:.1f}; vmap/scan "
+              f"{r['vmap_over_scan']:.3f}; peak {r['peak_gb']['scan']:.2f} / "
+              f"{r['peak_gb']['vmap']:.2f} GB (the epoch's own {r['epoch_gb']['scan']:.2f} / "
+              f"{r['epoch_gb']['vmap']:.2f})", flush=True)
+    h, p, w = out["hmc"], out["pca"], out["sweep"]
+    print(f"    HMC MLP200MNIST x{CH_ROWS} chains, 10,240 images, L {CH_HMC['L']}: gradients/s "
+          f"scan {fmt(h['grads_per_s']['scan'])}, vmap {fmt(h['grads_per_s']['vmap'])}; s a "
+          f"draw scan {fmt(h['s_per_draw']['scan'], 4)}, vmap {fmt(h['s_per_draw']['vmap'], 4)}; "
+          f"accept rate {h['accept_rate']:.3f} (both); draws {h['rel_diff']:.2e} apart",
+          flush=True)
+    print(f"    PCA-ESS PreResNet-20 x{CH_ROWS} chains, 2,048 images: s a draw in turn "
+          f"{fmt(p['s_per_draw']['scan'], 3)}, lock step {fmt(p['s_per_draw']['vmap'], 3)}; "
+          f"proposals a draw by chain {p['proposals']['scan']} / {p['proposals']['vmap']}; "
+          f"check draw: brackets {p['check_brackets']} in both, points {p['rel_diff']:.2e} "
+          "apart", flush=True)
+    print(f"    MethodSweep SGHMC K={CH_ROWS} PreResNet-20, 2,048 images: step-forwards/s scan "
+          f"{fmt(w['step_forwards_per_s']['scan'])}, vmap {fmt(w['step_forwards_per_s']['vmap'])}"
+          f"; K1 {out['launches']} launches, one a step in every epoch", flush=True)
+    with open(f"{CH_OUT}/chains_phase.json", "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    for name, (dtype, agree) in out["agree"].items():
+        check(agree["ok"], f"chains: {name} {dtype} vmap disagrees with scan: {agree}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", flush=True)
@@ -2343,6 +2681,7 @@ def main() -> int:
     hypopt = phase("hypopt", hypopt_phase, device, n_slice)
     hmc_ess = phase("hmc_ess", hmc_ess_phase, device)
     stream = phase("stream", stream_phase, device, splits, imagenet)
+    chains = phase("chains", chains_phase, device)
 
     kernels = [{
         "name": "sghmc_update", "route": "cuda",
@@ -2350,7 +2689,7 @@ def main() -> int:
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
         "launches": (launches + imagenet["k1_launches"] + samplers["launches"]
                      + experiment["launches"] + hypopt["launches"] + hmc_ess["launches"]
-                     + stream["launches"]),
+                     + stream["launches"] + chains["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], samplers["k1"]["max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": None,

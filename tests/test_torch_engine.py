@@ -157,7 +157,12 @@ def test_cuda_sampler_never_falls_back_to_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         sgmcmc.SGHMC(HYP, model=tmodels.get_model("PreResNet8").build(c),
                      train=splits["train"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the batched strategy runs where it is asked to, an unknown one raises
+    vmapped = sgmcmc.SGHMC(HYP, model=tmodels.get_model("PreResNet8").build(c),
+                           train=splits["train"], chains=2, device="cpu",
+                           chain_strategy="vmap")
+    assert vmapped._resolved_chain_strategy == "vmap" and vmapped.device.type == "cpu"
+    with pytest.raises(ValueError, match="chain_strategy"):
         sgmcmc.SGHMC(HYP, model=tmodels.get_model("PreResNet8").build(c),
                      train=splits["train"], chains=2, device="cpu",
-                     chain_strategy="vmap")
+                     chain_strategy="lockstep")

@@ -125,12 +125,41 @@ def test_validation_mode_matches_jax(tmp_path, injected):
                        6 + len(HYP))
 
 
-@pytest.mark.parametrize("extra,item", [
-    pytest.param(["--chain_strategy", "vmap"], 7, id="extra6-7"),
+@pytest.mark.parametrize("extra", [
+    pytest.param(["--chain_strategy", "vmap", "--chains", "2", "--use_dm_imbalance"],
+                 id="extra6-7"),
 ])
-def test_unported_flags_raise(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=f"open item {item}"):
-        texp.main(ARGV + ["--save_path", str(tmp_path / "x")] + extra, device="cpu")
+def test_unported_flags_raise(tmp_path, monkeypatch, extra):
+    """The flags that raised while their machinery was unported now run: with
+    ``--chain_strategy vmap`` both runners build their samplers batched over
+    2 chains (each then draws the same injected ensemble), and the port's
+    results and CSV row are the JAX runner's."""
+    jens, tens = _ensembles()
+    built = {"jax": [], "torch": []}
+
+    def drawn(make, ensembles, side, strategy):
+        def made(*a, **kw):
+            sampler = make(*a, **kw)  # built with the flags, then drawing the injected one
+            built[side].append((sampler.chains, strategy(sampler)))
+            return _Drawn(ensembles[a[4] % 2])
+        return made
+
+    monkeypatch.setattr(jexp, "_make_sampler", drawn(jexp._make_sampler, jens, "jax",
+                                                     lambda s: s.chain_strategy))
+    monkeypatch.setattr(texp, "_make_sampler", drawn(texp._make_sampler, tens, "torch",
+                                                     lambda s: s._resolved_chain_strategy))
+    argv = ARGV + ["--num_trials", "2"] + extra
+    want = jexp.main(argv + ["--save_path", str(tmp_path / "jax")])
+    got = texp.main(argv + ["--save_path", str(tmp_path / "torch")], device="cpu")
+    assert built["jax"] == built["torch"] == [(2, "vmap")] * 4  # 2 trials, 2 Decision reruns
+    assert list(got) == list(want)
+    for k in want:
+        if np.isnan(want[k]):
+            assert np.isnan(got[k]), k
+        else:
+            assert got[k] == pytest.approx(want[k], abs=1e-5), (k, got[k], want[k])
+    _assert_rows_match(_rows(tmp_path / "torchresults.csv"), _rows(tmp_path / "jaxresults.csv"),
+                       6 + len(HYP))
 
 
 @pytest.mark.parametrize("method", ["MethodSweep", "SGHMCSweep"])

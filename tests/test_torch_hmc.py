@@ -258,9 +258,12 @@ def test_refusals():
     model = tmodels.get_model("MLP200MNIST").build(c)
     with pytest.raises(NotImplementedError, match="open item 15"):
         hmc.HMC(HYP, model=model, train=ts_["train"], device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="open item 7"):
+    vmapped = hmc.HMC(HYP, model=model, train=ts_["train"], device="cpu", chains=2,
+                      chain_strategy="vmap")
+    assert vmapped._resolved_chain_strategy == "vmap"
+    with pytest.raises(ValueError, match="chain_strategy"):
         hmc.HMC(HYP, model=model, train=ts_["train"], device="cpu", chains=2,
-                chain_strategy="vmap")
+                chain_strategy="lockstep")
     with pytest.raises(ValueError, match="L >= 1"):
         hmc.HMC({**HYP, "L": 0}, model=model, train=ts_["train"], device="cpu")
     th = hmc.HMC(None, model=model, train=ts_["train"], device="cpu")

@@ -269,9 +269,9 @@ def test_sghmc_two_chains_one_update_a_step(monkeypatch):
         for ch in range(2):
             assert torch.equal(ens.member(2 * s + ch)["fc3.bias"], draws[s]["fc3.bias"][ch])
     assert not torch.equal(draws[1]["fc1.weight"][0], draws[1]["fc1.weight"][1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sgmcmc.SGHMC(hyp, model=tmodels.get_model("MLP200MNIST").build(c),
-                     train=ts_["train"], device="cpu", chains=2, chain_strategy="vmap")
+    scanned = sgmcmc.SGHMC(hyp, model=tmodels.get_model("MLP200MNIST").build(c),
+                           train=ts_["train"], device="cpu", chains=2, chain_strategy="scan")
+    assert scanned._resolved_chain_strategy == "scan" and ts._resolved_chain_strategy == "vmap"
 
 
 def test_mcdropout_members_share_weights_and_differ():

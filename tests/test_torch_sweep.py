@@ -186,6 +186,8 @@ def test_sweep_epoch_matches_jax(method, hyps):
 
 
 # -- MethodSweep against the port's solo samplers -------------------------------
+# bit-equal to a solo run in turn ("scan"); "vmap" against "scan" is
+# test_torch_chains.py's
 
 
 def _solo(cls, h, c, split, seed, k):
@@ -201,7 +203,7 @@ def _assert_same_weights(a, b, what):
 def test_sgd_sweep_equals_solo_runs():
     _, ts_, c = _splits()
     sweep = vectorized.MethodSweep(SGD_HYPS, model=_mlp(c), train=ts_["train"], seed=5,
-                                   method="SGD", device="cpu")
+                                   method="SGD", device="cpu", chain_strategy="scan")
     ensembles = sweep.sample()
     assert len(ensembles) == 2 and sweep.sampler.epochs_run == 2
     for k, h in enumerate(SGD_HYPS):
@@ -219,7 +221,7 @@ def test_dropout_sweep_equals_solo_runs():
     _, ts_, c = _splits(synthetic_n_train=64)
     model = lambda: tmodels.get_model("MLP200MNIST_dropout").build(c)  # noqa: E731
     sweep = vectorized.MethodSweep(SGD_HYPS, model=model(), train=ts_["train"], seed=4,
-                                   method="SGD", device="cpu")
+                                   method="SGD", device="cpu", chain_strategy="scan")
     ensembles = sweep.sample()
     for k, h in enumerate(SGD_HYPS):
         solo = sgd_map.SGD(dict(h), model=model(), train=ts_["train"],
@@ -241,7 +243,7 @@ def test_sghmc_sweep_equals_solo_runs_with_the_noise_off(monkeypatch):
 
     monkeypatch.setattr(sgmcmc, "sghmc_update", counted)
     sweep = vectorized.MethodSweep(SGHMC_HYPS, model=_mlp(c), train=ts_["train"], seed=6,
-                                   method="SGHMC", device="cpu")
+                                   method="SGHMC", device="cpu", chain_strategy="scan")
     for _ in range(2):
         sweep.sampler._run_epoch(noise_on=False)
     assert calls == [(2, 199210)] * 6
@@ -282,9 +284,9 @@ def test_sweep_checks_its_configs():
     with pytest.raises(ValueError, match="unknown sweep method"):
         tinference.MethodSweep(SGD_HYPS, model=_mlp(c), train=ts_["train"], method="HMC",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="open item 7"):
-        tinference.MethodSweep(SGD_HYPS, model=_mlp(c), train=ts_["train"], method="SGD",
-                               chain_strategy="vmap", device="cpu")
+    vmapped = tinference.MethodSweep(SGD_HYPS, model=_mlp(c), train=ts_["train"],
+                                     method="SGD", chain_strategy="vmap", device="cpu")
+    assert vmapped.sampler._resolved_chain_strategy == "vmap"
     with pytest.raises(NotImplementedError, match="open item 15"):
         tinference.MethodSweep(SGD_HYPS, model=_mlp(c), train=ts_["train"], method="SGD",
                                mesh=object(), device="cpu")

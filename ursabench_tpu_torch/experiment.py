@@ -87,8 +87,9 @@ def build_parser():
     p.add_argument("--pretrained_model_path", type=str, default=None)
     p.add_argument("--chains", type=int, default=1)
     p.add_argument("--chain_strategy", choices=["auto", "scan", "vmap"], default="auto",
-                   help="how chains > 1 run on one device: 'auto' and 'scan' advance "
-                        "them in turn; 'vmap' is not ported yet")
+                   help="how chains > 1 run on one device: 'scan' in turn, 'vmap' as "
+                        "one batched forward and backward; 'auto' picks by the model "
+                        "(inference.base.resolve_chain_strategy)")
     p.add_argument("--dtype", type=str, default="fp32", choices=("fp32", "bf16"),
                    help="the model's compute dtype (parameters and metrics stay float32)")
     p.add_argument("--mesh", type=str, default="auto", choices=("auto", "chain", "none"),

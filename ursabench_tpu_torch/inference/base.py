@@ -30,10 +30,6 @@ from .engine import (TrainState, epoch_indices, eval_loss, flatten_chains,
                      init_variables, stream_steps, train_steps)
 from .ensemble import Ensemble
 
-_VMAP = ("chain_strategy='vmap' is not ported: chains advance in turn ('scan'); "
-         "vmap over chain-stacked weights waits for an H100 measurement "
-         "(ROADMAP.md open item 7)")
-
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device`` (CUDA when None). Raises when CUDA
@@ -45,14 +41,63 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def resolve_chain_strategy(strategy: str) -> str:
-    """``"auto"`` and ``"scan"`` advance the chains in turn, one update over
-    all of them a step; ``"vmap"`` raises."""
-    if strategy == "vmap":
-        raise NotImplementedError(_VMAP)
-    if strategy not in ("auto", "scan"):
+# "auto"'s thresholds: one image's forward FLOPs (FlopCounterMode's count,
+# two a multiply-add) up to which vmap wins at C >= 2 and at C >= 8 chains.
+# Measured by chip_smoke.py's "chains" phase on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (the first column of PERF.md section 6's table), SGHMC at batch 128,
+# vmap over scan
+# aggregate step-forwards/s at C = 1 / 2 / 4 / 8: MLP200MNIST 0.57 / 1.06 /
+# 1.93 / 3.05, LeNet5MNIST (0.83 MFLOP) 0.62 / 1.03 / 1.74 / 3.19,
+# PreResNet-20 fp32 (82 MFLOP) 0.58 / 0.77 / 1.06 / 1.64, WideResNet-28x10
+# bf16 (11.9 GFLOP) 0.69 / 0.56 / 0.66 at C = 1 / 2 / 4.
+VMAP_IMAGE_FLOPS = {2: 2e6, 8: 2e8}
+
+
+def image_flops(module, spec_shape) -> float:
+    """FLOPs of ``module``'s forward on one image of ``spec_shape`` (H, W,
+    channels), counted on the meta device from the shapes (eval mode,
+    dropout as the identity): nothing is computed or written."""
+    from torch.func import functional_call
+    from torch.utils.flop_counter import FlopCounterMode
+
+    state = {k: torch.empty_like(v, device="meta") for k, v in
+             list(module.named_parameters()) + list(module.named_buffers())}
+    h, w, c = spec_shape
+    x = torch.empty((1, c, h, w), device="meta")
+    was_training, layers = module.training, dropout_layers(module)
+    module.eval()
+    for m in layers:
+        m.calls = []  # a shape probe: the identity
+    try:
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            functional_call(module, state, (x,))
+    finally:
+        for m in layers:
+            m.calls = None
+        module.train(was_training)
+    return float(counter.get_total_flops())
+
+
+def resolve_chain_strategy(strategy: str, module, spec_shape, chains: int = 2) -> str:
+    """``"scan"`` or ``"vmap"`` for ``chains`` chains of ``module`` on inputs
+    of ``spec_shape`` (H, W, channels): how they advance on one device.
+    Either way one update serves every chain a step. ``"scan"`` runs the
+    chains' forwards and backwards in turn; ``"vmap"`` runs one batched
+    forward and backward over chain-stacked weights, where a convolution
+    becomes a grouped one. ``"auto"``, from the card's measurements
+    (``VMAP_IMAGE_FLOPS``): vmap without convolution kernels (the MLPs) and,
+    with them, while one image's forward stays within the threshold of the
+    chain count (LeNet5 from 2 chains, PreResNet-20 from 8); scan above
+    (WideResNet-28x10), where the grouped convolutions cost more than the
+    launches vmap saves."""
+    if strategy not in ("auto", "scan", "vmap"):
         raise ValueError(f"unknown chain_strategy {strategy!r}")
-    return "scan"
+    if strategy != "auto":
+        return strategy
+    if not any(p.dim() == 4 for p in module.parameters()):
+        return "vmap"
+    limit = max((f for c, f in VMAP_IMAGE_FLOPS.items() if chains >= c), default=0.0)
+    return "vmap" if limit and image_flops(module, spec_shape) <= limit else "scan"
 
 
 class _Inference:
@@ -71,13 +116,17 @@ class _Inference:
             raise NotImplementedError(model_loss)
         if int(chains) < 1:
             raise ValueError(f"chains must be >= 1, got {chains}")
-        self.chain_strategy = resolve_chain_strategy(chain_strategy)
+        self.chain_strategy = chain_strategy
         self.device = resolve_device(device)
         self.module = model.to(self.device)
         self.train = train
         self.model_loss = model_loss
         self.seed = int(seed)
         self.chains = int(chains)
+        # the resolved strategy (None for one chain), as the JAX package records it
+        self._resolved_chain_strategy = (
+            resolve_chain_strategy(chain_strategy, self.module, train.spec.shape, self.chains)
+            if self.chains > 1 else None)
         self.hyperparameters = hyperparameters
         self._draws = 0
         self._ckpt_path: Optional[str] = None
@@ -247,7 +296,7 @@ class _EpochSampler(_Inference):
             loss = stream_steps(self._state, split, **kw)
         else:
             loss = train_steps(self._state, self._images, self._labels, idx, spec=split.spec,
-                               **kw)
+                               chain_strategy=self._resolved_chain_strategy, **kw)
         self.epochs_run += 1
         self.epoch_losses.append(loss)
         return loss

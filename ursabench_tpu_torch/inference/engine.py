@@ -17,8 +17,16 @@ gradients are the rows of one (C, P) float32 buffer each
 in place. A step runs every chain's forward and backward, then one update
 over the whole buffer: on the GPU, one launch of kernel K1 for all chains.
 The chains share the learning rate, the noise gate and the first-step flag,
-as they do in the JAX package's vmapped and scanned epochs; advancing them
-in turn is the ``"scan"`` strategy (``"auto"`` resolves to it). A sweep
+as they do in the JAX package's vmapped and scanned epochs. Two strategies
+advance them (``base.resolve_chain_strategy``): ``"scan"`` runs each
+chain's forward and backward in turn (``train_step``); ``"vmap"``
+(``train_step_vmap``) gathers, normalizes and augments every chain's batch
+in one pass and runs one forward and backward for all of them: chain 0's
+module under ``torch.func.vmap`` over ``functional_call``, its parameters
+(C, *shape) views of the (C, P) buffer (``ChainForward``), whose gradients
+land in the (C, P) gradient buffer and whose BatchNorm statistics come back
+as outputs, folded into each chain's own buffers after the forward
+(``fold_batch_stats``). Both draw the same random streams. A sweep
 (``inference/vectorized.py``) gives each row its own hyperparameters as
 (K,) tensors, and its update applies them row by row in the same one call.
 The gradient buffer is zeroed with ``zero_()`` before each step, never set
@@ -31,16 +39,18 @@ eval mode.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+import warnings
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
+from torch.func import functional_call, vmap
 
 from ..data.transforms import ImageSpec, augment_normalized, normalize
-from ..models.common import BatchNorm2d, dropout_generator, dropout_layers
+from ..models.common import (BatchNorm2d, batch_stats_out, dropout_calls, dropout_generator,
+                             dropout_layers, dropout_masks)
 from ..util import StateDict, make_generator
 
 # (hyp, epoch, batch_idx, global_step) -> lr, a 0-dim device tensor
@@ -62,10 +72,23 @@ class TrainState:
     grads: torch.Tensor
     step: int = 0  # global batch counter
     modules: Sequence[nn.Module] = ()
+    _batched: Optional[tuple] = field(default=None, repr=False)
 
     def __post_init__(self):
         if not self.modules:
             self.modules = (self.module,)
+
+    def batched(self):
+        """``(ChainForward(module), leaves, bns)`` for the vmap step, made
+        once: ``leaves`` maps each parameter name to a (C, *shape) view of
+        ``params`` that autograd treats as a leaf, its ``.grad`` the same
+        view of ``grads``; ``bns[c]`` is chain c's BatchNorm layers."""
+        if self._batched is None:
+            leaves = stacked_leaves(self.module, self.params, self.grads)
+            bns = [[m for m in module.modules() if isinstance(m, BatchNorm2d)]
+                   for module in self.modules]
+            self._batched = (ChainForward(self.module), leaves, bns)
+        return self._batched
 
 
 def flatten_chains(modules: Sequence[nn.Module]):
@@ -101,6 +124,107 @@ def update_buffers(state: TrainState, hyp: dict):
     if next(iter(hyp.values())).dim():
         return state.params, state.momentum, state.grads
     return state.params.view(-1), state.momentum.view(-1), state.grads.view(-1)
+
+
+def stacked_views(module: nn.Module, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``{name: (C, *shape) view of flat}``: the rows of a (C, P) buffer cut
+    into ``module``'s parameters, in ``parameters()`` order (the layout of
+    ``flatten_chains``)."""
+    out, offset = {}, 0
+    for name, p in module.named_parameters():
+        k = p.numel()
+        out[name] = flat[:, offset: offset + k].view((flat.shape[0],) + tuple(p.shape))
+        offset += k
+    if offset != flat.shape[1]:
+        raise ValueError(f"{flat.shape[1]} floats a row, the module has {offset} parameters")
+    return out
+
+
+def stacked_leaves(module: nn.Module, params: torch.Tensor,
+                   grads: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``stacked_views`` of the (C, P) ``params`` as autograd leaves whose
+    ``.grad`` is the same view of ``grads``: a backward adds each row's
+    gradient into ``grads`` in place (``backward_into_views``)."""
+    views = stacked_views(module, grads)
+    leaves = {}
+    for name, view in stacked_views(module, params).items():
+        leaves[name] = view.detach().requires_grad_()
+        leaves[name].grad = views[name]
+    return leaves
+
+
+class ChainForward:
+    """C models of ``module``'s architecture as one batched forward:
+    ``module``'s code under ``torch.func.vmap`` over ``functional_call``,
+    each parameter a (C, *shape) tensor whose row c is model c's.
+
+    Nothing inside draws or writes: in training mode each ``BatchNorm2d``
+    returns its batch statistics (``(C, F)`` each, in ``self.bns`` order;
+    ``fold_batch_stats`` folds them), and each active dropout layer takes a
+    mask drawn outside (``masks``), in the order the forward calls them.
+    The module's own buffers (BatchNorm's running statistics in eval mode)
+    are shared by every row."""
+
+    def __init__(self, module: nn.Module):
+        self.module = module
+        self.bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+        self._calls: dict = {}  # (input shape, training) -> dropout_calls
+
+    def masks(self, x: torch.Tensor, gens: Sequence[torch.Generator]):
+        """``(layers, masks)``: the dropout layers a forward on one row's
+        input ``x`` calls, in order, and their keep masks, generator c
+        drawing row c's layer after layer (what ``dropout_generator`` draws
+        in a plain forward); (C, *shape) each, or unstacked for one
+        generator (a mask shared by every row)."""
+        key = (tuple(x.shape), self.module.training)
+        if key not in self._calls:
+            self._calls[key] = dropout_calls(self.module, x)
+        calls = self._calls[key]
+        drawn = [[layer.draw(shape, g) for layer, shape in calls] for g in gens]
+        masks = drawn[0] if len(gens) == 1 else [torch.stack(col) for col in zip(*drawn)]
+        return [layer for layer, _ in calls], masks
+
+    def __call__(self, params: Dict[str, torch.Tensor], x: torch.Tensor, *,
+                 x_batched: bool, layers=(), masks=(), masks_batched: bool = False):
+        """``(logits (C, B, classes), batch statistics)`` of the C rows of
+        ``params`` on ``x``: (C, B, ...) when ``x_batched``, else one (B, ...)
+        batch that every row sees."""
+        module, bns = self.module, self.bns
+
+        def one(p, xc, mc):
+            with dropout_masks(layers, mc), batch_stats_out(bns) as stats:
+                logits = functional_call(module, p, (xc,))
+            return logits, tuple(stats)
+
+        return vmap(one, in_dims=(0, 0 if x_batched else None, 0 if masks_batched else None))(
+            params, x, list(masks))
+
+
+@torch.no_grad()
+def fold_batch_stats(bns_by_chain: Sequence[Sequence[BatchNorm2d]], stats) -> None:
+    """Fold ``ChainForward``'s batch statistics into every chain's running
+    ones, as a training forward of ``BatchNorm2d`` does: ``running = (1 - m)
+    * running + m * batch`` (the biased variance); ``bns_by_chain[c][l]`` is
+    chain c's layer l, ``stats[l]`` its ``(mean, var)``, (C, F) each."""
+    groups: dict = {}  # momentum -> (running buffers, batch statistics)
+    for layer, (mean, var) in enumerate(stats):
+        for bns, m, v in zip(bns_by_chain, mean.unbind(0), var.unbind(0)):
+            bn = bns[layer]
+            run, new = groups.setdefault(bn.momentum, ([], []))
+            run += [bn.running_mean, bn.running_var]
+            new += [m, v]
+    for momentum, (run, new) in groups.items():
+        torch._foreach_mul_(run, 1.0 - momentum)
+        torch._foreach_add_(run, new, alpha=momentum)
+
+
+def backward_into_views(loss: torch.Tensor) -> None:
+    """``loss.backward()`` into leaves whose ``.grad`` is a strided view of a
+    flat buffer: autograd adds into it in place and warns that the view's
+    strides are not the layout it prefers; the warning is silenced."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="grad and param do not obey")
+        loss.backward()
 
 
 def flatten_parameters(module: nn.Module):
@@ -180,6 +304,61 @@ def train_step(
     return torch.stack(losses)
 
 
+def train_step_vmap(
+    state: TrainState,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    idx: torch.Tensor,
+    *,
+    spec: ImageSpec,
+    epoch: int,
+    batch_idx: int,
+    noise_on: torch.Tensor,
+    hyp: dict,
+    lr_fn: LrFn,
+    update_fn: UpdateFn,
+    seed: int,
+    aug: Optional[tuple] = None,
+    dropout_seeds: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """``train_step`` for every chain at once: chain c trains on
+    ``images[idx[c]]`` ((C, batch) indices) with ``aug``'s row c ((C, batch)
+    each, or None), gathered, normalized and augmented in one pass, then one
+    batched forward and backward (``ChainForward``) and the same update.
+    Chain c's dropout masks come from ``make_generator(device,
+    dropout_seeds[c], batch_idx)``, drawn as ``train_step`` draws them.
+    Returns the (C,) losses on the device."""
+    chains, bsz = idx.shape
+    fwd, leaves, bns = state.batched()
+    state.grads.zero_()
+    flat = idx.reshape(-1)
+    x, y = images.index_select(0, flat), labels.index_select(0, flat)
+    if not x.is_floating_point():
+        x = normalize(x, spec)
+    if aug is not None:
+        x = augment_normalized(x, spec, *(None if a is None else a.reshape(-1) for a in aug))
+    x = x.permute(0, 3, 1, 2).contiguous()
+    x = x.view((chains, bsz) + tuple(x.shape[1:]))
+    layers, masks = (), ()
+    if dropout_layers(fwd.module):
+        if dropout_seeds is None:
+            raise RuntimeError("active Dropout without a generator: a model with dropout "
+                               "needs dropout_seeds")
+        layers, masks = fwd.masks(x[0], [make_generator(x.device, s, batch_idx)
+                                         for s in dropout_seeds])
+    logits, stats = fwd(leaves, x, x_batched=True, layers=layers, masks=masks,
+                        masks_batched=chains > 1)
+    losses = F.cross_entropy(logits.reshape(chains * bsz, -1), y,
+                             reduction="none").view(chains, bsz).mean(1)
+    backward_into_views(losses.sum())
+    if stats:
+        fold_batch_stats(bns, stats)
+    lr = lr_fn(hyp, epoch, batch_idx, state.step)
+    update_fn(state, hyp, lr=lr, noise_on=noise_on, is_first_step=state.step == 0, seed=seed)
+    state.step += 1
+    return losses.detach()
+
+
 def train_steps(
     state: TrainState,
     images: torch.Tensor,
@@ -195,10 +374,12 @@ def train_steps(
     seeds: Sequence[int],
     aug: Optional[tuple] = None,
     dropout_seeds: Optional[Sequence[int]] = None,
+    chain_strategy: Optional[str] = None,
 ) -> torch.Tensor:
-    """Run one training step (``train_step``) per batch of ``idx`` on every
-    chain of ``state``, in place, and return the mean training loss: a 0-dim
-    tensor for one chain, (C,) for C, on the device (not read back).
+    """Run one training step per batch of ``idx`` on every chain of
+    ``state``, in place (``train_step_vmap`` when ``chain_strategy`` is
+    ``"vmap"``, else ``train_step``), and return the mean training loss: a
+    0-dim tensor for one chain, (C,) for C, on the device (not read back).
 
     ``images`` (uint8 NHWC) and ``labels`` live on the device; ``idx`` is
     (C, num_batches, batch) or, for one chain, (num_batches, batch);
@@ -215,13 +396,19 @@ def train_steps(
     for m in state.modules:
         m.train()
     losses = []
+    kw = dict(spec=spec, epoch=epoch, noise_on=noise_on, hyp=hyp, lr_fn=lr_fn,
+              update_fn=update_fn, dropout_seeds=dropout_seeds)
     for bi in range(idx.shape[1]):
+        if chain_strategy == "vmap":
+            step_aug = None if aug is None else tuple(None if a is None else a[:, bi]
+                                                      for a in aug)
+            losses.append(train_step_vmap(state, images, labels, idx[:, bi], batch_idx=bi,
+                                          seed=seeds[bi], aug=step_aug, **kw))
+            continue
         batches = [(images.index_select(0, idx[c, bi]), labels.index_select(0, idx[c, bi]))
                    for c in range(chains)]
-        losses.append(train_step(
-            state, batches, spec=spec, epoch=epoch, batch_idx=bi, noise_on=noise_on,
-            hyp=hyp, lr_fn=lr_fn, update_fn=update_fn, seed=seeds[bi],
-            aug=_aug_at(aug, chains, bi), dropout_seeds=dropout_seeds))
+        losses.append(train_step(state, batches, batch_idx=bi, seed=seeds[bi],
+                                 aug=_aug_at(aug, chains, bi), **kw))
     mean = torch.stack(losses).mean(0)
     return mean[0] if chains == 1 else mean
 

@@ -26,9 +26,15 @@ terms as ``sum((a - b) * (a + b))`` (``_sq_diff_sum``), never as
 a few hundred thousand parameters. The accept stays on the device
 (``torch.where``); ``accept_rate`` is read once, after the last draw.
 
-Chains have their own inits (chain 0 keeps the first) and advance in turn
-each draw; the ensemble is draw-major, chains within a draw, with the
-init's BatchNorm buffers broadcast to every member. Draws advance in
+Chains have their own inits (chain 0 keeps the first). With
+``chain_strategy`` ``"scan"`` they advance in turn each draw, C gradient
+passes a leapfrog step; with ``"vmap"`` one batched potential
+(``engine.ChainForward`` over the (C, P) thetas) serves every chain, with
+per-chain Kahan sums, squared differences and accepts. Both draw each
+chain's momentum and accept uniform from the one generator in chain order
+before its trajectory, so they consume the same stream. The ensemble is
+draw-major, chains within a draw, with the init's BatchNorm buffers
+broadcast to every member. Draws advance in
 chunks of ``draw_chunk``; after each chunk a checkpoint is written when
 ``enable_auto_checkpoint``'s interval (counted in draws) divides the draws
 done.
@@ -47,17 +53,18 @@ from ..data.transforms import normalize
 from ..models.common import dropout_generator, dropout_layers
 from ..util import make_generator
 from .base import _Inference
-from .engine import _padded_batches, flatten_parameters
+from .engine import (ChainForward, _padded_batches, backward_into_views, flatten_parameters,
+                     stacked_leaves)
 from .ensemble import Ensemble
 
 _MESH = "HMC over a device mesh is not ported yet (ROADMAP.md open item 15)"
 
 
 def _sq_diff_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``sum(a**2) - sum(b**2)`` as ``sum((a - b) * (a + b))``: each summand
-    scales with the move ``a - b``, so float32 keeps the energy
-    difference's bits at any parameter count."""
-    return torch.sum((a - b) * (a + b))
+    """``sum(a**2) - sum(b**2)`` over the last axis as ``sum((a - b) * (a +
+    b))``: each summand scales with the move ``a - b``, so float32 keeps the
+    energy difference's bits at any parameter count."""
+    return torch.sum((a - b) * (a + b), dim=-1)
 
 
 @contextlib.contextmanager
@@ -89,6 +96,12 @@ class HMC(_Inference):
             hyperparameters = dict(self._DEFAULT_HYP)
         self._images, self._labels = train.device_tensors(self.device)
         self._params, self._grads = flatten_parameters(self.module)
+        if self._resolved_chain_strategy == "vmap":  # the chains' thetas, batched
+            self._chain_params = torch.zeros(self.chains, self._params.numel(),
+                                             device=self.device)
+            self._chain_grads = torch.zeros_like(self._chain_params)
+            self._leaves = stacked_leaves(self.module, self._chain_params, self._chain_grads)
+            self._forward = ChainForward(self.module)
         self._has_dropout = bool(dropout_layers(self.module))
         self._resume_state = None
         self._setup(hyperparameters)
@@ -156,8 +169,48 @@ class HMC(_Inference):
                 total = t
         return total
 
+    def _ce_sums(self, theta: torch.Tensor, grad: bool) -> torch.Tensor:
+        """``_ce_sum`` of every chain at once: (C,) Kahan-accumulated CE sums
+        at the (C, P) ``theta``, one batched forward (and backward) a batch
+        of the split; with ``grad`` the (C, P) gradient is left in
+        ``self._chain_grads``."""
+        module, chains = self.module, theta.shape[0]
+        with torch.no_grad():
+            self._chain_params.copy_(theta)
+        if grad:
+            self._chain_grads.zero_()
+        module.eval()
+        total = torch.zeros(chains, dtype=torch.float32, device=self.device)
+        comp = torch.zeros_like(total)
+        with float32_matmuls(), torch.set_grad_enabled(grad):
+            for bi in range(self._batches.shape[0]):
+                b = self._batches[bi]
+                x = normalize(self._images.index_select(0, b), self.train.spec)
+                x = x.permute(0, 3, 1, 2).contiguous()
+                layers, masks = ((), ())
+                if self._has_dropout:  # one stream for every chain, as in _ce_sum
+                    layers, masks = self._forward.masks(
+                        x, [make_generator(self.device, 0, bi)])
+                logits, _ = self._forward(self._leaves, x, x_batched=False, layers=layers,
+                                          masks=masks)
+                y = self._labels.index_select(0, b).repeat(chains)
+                ce = F.cross_entropy(logits.to(torch.float32).flatten(0, 1), y,
+                                     reduction="none").view(chains, -1)
+                s = torch.sum(ce * self._valid[bi], dim=1)
+                if grad:
+                    backward_into_views(s.sum())
+                val = s.detach() - comp
+                t = total + val
+                comp = (t - total) - val
+                total = t
+        return total
+
     def _grad_u(self, theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(CE sum, gradient of the potential) at ``theta``."""
+        """(CE sum, gradient of the potential) at ``theta``: (P,) for one
+        chain, or every chain's at once from (C, P) under ``"vmap"``."""
+        if theta.dim() == 2:
+            ce = self._ce_sums(theta, grad=True)
+            return ce, self._chain_grads + self.tau * theta
         ce = self._ce_sum(theta, grad=True)
         return ce, self._grads + self.tau * theta
 
@@ -166,14 +219,16 @@ class HMC(_Inference):
     def _transition(self, theta: torch.Tensor, ll_cur: torch.Tensor,
                     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """One HMC transition of one chain from ``theta`` (P,) with carried
-        CE sum ``ll_cur``. Returns ``(theta, ll, accepted, log_ratio,
+        CE sum ``ll_cur`` (or of every chain at once from (C, P) and (C,),
+        under ``"vmap"``). Returns ``(theta, ll, accepted, log_ratio,
         proposal)``, ``proposal`` = (theta_new, p0, p_new, ll_new). The
         momentum and the accept uniform come from the sampler's generator,
-        or from ``draws = (p0, u)`` (the parity tests pass JAX's)."""
+        each chain's in turn, or from ``draws = (p0, u)`` (the parity tests
+        pass JAX's)."""
         if draws is None:
-            p0 = torch.randn(theta.shape, generator=self._gen,
-                             device=self.device) * math.sqrt(self.mass)
-            u = torch.rand((), generator=self._gen, device=self.device)
+            rows = [self._momentum_and_uniform(t) for t in theta.view(-1, theta.shape[-1])]
+            p0, u = (torch.stack(col).view(theta.shape[:-1] + col[0].shape)
+                     for col in zip(*rows))
         else:
             p0, u = draws
         eps, inv_mass = self.step_size, 1.0 / self.mass
@@ -189,14 +244,27 @@ class HMC(_Inference):
                      - 0.5 * self.tau * _sq_diff_sum(th, theta)
                      - 0.5 * inv_mass * _sq_diff_sum(p_new, p0))
         accept = torch.log(u) < log_ratio
-        return (torch.where(accept, th, theta), torch.where(accept, ll_new, ll_cur), accept,
-                log_ratio, (th, p0, p_new, ll_new))
+        return (torch.where(accept[..., None], th, theta), torch.where(accept, ll_new, ll_cur),
+                accept, log_ratio, (th, p0, p_new, ll_new))
+
+    def _momentum_and_uniform(self, theta: torch.Tensor):
+        """One chain's momentum draw and accept uniform, in that order."""
+        p0 = torch.randn(theta.shape, generator=self._gen,
+                         device=self.device) * math.sqrt(self.mass)
+        return p0, torch.rand((), generator=self._gen, device=self.device)
 
     def _draw(self, theta: torch.Tensor, ll: torch.Tensor):
-        """One transition of every chain, in turn: (C, P), (C,) -> the same
-        and the (C,) accepts."""
+        """One transition of every chain: (C, P), (C,) -> the same and the
+        (C,) accepts; in turn, or batched under ``"vmap"``."""
+        if self._resolved_chain_strategy == "vmap":
+            return self._transition(theta, ll)[:3]
         rows = [self._transition(theta[c], ll[c])[:3] for c in range(self.chains)]
         return tuple(torch.stack(col) for col in zip(*rows))
+
+    def _initial_ce_sums(self, theta: torch.Tensor) -> torch.Tensor:
+        if self._resolved_chain_strategy == "vmap":
+            return self._ce_sums(theta, grad=False)
+        return torch.stack([self._ce_sum(t, grad=False) for t in theta])
 
     # -- mid-chain checkpoints ----------------------------------------------------
 
@@ -236,7 +304,7 @@ class HMC(_Inference):
             theta, ll, trajectory, accepts, done = self._resume()
         else:
             theta = self._theta0.clone()
-            ll = torch.stack([self._ce_sum(t, grad=False) for t in theta])
+            ll = self._initial_ce_sums(theta)
             trajectory, accepts, done = [theta], [], 0
         chunk = min(self.draw_chunk, num_samples)
         while done < num_samples:

@@ -18,10 +18,17 @@ running statistics the train-mode forwards overwrite and which
 member: the trained statistics themselves are never written. Every bracket
 proposal is one full-data pass and one host read.
 
-Chains advance in turn; the prior draws and the bracket uniforms come from
-one CPU generator. A checkpoint (``enable_auto_checkpoint``, counted in
-draws) holds the subspace, the trained BatchNorm statistics, the ESS state,
-the generator and each draw's coordinates: a resumed run skips phase 1 and
+Each chain draws its prior samples and bracket uniforms from its own CPU
+generator (seeded ``derive_seed(run, "ess", c)``, the counterpart of the JAX
+package's per-chain keys). With ``chain_strategy`` ``"scan"`` the chains'
+bracket loops run in turn (``ops.ess.elliptical_slice``); with ``"vmap"``
+they run in lock step (``ops.ess.elliptical_slice_chains``): one batched
+log density (``lnpdf_chains``, ``engine.ChainForward`` with the batch
+statistics returned, never written) over the chains still bracketing and
+one host read a proposal for all of them. On the same streams the two give
+the same draws. A checkpoint (``enable_auto_checkpoint``, counted in draws)
+holds the subspace, the trained BatchNorm statistics, the ESS state, the
+generators and each draw's coordinates: a resumed run skips phase 1 and
 reprojects the draws it already has.
 """
 
@@ -32,10 +39,10 @@ import torch.nn.functional as F
 
 from ..data.transforms import normalize
 from ..models.common import dropout_generator, dropout_layers
-from ..ops.ess import elliptical_slice
-from ..util import make_generator, stack_state_dicts
+from ..ops.ess import elliptical_slice, elliptical_slice_chains
+from ..util import derive_seed, make_generator, stack_state_dicts
 from .base import _Inference
-from .engine import _padded_batches
+from .engine import ChainForward, _padded_batches, stacked_views
 from .ensemble import Ensemble
 from .subspaces import SubspaceModel
 from .swa import SWA
@@ -81,13 +88,16 @@ class PCASubspaceSampler(_Inference):
         }
         self.swa = SWA(swa_hyp, model=self.module, train=self.train, seed=self.next_seed(),
                        device=self.device, max_rank=self.max_rank, pca_rank=self.rank)
-        self._gen = torch.Generator().manual_seed(self.next_seed())
+        run = self.next_seed()
+        self._gens = [torch.Generator().manual_seed(derive_seed(run, "ess", c))
+                      for c in range(self.chains)]
         bsz = self.train.batch_size
         batches = _padded_batches(self.train.n, bsz,
                                   lambda idx, pad: torch.full_like(idx[:pad], -1), self.device)
         self._valid = (batches >= 0).to(torch.float32)
         self._batches = batches.clamp_min(0)
         self._has_dropout = bool(dropout_layers(self.module))
+        self._forward = ChainForward(self.swa._eval_module)
         self.subspace_constructed = False
         self.subspace = None
         self.current_theta = None
@@ -120,6 +130,32 @@ class PCASubspaceSampler(_Inference):
             total = total + torch.sum(ce * self._valid[bi])
         return -total / self.temperature
 
+    @torch.no_grad()
+    def lnpdf_chains(self, theta: torch.Tensor) -> torch.Tensor:
+        """``lnpdf`` at every row of ``theta`` (C', rank) at once, a (C',)
+        tensor: one batched train-mode forward a batch of the split, whose
+        batch statistics are returned, not written."""
+        module = self.swa._eval_module
+        weights = self.subspace.mean + theta @ self.subspace.cov_factor  # (C', P)
+        params = stacked_views(module, weights)
+        module.train()
+        images, labels = self.swa._images, self.swa._labels
+        chains = theta.shape[0]
+        total = torch.zeros(chains, dtype=torch.float32, device=self.device)
+        for bi in range(self._batches.shape[0]):
+            b = self._batches[bi]
+            x = normalize(images.index_select(0, b), self.train.spec)
+            x = x.permute(0, 3, 1, 2).contiguous()
+            layers, masks = ((), ())
+            if self._has_dropout:  # one stream for every chain, as in lnpdf
+                layers, masks = self._forward.masks(x, [make_generator(self.device, 0, bi)])
+            logits, _ = self._forward(params, x, x_batched=False, layers=layers, masks=masks)
+            y = labels.index_select(0, b).repeat(chains)
+            ce = F.cross_entropy(logits.to(torch.float32).flatten(0, 1), y,
+                                 reduction="none").view(chains, -1)
+            total = total + torch.sum(ce * self._valid[bi], dim=1)
+        return -total / self.temperature
+
     def _set_subspace(self, mean: torch.Tensor, cov_factor: torch.Tensor) -> None:
         self.subspace = SubspaceModel(mean.to(self.device), cov_factor.to(self.device))
         self.current_theta = torch.zeros(self.chains, self.subspace.rank, device=self.device)
@@ -142,16 +178,24 @@ class PCASubspaceSampler(_Inference):
             self.swa.sample()
             mean, _, cov_factor = self.swa.get_space()
             self._set_subspace(mean, cov_factor)
-        prior = self.prior_std * torch.randn((self.chains, self.subspace.rank),
-                                             generator=self._gen)
+        prior = torch.stack([self.prior_std * torch.randn(self.subspace.rank, generator=g)
+                             for g in self._gens]).to(self.device)
+        lock_step = self._resolved_chain_strategy == "vmap"
         if self.current_lnpdf is None:
-            self.current_lnpdf = torch.stack([self.lnpdf(t) for t in self.current_theta])
-        out = [elliptical_slice(self.current_theta[c], prior[c].to(self.device), self.lnpdf,
-                                self.current_lnpdf[c], generator=self._gen)
-               for c in range(self.chains)]
-        self.current_theta = torch.stack([o[0] for o in out])
-        self.current_lnpdf = torch.stack([o[1] for o in out])
-        self.bracket_iters.append([o[2] for o in out])
+            self.current_lnpdf = (self.lnpdf_chains(self.current_theta) if lock_step else
+                                  torch.stack([self.lnpdf(t) for t in self.current_theta]))
+        if lock_step:
+            theta, lp, iters = elliptical_slice_chains(
+                self.current_theta, prior, self.lnpdf_chains, self.current_lnpdf,
+                generators=self._gens)
+        else:
+            out = [elliptical_slice(self.current_theta[c], prior[c], self.lnpdf,
+                                    self.current_lnpdf[c], generator=self._gens[c])
+                   for c in range(self.chains)]
+            theta, lp, iters = (torch.stack([o[0] for o in out]),
+                                torch.stack([o[1] for o in out]), [o[2] for o in out])
+        self.current_theta, self.current_lnpdf = theta, lp
+        self.bracket_iters.append(iters)
         return self._project_draw(self.current_theta, update_bn)
 
     def sample(self, num_samples=None, val_loader=None, debug_val_loss=False) -> Ensemble:
@@ -176,6 +220,9 @@ class PCASubspaceSampler(_Inference):
 
     # -- mid-chain checkpoints ----------------------------------------------------
 
+    def _generators(self):
+        return {f"ess{c}": g for c, g in enumerate(self._gens)}
+
     def _restore_checkpoint(self, path: str) -> None:
         from ..utils_checkpoint import load_pytree
 
@@ -191,7 +238,7 @@ class PCASubspaceSampler(_Inference):
             "mean": self.subspace.mean, "cov_factor": self.subspace.cov_factor,
             "batch_stats": dict(self.module.named_buffers()),
             "theta": self.current_theta, "lnpdf": self.current_lnpdf,
-            "generators": generator_states({"ess": self._gen}),
+            "generators": generator_states(self._generators()),
             "draw_thetas": torch.stack(draw_thetas),
         })
 
@@ -206,5 +253,5 @@ class PCASubspaceSampler(_Inference):
         for name, value in r.get("batch_stats", {}).items():
             copy_into(self.module.get_buffer(name), value, name)
         self.current_theta, self.current_lnpdf = to(r["theta"]), to(r["lnpdf"])
-        set_generator_states({"ess": self._gen}, r["generators"])
+        set_generator_states(self._generators(), r["generators"])
         return list(to(r["draw_thetas"]))

@@ -5,8 +5,11 @@ of one sampler (SGHMC, SGLD, cSGHMC, cSGLD or SGD) advance together: each
 config is a row of one (K, P) parameter buffer, as a sampler's chains are
 (``engine.flatten_chains``), and its hyperparameters are row k of (K,)
 device tensors, so one update a step serves every config (on the GPU, one
-launch of kernel K1 with its per-row table). The configs' forwards and
-backwards run in turn (the ``"scan"`` strategy).
+launch of kernel K1 with its per-row table; the (K,) learning rates come
+from the same schedule on the (K,) tensors). ``chain_strategy`` decides how
+the configs' forwards and backwards run, as it does for chains: in turn
+(``"scan"``) or as one batched forward and backward (``"vmap"``, the JAX
+package's ``vmap_hyp``), resolved for K rows (``base.resolve_chain_strategy``).
 
 One solo sampler is built per config, with the seed ``derive_seed(seed,
 "config", k)`` (the counterpart of ``jax.random.split(key, K)``): it supplies
@@ -29,6 +32,7 @@ from typing import List, Sequence
 import torch
 
 from ..util import derive_seed
+from .base import resolve_chain_strategy
 from .engine import TrainState, flatten_chains
 from .ensemble import Ensemble
 
@@ -92,6 +96,9 @@ class MethodSweep:
         self.modules = [s.module for s in solos]
         params, grads = flatten_chains(self.modules)  # each config keeps its weights
         sampler.chains, sampler.modules = self.K, self.modules
+        sampler._resolved_chain_strategy = (
+            resolve_chain_strategy(chain_strategy, sampler.module, train.spec.shape, self.K)
+            if self.K > 1 else None)
         sampler._state = TrainState(self.modules[0], params, torch.zeros_like(params), grads,
                                     modules=self.modules)
         sampler._hyp = {k: torch.stack([s._hyp[k] for s in solos]) for k in cls._HYP_KEYS}

@@ -16,7 +16,12 @@ its inputs.
 
 ``Dropout`` draws its mask from a ``torch.Generator`` that the caller binds
 with ``dropout_generator(module, gen)``, never from the global RNG; an
-active dropout layer without one raises.
+active dropout layer without one raises. Under ``torch.func.vmap`` (chains
+batched through one module, ``inference/engine.ChainForward``) nothing may
+draw or write in place: each dropout layer then takes a mask drawn outside
+(``dropout_masks``; ``dropout_calls`` finds the layers' input shapes) and
+each BatchNorm layer returns its batch statistics instead of folding them
+into its running ones (``batch_stats_out``).
 """
 
 from __future__ import annotations
@@ -115,16 +120,27 @@ class Dropout(nn.Module):
         self.p = float(p)
         self.always = always
         self.generator: Optional[torch.Generator] = None
+        self.mask: Optional[torch.Tensor] = None  # bound by dropout_masks
+        self.calls: Optional[list] = None  # bound by dropout_calls
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.p == 0.0 or not (self.training or self.always):
             return x
-        if self.generator is None:
-            raise RuntimeError("active Dropout without a generator: bind one with "
-                               "models.common.dropout_generator(module, gen)")
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.p
+        if self.calls is not None:  # a shape probe: record, draw nothing
+            self.calls.append((self, tuple(x.shape)))
+            return x
+        keep = self.mask
+        if keep is None:
+            if self.generator is None:
+                raise RuntimeError("active Dropout without a generator: bind one with "
+                                   "models.common.dropout_generator(module, gen)")
+            keep = self.draw(x.shape, self.generator)
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                   device=x.device))
+
+    def draw(self, shape, gen: torch.Generator) -> torch.Tensor:
+        """The keep mask of an input of ``shape`` from ``gen``."""
+        return torch.rand(shape, generator=gen, device=gen.device) < 1.0 - self.p
 
 
 def dropout_layers(module: nn.Module) -> list:
@@ -145,6 +161,61 @@ def dropout_generator(module: nn.Module, gen: Optional[torch.Generator]) -> Iter
             m.generator = None
 
 
+@torch.no_grad()
+def dropout_calls(module: nn.Module, x: torch.Tensor) -> list:
+    """``[(layer, input shape)]`` of every active dropout layer of
+    ``module``, in the order its forward on ``x`` calls them: one forward
+    with dropout as the identity and BatchNorm in eval mode (nothing is
+    drawn or written)."""
+    layers = dropout_layers(module)
+    calls: list = []
+    was_training = module.training
+    for m in layers:
+        m.calls = calls
+    # eval mode keeps the running statistics; the twins' dropout stays on
+    module.eval()
+    for m in layers:
+        m.train(was_training)
+    try:
+        module(x)
+    finally:
+        for m in layers:
+            m.calls = None
+        module.train(was_training)
+    return calls
+
+
+@contextlib.contextmanager
+def dropout_masks(layers, masks) -> Iterator[None]:
+    """Bind ``masks[i]`` to ``layers[i]`` for the block, then unbind."""
+    for m, mask in zip(layers, masks):
+        m.mask = mask
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.mask = None
+
+
+@contextlib.contextmanager
+def batch_stats_out(layers) -> Iterator[list]:
+    """For the block, every ``BatchNorm2d`` of ``layers`` in training mode
+    normalizes with its batch statistics and, in place of folding them into
+    its running ones, leaves ``(mean, biased variance)`` (float32) in the
+    list this yields, in ``layers``' order once the forward is done."""
+    out: list = []
+    for m in layers:
+        m.stats_out = True
+    try:
+        yield out
+        if any(m.training and m.batch_stats is None for m in layers):
+            raise RuntimeError("a BatchNorm layer in training mode was not called")
+        out.extend(m.batch_stats for m in layers if m.training)
+    finally:
+        for m in layers:
+            m.stats_out, m.batch_stats = False, None
+
+
 class BatchNorm2d(nn.Module):
     """Batch normalization over NCHW with flax ``nn.BatchNorm`` semantics:
     the running variance averages the *biased* batch variance, and
@@ -158,7 +229,14 @@ class BatchNorm2d(nn.Module):
 
     With ``dtype`` set the output is cast to it; the statistics and the
     normalisation are computed in float32 whatever the input's type, as flax
-    computes them."""
+    computes them.
+
+    Under ``batch_stats_out`` the training forward writes nothing: it
+    normalizes with ``F.batch_norm`` over the batch alone and keeps the
+    batch's mean and biased variance in ``batch_stats`` for the caller to
+    fold (``engine.fold_batch_stats``), which is what ``torch.func.vmap``
+    needs (an in-place write of one chain's statistics into a buffer shared
+    by every chain raises there)."""
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
@@ -170,6 +248,8 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.stats_out = False
+        self.batch_stats: Optional[tuple] = None
 
     @torch.no_grad()
     def reset_parameters(self):
@@ -186,6 +266,15 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.stats_out:
+            # vmap's rule for a batched weight normalizes, then applies the
+            # affine part in float32: normalizing in float32 keeps one rounding
+            x = x.to(torch.float32)
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.batch_stats = (mean, var)
+            return out
         batch = torch.zeros(2, x.shape[1], dtype=self.running_mean.dtype, device=x.device)
         out = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias,
                            True, 1.0, self.eps)

@@ -7,6 +7,13 @@ accepted decides the next proposal, so every proposal costs one host read
 (one device sync): its comparison with the slice height. The bracket's
 angles are scalars on the host, in float32 as the JAX package computes
 them.
+
+``elliptical_slice_chains`` is the lock-step transition of C chains (the
+JAX package's vmapped while loop): one batched ``lnpdf`` over the chains
+still bracketing and one host read of their accept mask a proposal; an
+accepted chain is frozen and draws no more uniforms. Each chain draws from
+its own stream, so it lands where ``elliptical_slice`` on that stream
+does.
 """
 
 from __future__ import annotations
@@ -69,3 +76,56 @@ def elliptical_slice(
             phi_min = phi
         phi = u * (phi_max - phi_min) + phi_min
     return initial_theta, cur_lnpdf, max_iters
+
+
+def elliptical_slice_chains(
+    initial_theta: torch.Tensor,
+    prior_sample: torch.Tensor,
+    lnpdf: Callable[[torch.Tensor], torch.Tensor],
+    cur_lnpdf: Optional[torch.Tensor] = None,
+    max_iters: int = 1000,
+    generators: Optional[Sequence[torch.Generator]] = None,
+    uniforms: Optional[Sequence[Sequence[float]]] = None,
+):
+    """``elliptical_slice`` for C chains in lock step: ``initial_theta`` and
+    ``prior_sample`` are (C, D), ``lnpdf`` maps (C', D) points to (C',) log
+    densities, ``cur_lnpdf`` is (C,). Returns ``(theta, lnpdf, iters)``:
+    (C, D), (C,) and each chain's proposal count (a list). Chain c's
+    uniforms come from ``generators[c]`` or ``uniforms[c]``, in
+    ``elliptical_slice``'s order; each chain gives up after ``max_iters``
+    proposals of its own."""
+    chains = initial_theta.shape[0]
+    draws = [_uniforms(None if generators is None else generators[c],
+                       None if uniforms is None else uniforms[c]) for c in range(chains)]
+    if cur_lnpdf is None:
+        cur_lnpdf = lnpdf(initial_theta)
+    device = initial_theta.device
+    heights = torch.from_numpy(np.log(np.array([next(d) for d in draws], np.float32)))
+    hh = cur_lnpdf + heights.to(device)
+    phi = np.array([next(d) for d in draws], np.float32) * _TWO_PI
+    phi_min, phi_max = phi - _TWO_PI, phi.copy()
+    theta, lp = initial_theta.clone(), cur_lnpdf.clone()
+    iters = np.zeros(chains, np.int64)
+    active = np.arange(chains)
+    for it in range(1, max_iters + 1):
+        rows = torch.from_numpy(active).to(device)
+        cos = torch.from_numpy(np.cos(phi[active])).to(device)[:, None]
+        sin = torch.from_numpy(np.sin(phi[active])).to(device)[:, None]
+        xx = initial_theta[rows] * cos + prior_sample[rows] * sin
+        val = lnpdf(xx)
+        ok = (val > hh[rows]).cpu().numpy()  # the proposal's one host read
+        iters[active] = it
+        u = np.array([next(draws[c]) for c in active], np.float32)
+        if ok.any():
+            hit = torch.from_numpy(np.flatnonzero(ok)).to(device)
+            theta[rows[hit]] = xx[hit]
+            lp[rows[hit]] = val[hit]
+        rej, u = active[~ok], u[~ok]
+        up = phi[rej] > 0
+        phi_max[rej[up]] = phi[rej[up]]
+        phi_min[rej[~up]] = phi[rej[~up]]
+        phi[rej] = u * (phi_max[rej] - phi_min[rej]) + phi_min[rej]
+        active = rej
+        if not active.size:
+            break
+    return theta, lp, iters.tolist()
