@@ -178,10 +178,27 @@ Phases, each ending with its seconds:
    proposals) and MethodSweep K=4 on PreResNet-20 (step-forwards/s); the
    table printed, its JSON under smoke_out/chains/.
 The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
-32, in the three precisions under both member strategies.
+32, in the three precisions, bf16 under both member strategies and fp32 and
+int8 under the 'auto' rule's.
+Last of the phases, "mesh" (the device mesh, ``ursabench_tpu_torch/parallel``):
+(a) K1 with a global element offset on 4 rows of PreResNet-20's flat size
+(272,282, 2 mod 4): blocks of 2 + 2 and 1 + 3 rows, launched with their
+offsets in place and as copies, bit-equal in p and v to the whole buffer's
+launch, and one row's time at offsets 0 and 272,282 from CUDA graphs; (b)
+two ranks sharing the card as child processes (gloo on CUDA tensors:
+NCCL refuses two ranks on one device): PreResNet-20 SGHMC x2 chains on a
+(2, 1) mesh against one process of the same seed (||a - b|| / ||b|| at
+most 1e-5, TF32 off, cuDNN deterministic), Prediction on the sharded
+ensemble equal to the gathered one, MLP200MNIST on (1, 2) within rtol
+2e-4 / atol 1e-5 of one process with bit-equal replicas, K1 once a step on
+each rank; the seconds are two processes on one card, no scaling figure;
+(c) NCCL at a world size of 1 under ``torchrun --standalone``: one
+all-reduce, and ``cli run --mesh auto`` with the result keys of a run
+without torchrun; its JSON under smoke_out/mesh/.
 Then a JSON line describing each kernel (its launches on the main path,
 K1's summed over the slice, the ImageNet slice, the samplers, the
-experiment, the hypopt, the hmc_ess, the stream and the chains phases; its
+experiment, the hypopt, the hmc_ess, the stream, the chains and the mesh
+phases, the mesh phase's two ranks included; its
 error against its plain version, its time, the plain version's, its
 bound and the single library call's where there is one), and last the JSON
 line {"ok": true, "device": {...}}. Any failed check exits non-zero before
@@ -358,6 +375,19 @@ CH_PCA = {"swag_lr": 0.02, "swag_wd": 5e-4, "lr_init": 0.05, "num_samples": 1,
           "max_rank": 4, "temperature": 5000.0, "prior_std": 2.0}
 CH_SWEEP_LR = (0.01, 0.02, 0.05, 0.1)
 CH_OUT = "smoke_out/chains"
+# the mesh phase: (b) two ranks sharing the one card (gloo on CUDA tensors: NCCL
+# refuses two ranks on one device), PreResNet-20 SGHMC x2 chains over MESH_TRAIN
+# images on a (2, 1) mesh (one epoch, one draw: 4 steps) and MLP200MNIST x1 chain
+# over MESH_MLP_TRAIN images on a (1, 2) mesh, each against one process of the
+# same seed; (c) NCCL at a world size of 1 under torchrun
+MESH_TRAIN, MESH_MLP_TRAIN = 512, 4096
+MESH_HYP = {"lr": 0.05, "prior_std": 1.0, "num_samples": 1, "alpha": 0.1, "burn_in_epochs": 0}
+MESH_PRR_GAP = 1e-5  # PreResNet-20 on (2, 1) against one process: ||a - b|| / ||b||
+MESH_TIMEOUT = 300  # seconds for the two ranks, or for one torchrun command
+MESH_RUN = ["--dataset", "MNIST", "--model", "MLP200MNIST", "--inference_method", "SGLD",
+            "--hyperparams", json.dumps({**MNIST_HYP, "num_samples": 2, "burn_in_epochs": 1}),
+            "--synthetic_n_train", "4096", "--synthetic_n_test", "1024", "--num_trials", "1"]
+MESH_OUT = "smoke_out/mesh"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -689,8 +719,10 @@ def latency_phase(device, ens, test) -> list:
                 results.append((strategy == auto, r))
                 if strategy == auto:
                     cache[cfg.key()] = r
-    # TVResNet-50 / ImageNet (224^2, 1000 classes): every configuration under
-    # both member strategies, the measurement behind the 'auto' rule there
+    # TVResNet-50 / ImageNet (224^2, 1000 classes): every configuration, bf16
+    # under both member strategies (the measurement behind the 'auto' rule
+    # there), fp32 and int8 under the rule's choice (cut from both strategies,
+    # to make room for the mesh phase)
     s, batches = TV_LATENCY
     for prec in ("fp32", "bf16", "int8"):
         for b in batches:
@@ -698,15 +730,16 @@ def latency_phase(device, ens, test) -> list:
             auto = resolve_member_strategy("auto", s, b, (3, 224, 224), prec,
                                            *member_cost("TVResNet50", 1000, (3, 224, 224)))
             by = {}
-            for strategy in ("scan", "vmap"):
+            for strategy in (("scan", "vmap") if prec == "bf16" else (auto,)):
                 r = profile_config(cfg, amortize_k=TV_AMORTIZE_K, member_strategy=strategy,
                                    device=device)
                 results.append((strategy == auto, r))
                 by[strategy] = r["amortized_latency_s"]
                 if strategy == auto:
                     cache[cfg.key()] = r
-            print(f"  TVResNet50 {prec} S={s} bs{b}: device scan {by['scan'] * 1e3:.4f} ms, "
-                  f"vmap {by['vmap'] * 1e3:.4f} ms, auto {auto}", flush=True)
+            print(f"  TVResNet50 {prec} S={s} bs{b}: device "
+                  + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in by.items())
+                  + f", auto {auto}", flush=True)
     for is_auto, r in results:
         check(r["graph_max_abs_diff"] == 0.0,
               f"graph replay != eager for {r}")
@@ -1154,8 +1187,8 @@ def _run_cli(argv, runs):
 
     make = experiment._make_sampler
 
-    def recording(args, hyp, module, train, seed, device):
-        sampler = make(args, hyp, module, train, seed, device)
+    def recording(args, hyp, module, train, seed, device, mesh=None):
+        sampler = make(args, hyp, module, train, seed, device, mesh=mesh)
         sample = sampler.sample
 
         def sample_and_record():
@@ -2628,6 +2661,260 @@ def chains_phase(device) -> dict:
     return out
 
 
+def k1_offset_check(device, row_len: int) -> dict:
+    """K1 on 4 rows of ``row_len`` (PreResNet-20's P, 2 mod 4), the noise on:
+    the whole buffer, then blocks of 2 + 2 and 1 + 3 rows, each launched on
+    its own rows with its global element offset, in place in the buffer (a
+    block at row 1 starts 8 bytes off a 16-byte boundary: the scalar path)
+    and as fresh copies (the float4 path); every block bit-equal to the
+    whole launch's rows in p and v. Then one row's device time at offset 0
+    and at offset ``row_len`` (two Philox calls a group of four), from CUDA
+    graphs."""
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+    from ursabench_tpu_torch.ops.sgmcmc import sghmc_scalars
+    from ursabench_tpu_torch.profiling.int8_microbench import graph_ms
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    p0, v0, g = (torch.randn(4, row_len, generator=gen, device=device) for _ in range(3))
+    s = sghmc_scalars(lr=0.05, momentum=0.9, wd_over_n=1.0 / 50000, n_train=50000.0,
+                      noise_on=1.0, is_first_step=False, device=device)
+    whole = [p0.clone(), v0.clone()]
+    sghmc_update_flat(whole[0].view(-1), whole[1].view(-1), g.view(-1), s, seed=11)
+    cases = []
+    for blocks in ((2, 2), (1, 3)):
+        for fresh in (False, True):
+            pb, vb, start = p0.clone(), v0.clone(), 0
+            for rows in blocks:
+                sl = slice(start, start + rows)
+                p, v, gb = ((t[sl].clone() for t in (pb, vb, g)) if fresh
+                            else (pb[sl], vb[sl], g[sl]))
+                sghmc_update_flat(p.view(-1), v.view(-1), gb.view(-1), s, seed=11,
+                                  offset=start * row_len)
+                torch.cuda.synchronize()
+                equal = torch.equal(p, whole[0][sl]) and torch.equal(v, whole[1][sl])
+                cases.append({"blocks": blocks, "rows": (start, start + rows), "fresh": fresh,
+                              "offset_mod4": start * row_len % 4, "equal": equal})
+                check(equal, f"K1 block {blocks} rows {start}..{start + rows} "
+                             f"({'copy' if fresh else 'in place'}) != the whole launch's")
+                start += rows
+    p, v, g1 = (t[0].clone() for t in (p0, v0, g))
+    ms = {off: graph_ms([lambda off=off: sghmc_update_flat(p, v, g1, s, seed=1, offset=off)],
+                        TIMED_LAUNCHES) for off in (0, row_len)}
+    print(f"  (a) K1 with a global offset, 4 rows of {row_len}: blocks 2+2 and 1+3, in place "
+          f"and as copies, {len(cases)} of {len(cases)} bit-equal to the whole launch in p and "
+          f"v; one row from CUDA graphs: offset 0 {ms[0] * 1e3:.2f} us, offset {row_len} "
+          f"({row_len % 4} mod 4) {ms[row_len] * 1e3:.2f} us", flush=True)
+    return {"cases": cases, "ms_offset0": ms[0], "ms_offset": ms[row_len]}
+
+
+def _mesh_metrics(ens, split, num_classes) -> dict:
+    from ursabench_tpu_torch import tasks
+
+    task = tasks.Prediction({"in_distribution_test": split}, num_classes,
+                            metric_list=["error_rate", "nll", "ece"])
+    task.update_statistics(ens, output_performance=False)
+    return task.get_performance_metrics()
+
+
+def _mesh_work(device, chain_mesh, data_mesh) -> dict:
+    """What the mesh phase runs on a rank, or in one process with both
+    meshes None: PreResNet-20 SGHMC x2 chains (one draw after one epoch)
+    and its Prediction, sharded and gathered; MLP200MNIST SGHMC x1 chain.
+    K1's launches are counted."""
+    from ursabench_tpu_torch import data, inference, models
+    from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    sghmc_update_flat.launches = 0
+    t0 = time.perf_counter()
+    splits, c = data.loaders("CIFAR10", None, batch_size=BATCH, use_validation=False,
+                             transform_train=CIFAR_TRAIN, transform_test=CIFAR_TEST,
+                             synthetic_n_train=MESH_TRAIN, synthetic_n_test=2 * BATCH)
+    s = inference.SGHMC(MESH_HYP, model=models.get_model("PreResNet20").build(c),
+                        train=splits["train"], seed=0, chains=2, device=device,
+                        chain_strategy="scan", mesh=chain_mesh)
+    ens = s.sample()
+    full = ens.gather()
+    out = {"preresnet": {k: v.cpu() for k, v in full.state.items()},
+           "members": (ens.num_members, ens.local_members),
+           "metrics": (_mesh_metrics(ens, splits["test"], c),
+                       _mesh_metrics(full, splits["test"], c))}
+    splits, c = data.loaders("MNIST", None, batch_size=BATCH, use_validation=False,
+                             synthetic_n_train=MESH_MLP_TRAIN, synthetic_n_test=BATCH)
+    m = inference.SGHMC(MESH_HYP, model=models.get_model("MLP200MNIST").build(c),
+                        train=splits["train"], seed=1, device=device, mesh=data_mesh)
+    m.sample()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out.update(mlp=m._state.params.cpu(), k1=sghmc_update_flat.launches,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def _mesh_rank(rank: int, store: str, out: str) -> None:
+    """One of two ranks sharing the card (a spawned child): gloo on CUDA
+    tensors, the meshes (2, 1) and (1, 2), ``_mesh_work``'s result pickled
+    to ``out/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from ursabench_tpu_torch import parallel
+    from ursabench_tpu_torch.kernels import sghmc
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    sghmc.load_library()
+    parallel.initialize(f"file://{store}", 2, rank, backend="gloo", timeout_s=120)
+    try:
+        chain_mesh, data_mesh = parallel.Mesh(2, 1), parallel.Mesh(1, 2)
+        res = _mesh_work(torch.device("cuda"), chain_mesh, data_mesh)
+        res["backend"] = dist.get_backend()
+        torch.save(res, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _two_ranks() -> list:
+    """``_mesh_rank`` in two spawned processes; their results."""
+    import multiprocessing as mp
+    import os
+    import shutil
+
+    shutil.rmtree(f"{MESH_OUT}/ranks", ignore_errors=True)
+    os.makedirs(f"{MESH_OUT}/ranks")
+    store = os.path.abspath(f"{MESH_OUT}/ranks/store")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, store, f"{MESH_OUT}/ranks"))
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + MESH_TIMEOUT
+    for proc in procs:
+        proc.join(max(0.0, deadline - time.monotonic()))
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    check([proc.exitcode for proc in procs] == [0, 0],
+          f"mesh: the two ranks exited with {[proc.exitcode for proc in procs]}")
+    return [torch.load(f"{MESH_OUT}/ranks/rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def _nccl_world1() -> int:
+    """Under torchrun (one process): ``parallel.initialize()``, one NCCL
+    all-reduce on the card (prints the backend, world and sum), then ``cli
+    run --mesh auto`` in the same process group (its ``initialize()`` finds
+    the group made)."""
+    import torch.distributed as dist
+
+    from ursabench_tpu_torch import cli, parallel
+
+    torch.backends.cudnn.allow_tf32 = False  # as in main(): the run it is compared with
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize()
+    t = torch.full((4,), 2.5, device="cuda")
+    dist.all_reduce(t)
+    print(json.dumps({"nccl_world1": {"backend": dist.get_backend(),
+                                      "world": dist.get_world_size(), "sum": t.tolist()}}),
+          flush=True)
+    try:
+        return cli.main(["run", *MESH_RUN, "--mesh", "auto", "--save_path",
+                         f"{MESH_OUT}/torchrun"])
+    finally:
+        dist.destroy_process_group()
+
+
+def _torchrun(args: list) -> str:
+    """``torchrun --standalone --nproc_per_node 1 args``: its stdout, or a
+    failed check."""
+    import subprocess
+
+    out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "1", *args], capture_output=True, text=True,
+                         timeout=MESH_TIMEOUT)
+    check(out.returncode == 0, f"torchrun {args} failed: {out.stderr[-3000:]}")
+    return out.stdout
+
+
+def mesh_phase(device, row_len: int) -> dict:
+    """The device mesh on the one card: (a) K1 with a global offset; (b) two
+    ranks sharing the card as child processes against one process; (c)
+    NCCL at a world size of 1 and the runner under torchrun."""
+    import os
+
+    os.makedirs(MESH_OUT, exist_ok=True)
+    out = {"k1": k1_offset_check(device, row_len)}
+
+    torch.cuda.empty_cache()  # room for the two ranks' contexts beside this process
+    t0 = time.perf_counter()
+    ranks = _two_ranks()
+    two_s = time.perf_counter() - t0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = _mesh_work(device, None, None)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = ranks[0]["preresnet"], one["preresnet"]
+    gap = _rel(torch.cat([a[k].double().reshape(-1) for k in b]),
+               torch.cat([b[k].double().reshape(-1) for k in b]))
+    check(gap <= MESH_PRR_GAP, f"mesh: PreResNet-20 on (2, 1) {gap:.3g} from one process")
+    check(all(r["members"] == (2, 1) for r in ranks), f"mesh: members {ranks[0]['members']}")
+    worst = 0.0
+    for r in ranks:
+        sharded, gathered = r["metrics"]
+        for k in gathered:
+            d = abs(sharded[k] - gathered[k])
+            worst = max(worst, d)
+            check(d <= 1e-7 + 1e-5 * abs(gathered[k]),
+                  f"mesh: Prediction {k} sharded {sharded[k]} vs gathered {gathered[k]}")
+    check(torch.equal(ranks[0]["mlp"], ranks[1]["mlp"]), "mesh: MLP200 data replicas differ")
+    mlp_gap = float(((ranks[0]["mlp"] - one["mlp"]).abs()
+                     - (1e-5 + 2e-4 * one["mlp"].abs())).max())
+    check(mlp_gap <= 0, f"mesh: MLP200MNIST on (1, 2) outside rtol 2e-4, atol 1e-5 of one "
+                        f"process (by {mlp_gap:.3g})")
+    steps = MESH_TRAIN // BATCH + MESH_MLP_TRAIN // BATCH
+    check(all(r["k1"] == steps for r in ranks) and one["k1"] == steps,
+          f"mesh: K1 launches {[r['k1'] for r in ranks]} / {one['k1']}, expected {steps} each")
+    print(f"  (b) two processes sharing one card ({ranks[0]['backend']} on CUDA tensors: NCCL "
+          f"refuses two ranks on one device), {two_s:.1f} s for both ranks (start-up "
+          f"included; not a scaling figure), {ranks[0]['seconds']:.1f} / "
+          f"{ranks[1]['seconds']:.1f} s of work, one process {one['seconds']:.1f} s: "
+          f"PreResNet-20 x2 chains on (2, 1) {gap:.3g} from one process (limit "
+          f"{MESH_PRR_GAP}, TF32 off, cudnn deterministic); Prediction sharded vs gathered "
+          f"max |d| {worst:.3g}; MLP200MNIST on (1, 2) within rtol 2e-4 / atol 1e-5, replicas "
+          f"bit-equal; K1 {steps} launches a rank", flush=True)
+    out["two_ranks"] = {"seconds": two_s, "gap": gap, "metrics_max_abs": worst,
+                        "k1": [r["k1"] for r in ranks] + [one["k1"]]}
+
+    t0 = time.perf_counter()
+    lines = [json.loads(line) for line in _torchrun([__file__, "--nccl_world1"]).splitlines()
+             if line.startswith('{"nccl_world1"')]
+    check(len(lines) == 1 and lines[0]["nccl_world1"]["backend"] == "nccl"
+          and lines[0]["nccl_world1"]["sum"] == [2.5] * 4, f"mesh: NCCL at world 1: {lines}")
+    runs: list = []
+    _, launches = _run_cli(MESH_RUN + ["--save_path", f"{MESH_OUT}/plain"], runs)
+    with np.load(f"{MESH_OUT}/torchrun_tests.npz") as f1, \
+            np.load(f"{MESH_OUT}/plain_tests.npz") as f2:
+        keys = sorted(f1.files)
+        check(keys == sorted(f2.files), f"mesh: torchrun keys {keys} != {sorted(f2.files)}")
+        check(all(np.isfinite(f1[k]).all() for k in keys), "mesh: torchrun results not finite")
+        diff = max(float(abs(f1[k] - f2[k])) for k in keys)
+    check(diff == 0, f"mesh: cli run under torchrun differs from a run without it by {diff:.3g} "
+                     "(one process, one card, the same seed)")
+    nccl_s = time.perf_counter() - t0
+    print(f"  (c) NCCL at world 1 under torchrun --standalone --nproc_per_node 1: all-reduce "
+          f"{lines[0]['nccl_world1']}, then cli run --mesh auto in that process group: the "
+          f"{len(keys)} result keys and values of a run without it (largest difference "
+          f"{diff:.3g}; a world of 1 builds no mesh); "
+          f"{nccl_s:.1f} s", flush=True)
+    out["nccl"] = {"seconds": nccl_s, "keys": len(keys), "max_diff": diff}
+    out["launches"] = sum(r["k1"] for r in ranks) + one["k1"] + launches
+    with open(f"{MESH_OUT}/mesh_phase.json", "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", flush=True)
@@ -2682,6 +2969,7 @@ def main() -> int:
     hmc_ess = phase("hmc_ess", hmc_ess_phase, device)
     stream = phase("stream", stream_phase, device, splits, imagenet)
     chains = phase("chains", chains_phase, device)
+    mesh = phase("mesh", mesh_phase, device, n_slice)
 
     kernels = [{
         "name": "sghmc_update", "route": "cuda",
@@ -2689,7 +2977,7 @@ def main() -> int:
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
         "launches": (launches + imagenet["k1_launches"] + samplers["launches"]
                      + experiment["launches"] + hypopt["launches"] + hmc_ess["launches"]
-                     + stream["launches"] + chains["launches"]),
+                     + stream["launches"] + chains["launches"] + mesh["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], samplers["k1"]["max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": None,
@@ -2730,4 +3018,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--nccl_world1"]:  # the mesh phase's child under torchrun
+        if not torch.cuda.is_available():
+            print("FAILED: torch.cuda.is_available() is False", flush=True)
+            sys.exit(1)
+        sys.exit(_nccl_world1())
     sys.exit(main())

@@ -12,6 +12,8 @@ JAX, the tolerances of the scan parity tests (``test_torch_engine.py``,
 returned statistics, dropout's masks drawn outside) and the ``"auto"``
 rule, pinned as ``tests/test_smoke.py`` pins JAX's."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from ursabench_tpu.inference import sgmcmc as jsgmcmc
 from ursabench_tpu.ops.ess import elliptical_slice as jax_ess
 from ursabench_tpu_torch import inference as tinference
 from ursabench_tpu_torch import models as tmodels
+from ursabench_tpu_torch.data.transforms import draw_augment, normalize
 from ursabench_tpu_torch.inference import base, engine, hmc, pca_subspace, sgd_map, sgmcmc
 from ursabench_tpu_torch.models.common import (BatchNorm2d, Dropout, batch_stats_out,
                                                dropout_generator)
@@ -41,7 +44,9 @@ MCD_HYP = {"lr": 0.05, "epochs": 1, "dropout": 0.2, "lengthscale": 0.01, "num_sa
 # model, dataset, sampler, hyperparameters, tolerance. PreResNet-8 at lr 0.01:
 # a ReLU whose input lies within rounding of zero can fall on the other side
 # in a grouped convolution than in a plain one, which moves one element of a
-# gradient by up to ~1e-4; lr 0.01 keeps one such flip within the tolerance
+# gradient by up to ~1e-4; lr 0.01 keeps one such flip within the tolerance.
+# In float64 at the suite's lr 0.05 the two strategies agree to 1e-12
+# (test_vmap_epoch_equals_scan_epoch_in_float64): the float32 gap is rounding
 EPOCH_CASES = {
     "MLP200MNIST": ("MNIST", sgmcmc.SGHMC, SGHMC_HYP, 2e-6),
     "PreResNet8": ("CIFAR10", sgmcmc.SGHMC, {**SGHMC_HYP, "lr": 0.01}, 1e-5),
@@ -94,6 +99,42 @@ def test_vmap_epoch_equals_scan_epoch(name, chains):
         for (k, a), (_, b) in zip(mv.named_buffers(), ms.named_buffers()):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=tol, err_msg=k)
     assert float((v._state.params[0] - v._state.params[1]).abs().max()) > 1e-3
+
+
+def test_vmap_epoch_equals_scan_epoch_in_float64():
+    """The PreResNet-8 case of ``test_vmap_epoch_equals_scan_epoch`` at the
+    suite's lr 0.05 (three steps, crop and flip, two chains), every chain
+    in float64 from the same float32 start, batch plans and crops: the
+    strategies agree to 1e-12 (1.6e-14 measured), so the float32 case's lr
+    0.01 answers a rounding (a ReLU input within float32 rounding of zero),
+    not a defect of the vmap path."""
+    loader = {"transform_train": tmodels.get_model("PreResNet8").transform_train}
+    _, ts_, c = _splits("CIFAR10", **loader)
+    s = sgmcmc.SGHMC({**SGHMC_HYP, "lr": 0.05}, model=tmodels.get_model("PreResNet8").build(c),
+                     train=ts_["train"], device="cpu", chains=2, seed=3)
+    split = s.train
+    idx = torch.stack([engine.epoch_indices(g, split.n, split.batch_size) for g in s._data_gens])
+    draws = [draw_augment(g, tuple(idx.shape[1:]), split.spec) for g in s._data_gens]
+    aug = tuple(torch.stack([d[j] for d in draws]) for j in range(3))
+    images = normalize(s._images, split.spec).double()
+    out = {}
+    for strategy in ("scan", "vmap"):
+        modules = [copy.deepcopy(m).double() for m in s.modules]
+        params, grads = engine.flatten_chains(modules)
+        state = engine.TrainState(modules[0], params, torch.zeros_like(params), grads,
+                                  modules=modules)
+        engine.train_steps(state, images, s._labels, idx, spec=split.spec, epoch=0,
+                           noise_on=torch.tensor(0.0), hyp=s._hyp, lr_fn=s._LR_FN,
+                           update_fn=s._UPDATE_FN, seeds=[1] * idx.shape[1], aug=aug,
+                           chain_strategy=strategy)
+        assert state.params.dtype == torch.float64 and state.step == 3
+        out[strategy] = (state.params, [b for m in modules for b in m.buffers()])
+    np.testing.assert_allclose(out["vmap"][0].numpy(), out["scan"][0].numpy(), rtol=0,
+                               atol=1e-12)
+    for a, b in zip(out["vmap"][1], out["scan"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12)
+    start = s._state.params.double()
+    assert float((out["vmap"][0] - start).abs().max()) > 1e-3
 
 
 @pytest.mark.parametrize("name,dataset,alpha,atol", [

@@ -26,6 +26,7 @@ from ursabench_tpu_torch import experiment as texp
 from ursabench_tpu_torch import inference as tinference
 from ursabench_tpu_torch import models as tmodels
 from ursabench_tpu_torch.inference.ensemble import Ensemble as TEnsemble
+from ursabench_tpu_torch.parallel import distributed as tdist
 from ursabench_tpu_torch.transfer import params_from_jax
 
 torch.set_num_threads(1)
@@ -78,7 +79,8 @@ def injected(monkeypatch):
     monkeypatch.setattr(jexp, "_make_sampler",
                         lambda args, hyp, module, train, seed: _Drawn(jens[seed % 2]))
     monkeypatch.setattr(texp, "_make_sampler",
-                        lambda args, hyp, module, train, seed, device: _Drawn(tens[seed % 2]))
+                        lambda args, hyp, module, train, seed, device, mesh=None:
+                        _Drawn(tens[seed % 2]))
 
 
 def _rows(path):
@@ -181,20 +183,26 @@ def test_default_method_is_hmc_and_unknown_ones_raise():
 
 
 def test_mesh_over_several_devices_raises(monkeypatch):
+    """``--mesh`` lays the run out over the process group's ranks, as the
+    JAX runner's ``_build_mesh`` over its devices: with one process every
+    choice is no mesh; over 4 ranks the layouts of ``auto_mesh`` and
+    ``chain_mesh``. A layout whose processes do not exist (here, 4 ranks
+    claimed by a one-process run) is refused when the run's mesh is built."""
     parse = texp.build_parser().parse_args
-    for mesh in ("auto", "chain", "none"):  # one device: no mesh
-        texp._check_mesh(parse(["--model", "m", "--mesh", mesh, "--chains", "2"]),
-                         torch.device("cpu"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    cuda = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="open item 15"):
-        texp._check_mesh(parse(["--model", "m"]), cuda)
-    with pytest.raises(NotImplementedError, match="open item 15"):
-        texp._check_mesh(parse(["--model", "m", "--mesh", "chain", "--chains", "2"]), cuda)
-    texp._check_mesh(parse(["--model", "m", "--mesh", "chain"]), cuda)
-    texp._check_mesh(parse(["--model", "m", "--mesh", "none", "--chains", "4"]), cuda)
-    # chains 1 and a batch no device count divides: nothing to shard, as in JAX
-    texp._check_mesh(parse(["--model", "m", "--batch_size", "35"]), cuda)
+    for mesh in ("auto", "chain", "none"):  # one process: no mesh
+        assert texp._build_mesh(parse(["--model", "m", "--mesh", mesh, "--chains", "2"])) is None
+    layout = lambda argv: texp._mesh_layout(parse(["--model", "m"] + argv), 4)  # noqa: E731
+    assert layout([]) == (1, 4)
+    assert layout(["--chains", "2"]) == (2, 2)
+    assert layout(["--mesh", "chain", "--chains", "2"]) == (2, 1)
+    assert layout(["--mesh", "chain"]) is None
+    assert layout(["--mesh", "chain", "--chains", "3"]) == (3, 1)  # 3 of the 4 ranks
+    assert layout(["--mesh", "none", "--chains", "4"]) is None
+    # chains 1 and a batch no rank count divides: nothing to shard, as in JAX
+    assert layout(["--batch_size", "35"]) is None
+    monkeypatch.setattr(texp, "world_size", lambda: 4)
+    with pytest.raises(ValueError, match="initialize"):
+        texp._build_mesh(parse(RUN + ["--inference_method", "SGLD"]))
 
 
 def test_runner_defaults_to_cuda():

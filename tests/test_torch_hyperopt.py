@@ -292,8 +292,13 @@ def test_batched_bayesopt_on_the_toy(monkeypatch, jitter):
         assert best_obj > -0.5
     rs = tsearch.RandomSearch(None, DOMAIN, None, N_evaluations=3, seed=0)
     assert hyps[:3] == [rs._mk_hyp(p) for p in rs._draw_points()]
-    with pytest.raises(NotImplementedError, match="open item 15"):
-        thyperopt.vectorized_random_search(DOMAIN, None, None, None, mesh=object())
+    # a mesh of 4 ranks needs 4 processes: a one-process run cannot build one
+    # for the search (tests/test_torch_parallel.py runs real meshes)
+    from ursabench_tpu_torch import parallel
+
+    with pytest.raises(ValueError, match="initialize"):
+        thyperopt.vectorized_random_search(DOMAIN, None, None, None, device="cpu",
+                                           mesh=parallel.make_mesh(4))
 
 
 def test_vectorized_searches_on_a_real_sweep():

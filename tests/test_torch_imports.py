@@ -72,6 +72,7 @@ else:
     "ursabench_tpu_torch.profiling.imagenet_train",
     "ursabench_tpu_torch.profiling.step_profile",
     "ursabench_tpu_torch.profiling.k1_regression",
+    "ursabench_tpu_torch.profiling.mesh_check",
     "chip_smoke.py",
 ])
 def test_gpu_entry_points_refuse_without_a_gpu(target):
@@ -96,7 +97,8 @@ NEW_MODULES = ["ursabench_tpu_torch.models.wideresnet", "ursabench_tpu_torch.mod
                "ursabench_tpu_torch.models.resnet_cifar", "ursabench_tpu_torch.inference.hmc",
                "ursabench_tpu_torch.inference.pca_subspace", "ursabench_tpu_torch.ops.ess",
                "ursabench_tpu_torch.utils_checkpoint", "ursabench_tpu_torch.logging_utils",
-               "ursabench_tpu_torch.time_script"]
+               "ursabench_tpu_torch.time_script", "ursabench_tpu_torch.parallel",
+               "ursabench_tpu_torch.parallel.distributed", "ursabench_tpu_torch.parallel.mesh"]
 
 
 def test_sampler_modules_import_without_jax():
@@ -109,6 +111,28 @@ def test_sampler_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_parallel_imports_start_no_process_group():
+    """``parallel/`` imports with JAX and the JAX package blocked, and
+    importing it (or the runner) joins no process group and reads no
+    launcher variables: ``initialize()`` does that when called."""
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+            "sys.modules['ursabench_tpu'] = None\n"
+            "import torch.distributed as dist\n"
+            "import ursabench_tpu_torch.parallel as p, ursabench_tpu_torch.experiment\n"
+            "assert not dist.is_initialized()\n"
+            "from ursabench_tpu_torch.parallel.distributed import make_layout\n"
+            "assert p.auto_mesh(4) is None and make_layout(8) == (2, 4)\n"
+            "assert p.make_mesh().shape == {'chain': 1, 'data': 1}\n"
+            "print(sorted(p.__all__))\n")
+    env = {**os.environ, "WORLD_SIZE": "2", "RANK": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": "1"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str(sorted(["Mesh", "make_mesh", "shard_ensemble_eval",
+                                             "auto_mesh", "chain_mesh", "initialize"]))
 
 
 @pytest.mark.parametrize("name", ["SGHMC", "SGLD", "cSGHMC", "cSGLD", "SGD", "DeepEnsemble",

@@ -235,9 +235,9 @@ def test_runner_streams_on_the_cpu(tmp_path, monkeypatch):
     seen = []
     make = texp._make_sampler
 
-    def recording(args, hyp, module, train, seed, device):
+    def recording(args, hyp, module, train, seed, device, mesh=None):
         seen.append(train)
-        return make(args, hyp, module, train, seed, device)
+        return make(args, hyp, module, train, seed, device, mesh=mesh)
 
     monkeypatch.setattr(texp, "_make_sampler", recording)
     argv = ARGV + ["--inference_method", "SGLD", "--save_path", str(tmp_path / "s")]

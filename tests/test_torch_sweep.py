@@ -287,9 +287,11 @@ def test_sweep_checks_its_configs():
     vmapped = tinference.MethodSweep(SGD_HYPS, model=_mlp(c), train=ts_["train"],
                                      method="SGD", chain_strategy="vmap", device="cpu")
     assert vmapped.sampler._resolved_chain_strategy == "vmap"
-    with pytest.raises(NotImplementedError, match="open item 15"):
+    from ursabench_tpu_torch import parallel
+
+    with pytest.raises(ValueError, match="initialize"):  # 4 ranks, one process
         tinference.MethodSweep(SGD_HYPS, model=_mlp(c), train=ts_["train"], method="SGD",
-                               mesh=object(), device="cpu")
+                               mesh=parallel.make_mesh(4), device="cpu")
     assert tinference.get_inference("SGHMCSweep") is tinference.SGHMCSweep
     for name in ("HMC", "PCASubspaceSampler"):  # ported: samplers, not sweep methods
         assert tinference.get_inference(name) is getattr(tinference, name)

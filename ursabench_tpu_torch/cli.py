@@ -8,6 +8,9 @@ Commands (counterpart of ``ursabench_tpu/cli.py``):
   profile    — ensemble latency profiling (profiling/latency.py)
   models     — list the registered models
   time       — per-method sampler wall time (time_script.py)
+
+Over several cards, one process a card: ``torchrun --nproc_per_node N -m
+ursabench_tpu_torch.cli run ... --mesh auto`` (``experiment.py``).
 """
 
 from __future__ import annotations

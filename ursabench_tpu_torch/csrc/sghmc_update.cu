@@ -23,6 +23,15 @@
 // geometry, and distinct steps use distinct seeds, so no two steps or elements
 // share a counter.
 //
+// The buffer may be a block of a larger one: `offset` is the global index of
+// its first element (a rank of a device mesh holding chains c0.. of C launches
+// on its own rows with offset c0 * P). Element i draws the normal of global
+// element offset + i, component (offset + i) % 4 of group (offset + i) / 4,
+// so a block gets exactly the noise that the whole buffer's launch gives it.
+// Where offset % 4 != 0 a local group of four spans two global groups and
+// costs two Philox calls; offset 0 draws as before, bit for bit. The loads
+// stay aligned, since they are indexed by the local buffer.
+//
 // The scalars (lr, momentum, wd_over_n, noise_scale, is_first) are read from a
 // device float32 table of R rows of 5, so changing a hyperparameter changes
 // data, not code. The n elements are R rows of n / R (the (R, P) buffer of R
@@ -84,6 +93,17 @@ __device__ __forceinline__ float4 normals4(unsigned long long seed, unsigned lon
   return z;
 }
 
+// The normals of global elements g0 .. g0 + 3.
+__device__ __forceinline__ float4 normals_at(unsigned long long seed, unsigned long long g0) {
+  const float4 a = normals4(seed, g0 >> 2);
+  switch (g0 & 3u) {
+    case 0: return a;
+    case 1: { const float4 b = normals4(seed, (g0 >> 2) + 1); return make_float4(a.y, a.z, a.w, b.x); }
+    case 2: { const float4 b = normals4(seed, (g0 >> 2) + 1); return make_float4(a.z, a.w, b.x, b.y); }
+    default: { const float4 b = normals4(seed, (g0 >> 2) + 1); return make_float4(a.w, b.x, b.y, b.z); }
+  }
+}
+
 struct Scalars {
   float lr, momentum, wd_over_n, noise_scale;
   bool first;
@@ -113,7 +133,8 @@ __device__ __forceinline__ void update_one(float& p, float& v, float g, float z,
 __global__ void __launch_bounds__(kThreads)
 sghmc_update_kernel(float* __restrict__ p, float* __restrict__ v,
                     const float* __restrict__ g, const float* __restrict__ scalars,
-                    long long n, long long rows, unsigned long long seed, int vectorized) {
+                    long long n, long long rows, unsigned long long seed,
+                    unsigned long long offset, int vectorized) {
   const long long row_len = n / rows;
   const long long groups = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -127,7 +148,7 @@ sghmc_update_kernel(float* __restrict__ p, float* __restrict__ v,
     if (last <= row_end) {  // the whole group lies in one row
       const bool noise = s.noise_scale != 0.0f;
       float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (noise) z = normals4(seed, (unsigned long long)grp);
+      if (noise) z = normals_at(seed, offset + (unsigned long long)base);
       if (vectorized && base + 4 <= n) {
         float4 pp = reinterpret_cast<const float4*>(p)[grp];
         float4 vv = reinterpret_cast<const float4*>(v)[grp];
@@ -148,7 +169,7 @@ sghmc_update_kernel(float* __restrict__ p, float* __restrict__ v,
         }
       }
     } else {  // the group straddles rows: element by element, each with its row
-      const float4 z = normals4(seed, (unsigned long long)grp);
+      const float4 z = normals_at(seed, offset + (unsigned long long)base);
       const float zs[4] = {z.x, z.y, z.z, z.w};
       for (int j = 0; j < 4 && base + j < n; ++j) {
         while (base + j >= row_end) {  // more than one step only when P < 4
@@ -170,9 +191,10 @@ sghmc_update_kernel(float* __restrict__ p, float* __restrict__ v,
 // Launch on `stream`; allocates nothing and does not synchronise. Returns the
 // launch's cudaError_t (0 on success).
 // `scalars` is a float32 table of `rows` rows of 5; `rows` must divide n.
+// `offset` is the global index of element 0 (0 for a whole buffer).
 extern "C" int sghmc_update_f32(void* p, void* v, const void* g, const void* scalars,
                                 long long n, long long rows, unsigned long long seed,
-                                void* stream) {
+                                unsigned long long offset, void* stream) {
   if (rows <= 0 || n % rows != 0) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   const int vectorized =
@@ -197,6 +219,6 @@ extern "C" int sghmc_update_f32(void* p, void* v, const void* g, const void* sca
   if (blocks > max_blocks) blocks = max_blocks;
   sghmc_update_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<float*>(p), static_cast<float*>(v), static_cast<const float*>(g),
-      static_cast<const float*>(scalars), n, rows, seed, vectorized);
+      static_cast<const float*>(scalars), n, rows, seed, offset, vectorized);
   return (int)cudaGetLastError();
 }

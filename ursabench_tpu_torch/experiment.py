@@ -11,10 +11,20 @@ rerun on an imbalanced train set, and a CSV row plus an ``.npz`` of the
 results.
 
 ``main(argv, device=None)`` runs on ``cuda:<device_num>`` unless the caller
-passes a device (the tests pass ``"cpu"``). A ``--mesh`` that would span
-more than one device is not ported yet and raises ``NotImplementedError``
-naming ROADMAP.md item 15. ``TIMINGS`` holds the seconds of the last
-``main`` call by stage.
+passes a device (the tests pass ``"cpu"``). ``TIMINGS`` holds the seconds of
+the last ``main`` call by stage.
+
+Several processes, one a device: ``torchrun --nproc_per_node N -m
+ursabench_tpu_torch.cli run ...`` (``parallel.initialize`` joins them; each
+rank runs on ``cuda:LOCAL_RANK``). ``--mesh`` then lays the samplers out
+over the N ranks as the JAX runner lays them over its devices: ``auto`` a
+('chain', 'data') mesh (``parallel.auto_mesh``'s layout), ``chain`` chains
+only (``chain_mesh``'s), ``none`` no mesh; with one process every choice
+means no mesh and the run is unchanged. The mesh is built once a run and
+serves every trial's sampler. Every rank computes every metric; only rank
+0 writes the CSV row and the ``.npz``. HMC and the PCA subspace sampler
+over a mesh raise ``NotImplementedError`` (ROADMAP.md open item 15c), as do
+``--stream`` (15e) and ``--checkpoint_path`` (15f) over one.
 
 ``--stream`` keeps the train split on the host and streams it to the
 device (``data.native.HostStreamingSplit``, seeded with ``--seed``, M =
@@ -46,6 +56,8 @@ import torch
 
 from . import data, inference, models, tasks
 from .inference.base import _EpochSampler, resolve_device
+from .parallel import Mesh, initialize
+from .parallel.distributed import auto_layout, chain_layout, rank, world_size
 from .tasks.base import accumulate_split
 from .transfer import params_from_jax, params_to_jax
 from .util import json_open_from_file
@@ -93,8 +105,9 @@ def build_parser():
     p.add_argument("--dtype", type=str, default="fp32", choices=("fp32", "bf16"),
                    help="the model's compute dtype (parameters and metrics stay float32)")
     p.add_argument("--mesh", type=str, default="auto", choices=("auto", "chain", "none"),
-                   help="device layout; on one device all three mean no mesh, "
-                        "a layout over several is not ported yet (ROADMAP.md open item 15)")
+                   help="layout over the processes (torchrun): 'auto' = ('chain','data') "
+                        "mesh (chains sharded, the other ranks data-parallel), 'chain' = "
+                        "chain axis only, 'none' = no mesh; one process needs none")
     p.add_argument("--checkpoint_path", type=str, default=None,
                    help="checkpoint each sampler's chain to <path>.seed<seed>.npz and "
                         "resume from it if present")
@@ -130,10 +143,6 @@ def _stream_split(args, split):
                               chunk_batches=args.stream_chunk)
 
 
-def _not_ported(flag: str, item: int):
-    raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md open item {item})")
-
-
 def _load_hyp(args):
     if args.hyperparams is not None:
         return json.loads(args.hyperparams)
@@ -142,24 +151,24 @@ def _load_hyp(args):
     return None
 
 
-def _check_mesh(args, device: torch.device) -> None:
-    """Raise where the JAX package would lay the run over several devices
-    (its ``_build_mesh`` and ``auto_mesh``); on one device no mesh is
-    needed."""
-    n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if args.mesh == "none" or n <= 1:
-        return
+def _mesh_layout(args, n: int):
+    """The ``--mesh`` layout ``(chain, data)`` over n ranks, as the JAX
+    runner's ``_build_mesh`` lays it over its devices; None with one rank
+    or where nothing is sharded."""
+    if args.mesh == "none" or n == 1:
+        return None
     if args.mesh == "chain":
-        if args.chains > 1:
-            _not_ported(f"--mesh chain over {n} devices", 15)
-        return
-    cd = max(d for d in range(1, min(args.chains, n) + 1)
-             if n % d == 0 and args.chains % d == 0)
-    dd = n // cd
-    while dd > 1 and args.batch_size % dd:
-        dd -= 1
-    if cd * dd > 1:
-        _not_ported(f"--mesh auto over {n} devices (pass --mesh none)", 15)
+        chain = chain_layout(args.chains, n)
+        return (chain, 1) if chain > 1 else None
+    return auto_layout(args.chains, args.batch_size, n)
+
+
+def _build_mesh(args):
+    """The run's ``Mesh`` over the process group's ranks (its process groups
+    are made here, once a run), or None; a layout that does not span every
+    rank raises ValueError."""
+    layout = _mesh_layout(args, world_size())
+    return None if layout is None else Mesh(*layout)
 
 
 def _load_pretrained(sampler, pretrained: dict) -> None:
@@ -180,15 +189,17 @@ def _progress(sampler) -> str:
     return f"draw {sampler.draws_done}"
 
 
-def _make_sampler(args, hyp, module, train_split, seed, device):
+def _make_sampler(args, hyp, module, train_split, seed, device, mesh=None):
     method = inference.get_inference(args.inference_method)
     if isinstance(method, type) and issubclass(method, inference.MethodSweep):
         raise ValueError(f"{args.inference_method} runs K configurations, not one: "
                          "sweep them with ursabench_tpu_torch.hyperopt "
                          "(vectorized_random_search, batched_bayesopt)")
-    _check_mesh(args, device)
     kwargs = {}
-    if "chain_strategy" in inspect.signature(method.__init__).parameters:
+    sig = inspect.signature(method.__init__).parameters
+    if mesh is not None and "mesh" in sig:
+        kwargs["mesh"] = mesh
+    if "chain_strategy" in sig:
         kwargs["chain_strategy"] = args.chain_strategy
     sampler = method(hyperparameters=hyp, model=module, train=train_split, seed=seed,
                      chains=args.chains, device=device, **kwargs)
@@ -233,10 +244,10 @@ def _stage(key: str, device: torch.device | None = None):
     _add(key, time.perf_counter() - t0)
 
 
-def _sample(args, hyp, module, train_split, seed, device):
-    """A sampler made (stage "setup") and run (stage "sample")."""
+def _sample(args, hyp, module, train_split, seed, device, mesh):
+    """A sampler made on ``mesh`` (stage "setup") and run (stage "sample")."""
     with _stage("setup", device):
-        sampler = _make_sampler(args, hyp, module, train_split, seed, device)
+        sampler = _make_sampler(args, hyp, module, train_split, seed, device, mesh=mesh)
     with _stage("sample", device):
         return sampler.sample()
 
@@ -256,6 +267,8 @@ def _run_task(task, ensemble, **kw):
 
 
 def _write_row(args, hyperparameters, values) -> None:
+    if rank():
+        return
     hyp_values = ([hyperparameters[k] for k in sorted(hyperparameters)]
                   if hyperparameters else [])
     with open((args.save_path or "") + "results.csv", "a+") as f:
@@ -267,7 +280,12 @@ def _write_row(args, hyperparameters, values) -> None:
 
 def main(argv=None, device=None):
     args = build_parser().parse_args(argv)
-    device = resolve_device(f"cuda:{args.device_num}" if device is None else device)
+    initialize()  # several ranks under torchrun; nothing in one process
+    mesh = _build_mesh(args)
+    if device is None:
+        device = (f"cuda:{args.device_num}" if world_size() == 1
+                  else f"cuda:{torch.cuda.current_device()}")
+    device = resolve_device(device)
     TIMINGS.clear()
     hyperparams = _load_hyp(args)
     cfg = models.get_model(args.model)
@@ -291,7 +309,7 @@ def main(argv=None, device=None):
 
     # ---- validation mode: one CSV row for the sweep
     if args.task == "Prediction" and args.use_val:
-        ensemble = _sample(args, hyperparams, module, train_split, args.seed, device)
+        ensemble = _sample(args, hyperparams, module, train_split, args.seed, device, mesh)
         task = tasks.Prediction(task_loader, num_classes, metric_list="ALL")
         perf = _run_task(task, ensemble, smoothing=True)
         _write_row(args, hyperparams, [perf[k] for k in sorted(perf)])
@@ -305,7 +323,7 @@ def main(argv=None, device=None):
     S = args.num_trials
     for s in range(S):
         print("Prediction:", s)
-        ensemble = _sample(args, hyperparams, module, train_split, s, device)
+        ensemble = _sample(args, hyperparams, module, train_split, s, device, mesh)
 
         task = tasks.Prediction(task_loader, num_classes, metric_list="ALL")
         perf = _run_task(task, ensemble, smoothing=True)
@@ -346,7 +364,8 @@ def main(argv=None, device=None):
                     synthetic_n_train=args.synthetic_n_train,
                     synthetic_n_test=args.synthetic_n_test,
                 )
-            ensemble = _sample(args, hyperparams, module, loaders_imb["train"], s, device)
+            ensemble = _sample(args, hyperparams, module, loaders_imb["train"], s, device,
+                               mesh)
             dec = tasks.Decision({"decision_data_test": loaders_imb["test"]}, int(nc))
             cost_list.append(_run_task(dec, ensemble)["True_Cost"])
 
@@ -358,7 +377,8 @@ def main(argv=None, device=None):
     print(results)
     if args.save_path:
         _write_row(args, hyperparams, [results[k] for k in sorted(results)])
-        np.savez(args.save_path + "_tests.npz", **results)
+        if not rank():
+            np.savez(args.save_path + "_tests.npz", **results)
     return results
 
 

@@ -8,6 +8,8 @@ the method's schedule integers as constants ('num_samples' and
 'burn_in_epochs' for SGHMC, the cycle for cSGHMC); continuous
 hyperparameters vary. ``batched_bayesopt`` can report its seconds by round:
 the sweep's sampling and BMA passes, the GP refit and the acquisition.
+With ``mesh`` each sweep's configs ride its chain ranks (``MethodSweep``);
+every rank then holds every objective and proposes the same next points.
 """
 
 from __future__ import annotations
@@ -31,25 +33,19 @@ def _search(domain, seed: int, n: int) -> RandomSearch:
     return rs
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a sweep over a device mesh is not ported yet "
-                                  "(ROADMAP.md open item 15)")
-
-
 def _finite_or_neg_inf(objs):
     """Diverged configs (NaN objectives) must never win argmax."""
     return [float(o) if np.isfinite(o) else float("-inf") for o in objs]
 
 
-def _evaluate(rs, points, module, train, task_factory, seed, sgld, method, device):
+def _evaluate(rs, points, module, train, task_factory, seed, sgld, method, device, mesh):
     """One sweep over ``points``: (hyps, objectives, the sweep's seconds)."""
     hyps = [rs._mk_hyp(p) for p in points]
     if sgld:
         for h in hyps:
             h["alpha"] = 1.0
     sweep = MethodSweep(hyps, model=module, train=train, seed=seed, method=method,
-                        device=device)
+                        device=device, mesh=mesh)
     objs = _finite_or_neg_inf(sweep.objectives(task_factory))
     return hyps, objs, sweep.seconds
 
@@ -67,11 +63,11 @@ def vectorized_random_search(
     device=None,
 ):
     """N configs drawn uniformly over the domain (logspace-aware), run as one
-    MethodSweep. Returns (best_hyp, best_obj, hyp_list, obj_list)."""
-    _no_mesh(mesh)
+    MethodSweep (its configs over ``mesh``'s chain ranks, if given). Returns
+    (best_hyp, best_obj, hyp_list, obj_list)."""
     rs = _search(domain, seed, N_evaluations)
     hyps, objs, _ = _evaluate(rs, rs._draw_points(), module, train, task_factory, seed,
-                              sgld, inference_method, device)
+                              sgld, inference_method, device, mesh)
     i = int(np.argmax(objs))
     return hyps[i], float(objs[i]), hyps, objs
 
@@ -103,13 +99,12 @@ def batched_bayesopt(
     from .bayesopt import sanitize_targets
     from .gp import GP, init_params, uniform_points
 
-    _no_mesh(mesh)
     device = resolve_device(device)
     rounds_s = [] if round_seconds is None else round_seconds
     rs = _search(domain, seed, init_evaluations)
     pts = rs._draw_points()
     hyp_list, obj_list, seconds = _evaluate(rs, pts, module, train, task_factory, seed,
-                                            sgld, inference_method, device)
+                                            sgld, inference_method, device, mesh)
     rounds_s.append(dict(seconds))
     train_x = np.asarray(pts, np.float64)
     train_y = np.asarray(obj_list, np.float64)
@@ -131,7 +126,7 @@ def batched_bayesopt(
             batch[bad] = uniform_points(bounds, int(bad.sum()), gen).cpu().numpy()
             gp_params = init_params(train_x.shape[1], device)
         new_hyps, new_objs, seconds = _evaluate(rs, batch, module, train, task_factory, seed,
-                                                sgld, inference_method, device)
+                                                sgld, inference_method, device, mesh)
         rounds_s.append({**seconds, "gp_fit": t1 - t0, "acquisition": t2 - t1})
         hyp_list.extend(new_hyps)
         obj_list.extend(new_objs)

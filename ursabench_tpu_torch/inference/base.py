@@ -2,12 +2,21 @@
 split); ``update_hyp`` re-initialises; ``sample_iterative`` returns one
 posterior draw; ``sample`` returns the ``Ensemble``.
 
-Counterpart of ``ursabench_tpu/inference/base.py`` without the device mesh,
-plus the chain bookkeeping that every epoch-driven sampler of
+Counterpart of ``ursabench_tpu/inference/base.py``, plus the chain
+bookkeeping that every epoch-driven sampler of
 ``ursabench_tpu/inference/{sgmcmc,sgd_map,swa}.py`` shares
 (``_EpochSampler``). Randomness comes from ``seed`` through generators
 seeded with sha256-derived sub-seeds, one per purpose, where the JAX
 package splits a PRNG key.
+
+``mesh`` (a ``parallel.Mesh`` of the process group) shards the chains over
+its chain ranks and every batch over its data ranks. A rank holds the block
+of ``chains / chain`` chains ``mesh.chain_block`` gives, and each keeps its
+global identity: its initial weights, batch plans, crops, flips and dropout
+seeds are those chain c draws in one process, and K1 draws its block of the
+noise (``TrainState.row_offset``). The rank's block advances by the
+one-device ``chain_strategy`` rule for its own chain count (the JAX
+package's local decision). A mesh of one rank is no mesh.
 
 Mid-chain checkpoints (``enable_auto_checkpoint``): an epoch sampler saves
 its chain state every N epochs (``utils_checkpoint.save_sampler_state``)
@@ -100,6 +109,21 @@ def resolve_chain_strategy(strategy: str, module, spec_shape, chains: int = 2) -
     return "vmap" if limit and image_flops(module, spec_shape) <= limit else "scan"
 
 
+def check_mesh(mesh, chains: int, batch_size: Optional[int]):
+    """``mesh`` for a sampler of ``chains`` chains, or None for no mesh (or
+    one of a single rank). Raises where its chain axis does not divide
+    ``chains`` or its data axis does not divide the batch."""
+    if mesh is None or mesh.size == 1:
+        return None
+    if chains % mesh.shape["chain"]:
+        raise ValueError(f"{chains} chains do not split over a chain axis of "
+                         f"{mesh.shape['chain']}")
+    if batch_size is not None and batch_size % mesh.shape["data"]:
+        raise ValueError(f"a batch of {batch_size} does not split over "
+                         f"{mesh.shape['data']} data ranks")
+    return mesh
+
+
 class _Inference:
     def __init__(
         self,
@@ -111,22 +135,29 @@ class _Inference:
         chains: int = 1,
         device=None,
         chain_strategy: str = "auto",
+        mesh=None,
     ):
         if model_loss != "multi_class_linear_output":
             raise NotImplementedError(model_loss)
         if int(chains) < 1:
             raise ValueError(f"chains must be >= 1, got {chains}")
+        self.chains = int(chains)
+        self.mesh = check_mesh(mesh, self.chains, getattr(train, "batch_size", None))
+        # this rank's chains, as global indices (all of them without a mesh)
+        self.chain_ids = (range(self.chains) if self.mesh is None
+                          else self.mesh.chain_block(self.chains))
         self.chain_strategy = chain_strategy
         self.device = resolve_device(device)
         self.module = model.to(self.device)
         self.train = train
         self.model_loss = model_loss
         self.seed = int(seed)
-        self.chains = int(chains)
-        # the resolved strategy (None for one chain), as the JAX package records it
+        # the resolved strategy of this rank's chains (None for one), as the
+        # JAX package records it
+        local = len(self.chain_ids)
         self._resolved_chain_strategy = (
-            resolve_chain_strategy(chain_strategy, self.module, train.spec.shape, self.chains)
-            if self.chains > 1 else None)
+            resolve_chain_strategy(chain_strategy, self.module, train.spec.shape, local)
+            if local > 1 else None)
         self.hyperparameters = hyperparameters
         self._draws = 0
         self._ckpt_path: Optional[str] = None
@@ -145,11 +176,16 @@ class _Inference:
 
     # -- shared helpers --------------------------------------------------------
 
+    @staticmethod
+    def run_seed(seed: int, draw: int) -> int:
+        """The ``draw``-th ``next_seed`` of a sampler seeded with ``seed``."""
+        return derive_seed(seed, "draw", draw)
+
     def next_seed(self) -> int:
         """A fresh sub-seed of ``seed`` (the counterpart of splitting the
         sampler's PRNG key)."""
         self._draws += 1
-        return derive_seed(self.seed, "draw", self._draws)
+        return self.run_seed(self.seed, self._draws)
 
     def fresh_variables(self, module=None, run: Optional[int] = None,
                         chain: int = 0) -> StateDict:
@@ -174,11 +210,13 @@ class _Inference:
 
     def _ensemble_from_draws(self, draws) -> Ensemble:
         """S draws -> an ensemble of S * chains members, draw-major (the
-        JAX package's (S, chains) -> (S * chains) merge)."""
+        JAX package's (S, chains) -> (S * chains) merge); on a mesh this
+        rank holds its chains' S * chains / chain of them."""
         state = stack_state_dicts(draws)
         if self.chains > 1:
             state = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in state.items()}
-        return Ensemble(self.module, state, len(draws) * self.chains)
+        return Ensemble(self.module, state, len(draws) * self.chains, mesh=self.mesh,
+                        chains=self.chains)
 
     # -- mid-chain checkpoints ---------------------------------------------------
 
@@ -187,6 +225,9 @@ class _Inference:
         """Save the chain to ``path`` every ``every_epochs`` epochs (draws,
         for HMC and the PCA subspace sampler); with ``resume``, restore an
         existing checkpoint there. Returns True if one was restored."""
+        if self.mesh is not None:
+            raise NotImplementedError("checkpoints of a sampler sharded over a device mesh "
+                                      "are not ported yet (ROADMAP.md open item 15f)")
         self._ckpt_path = path
         self._ckpt_every = max(1, int(every_epochs))
         if resume and os.path.exists(path):
@@ -215,7 +256,11 @@ class _EpochSampler(_Inference):
     A train split with ``epoch`` (``data.native.HostStreamingSplit``) stays
     on the host: each epoch streams its batches through ``engine.
     stream_steps``, one chain only, and the split's permutation takes the
-    place of the data generator's (which still draws the crops and flips)."""
+    place of the data generator's (which still draws the crops and flips).
+
+    On a mesh ``self.modules`` are this rank's chains (``chain_ids``) and
+    ``self.chains`` counts every rank's; the epoch is ``engine.
+    train_steps``'s sharded one."""
 
     _HYP_KEYS: tuple = ()
     _LR_FN = None  # (hyp, epoch, batch_idx, step) -> lr
@@ -223,21 +268,25 @@ class _EpochSampler(_Inference):
 
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=1,
-                 device=None, chain_strategy="auto"):
+                 device=None, chain_strategy="auto", mesh=None):
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
-                         device, chain_strategy)
+                         device, chain_strategy, mesh)
         self._streamed = hasattr(train, "epoch")
         if not self._streamed:
             self._images, self._labels = train.device_tensors(self.device)
+        elif self.mesh is not None:
+            raise NotImplementedError("streamed epochs over a device mesh are not ported "
+                                      "yet (ROADMAP.md open item 15e)")
         elif self.chains > 1:
             raise ValueError(f"host-streaming epochs are single-chain: chains={self.chains}")
         else:
             self._images = self._labels = None
         self.modules = [self.module] + [copy.deepcopy(self.module)
-                                        for _ in range(self.chains - 1)]
+                                        for _ in range(len(self.chain_ids) - 1)]
         params, grads = flatten_chains(self.modules)
         self._state = TrainState(self.module, params, torch.zeros_like(params), grads,
-                                 modules=self.modules)
+                                 modules=self.modules, row_offset=self.chain_ids[0],
+                                 total_rows=self.chains)
         self._hyp = {k: torch.zeros((), dtype=torch.float32, device=self.device)
                      for k in self._HYP_KEYS}
         self._noise_gate = torch.ones((), dtype=torch.float32, device=self.device)
@@ -251,7 +300,7 @@ class _EpochSampler(_Inference):
     def _init_state(self):
         """Fresh weights, zero momentum, step 0, and fresh generators."""
         run = self.next_seed()
-        for c, module in enumerate(self.modules):
+        for c, module in zip(self.chain_ids, self.modules):
             self.fresh_variables(module, run, c)
         self._state.momentum.zero_()
         self._state.grads.zero_()
@@ -261,11 +310,18 @@ class _EpochSampler(_Inference):
         # permutations and crop/flip choices are drawn on the device; the
         # per-step noise seeds and per-epoch dropout seeds on the host
         self._data_gens = [make_generator(self.device, run, "data", *((c,) if c else ()))
-                           for c in range(self.chains)]
-        self._noise_gen = torch.Generator().manual_seed(derive_seed(run, "noise"))
-        # (generator, rows): the chains' dropout seeds, drawn in row order
+                           for c in self.chain_ids]
+        self._noise_gen = self._noise_generator(run)
+        # (generator, rows): the chains' dropout seeds, drawn in row order for
+        # every chain; this rank keeps ``_dropout_rows`` of them
         self._dropout_gens = [(torch.Generator().manual_seed(derive_seed(run, "dropout")),
                                self.chains)]
+        self._dropout_rows = slice(self.chain_ids[0], self.chain_ids[-1] + 1)
+
+    @staticmethod
+    def _noise_generator(run: int) -> torch.Generator:
+        """The host generator of the steps' noise seeds of run ``run``."""
+        return torch.Generator().manual_seed(derive_seed(run, "noise"))
 
     def _run_epoch(self, noise_on: Optional[bool] = None) -> torch.Tensor:
         """One epoch on every chain; ``noise_on`` sets the noise gate first
@@ -287,8 +343,8 @@ class _EpochSampler(_Inference):
         seeds = torch.randint(0, 2 ** 63 - 1, (shape[1],),
                               generator=self._noise_gen).tolist()
         dropout_seeds = ([s for gen, rows in self._dropout_gens
-                          for s in torch.randint(0, 2 ** 63 - 1, (rows,), generator=gen).tolist()]
-                         if self._has_dropout else None)
+                          for s in torch.randint(0, 2 ** 63 - 1, (rows,), generator=gen).tolist()
+                          ][self._dropout_rows] if self._has_dropout else None)
         kw = dict(epoch=self.epochs_run, noise_on=self._noise_gate, hyp=self._hyp,
                   lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds, aug=aug,
                   dropout_seeds=dropout_seeds)
@@ -296,7 +352,8 @@ class _EpochSampler(_Inference):
             loss = stream_steps(self._state, split, **kw)
         else:
             loss = train_steps(self._state, self._images, self._labels, idx, spec=split.spec,
-                               chain_strategy=self._resolved_chain_strategy, **kw)
+                               chain_strategy=self._resolved_chain_strategy, mesh=self.mesh,
+                               **kw)
         self.epochs_run += 1
         self.epoch_losses.append(loss)
         return loss
@@ -307,8 +364,9 @@ class _EpochSampler(_Inference):
                    "val_loss": self.compute_val_loss(val_loader)})
 
     def _harvest(self) -> StateDict:
-        """A copy of every chain's parameters and BatchNorm buffers, with a
-        leading chain axis when there is more than one chain."""
+        """A copy of every chain's parameters and BatchNorm buffers (this
+        rank's, on a mesh), with a leading chain axis when the sampler has
+        more than one chain."""
         states = [{k: v.detach().clone() for k, v in m.state_dict().items()}
                   for m in self.modules]
         return states[0] if self.chains == 1 else stack_state_dicts(states)

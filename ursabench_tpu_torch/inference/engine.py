@@ -32,6 +32,25 @@ as outputs, folded into each chain's own buffers after the forward
 The gradient buffer is zeroed with ``zero_()`` before each step, never set
 to None.
 
+On a device mesh (``parallel.Mesh``, the ``mesh`` argument of the three step
+functions) the state is one rank's block of chains (``TrainState.row_offset``
+and ``total_rows`` place it in the global buffer, so K1 draws that block's
+noise) and every step follows the JAX package's sharded epoch
+(``ursabench_tpu/inference/engine.py:317-480``): each data rank of a chain
+row takes its slice of the same batch plan; the gradients become the global
+batch's mean through one all-reduce over 'data' of the rank's whole (C, P)
+gradient buffer (the cross-entropy sums over the global batch size, as
+``psum(g) / n_global``), and the losses likewise; BatchNorm normalizes with
+the local batch's statistics and the updated running statistics are then
+averaged over 'data' (``pmean``, not SyncBN; under vmap after
+``fold_batch_stats``); K1's seed is the same on every data rank, so the
+replicas stay equal; each data rank draws its own dropout stream (JAX's
+``fold_in(..., data_idx)``). The crops and flips are drawn for the whole
+(chains, batches, batch) plan, and a data rank takes its slice of them, so
+a sharded epoch equals the one-process epoch up to the order of the sums
+(the JAX package folds ``data_idx`` into its augmentation key instead: the
+same distribution through another stream).
+
 ``bn_refresh`` recomputes BatchNorm's running statistics with one exact
 pass over a split; ``eval_loss`` is the mean cross entropy over a split in
 eval mode.
@@ -41,7 +60,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +71,9 @@ from ..data.transforms import ImageSpec, augment_normalized, normalize
 from ..models.common import (BatchNorm2d, batch_stats_out, dropout_calls, dropout_generator,
                              dropout_layers, dropout_masks)
 from ..util import StateDict, make_generator
+
+if TYPE_CHECKING:
+    from ..parallel.mesh import Mesh
 
 # (hyp, epoch, batch_idx, global_step) -> lr, a 0-dim device tensor
 LrFn = Callable[..., torch.Tensor]
@@ -64,7 +86,9 @@ class TrainState:
     """The chains: ``modules[c]``'s parameters and gradients are views into
     row c of ``params`` and ``grads`` ((C, P) float32, or (P,) for one
     chain); its BatchNorm buffers are chain c's batch stats. ``module`` is
-    chain 0's; ``modules`` defaults to ``(module,)``."""
+    chain 0's; ``modules`` defaults to ``(module,)``. On a device mesh the
+    rows are chains ``row_offset`` up of a global buffer of ``total_rows``
+    (by default the state is the whole buffer)."""
 
     module: nn.Module
     params: torch.Tensor
@@ -72,11 +96,29 @@ class TrainState:
     grads: torch.Tensor
     step: int = 0  # global batch counter
     modules: Sequence[nn.Module] = ()
+    row_offset: int = 0
+    total_rows: Optional[int] = None
     _batched: Optional[tuple] = field(default=None, repr=False)
+    _bns: Optional[list] = field(default=None, repr=False)
 
     def __post_init__(self):
         if not self.modules:
             self.modules = (self.module,)
+
+    def noise_block(self) -> dict:
+        """``offset`` and ``total`` of ``ops.sgmcmc.sghmc_update``: where
+        these rows' elements lie in the global buffer."""
+        rows = self.params.shape[0] if self.params.dim() == 2 else 1
+        row_len = self.params.numel() // rows
+        return {"offset": self.row_offset * row_len,
+                "total": (self.total_rows or rows) * row_len}
+
+    def bn_buffers(self) -> list:
+        """Every chain's BatchNorm running statistics, in chain order."""
+        if self._bns is None:
+            self._bns = [b for module in self.modules for m in module.modules()
+                         if isinstance(m, BatchNorm2d) for b in (m.running_mean, m.running_var)]
+        return self._bns
 
     def batched(self):
         """``(ChainForward(module), leaves, bns)`` for the vmap step, made
@@ -93,22 +135,25 @@ class TrainState:
 
 def flatten_chains(modules: Sequence[nn.Module]):
     """Re-home every parameter of ``modules[c]`` (and its ``.grad``) as a
-    view into row c of one (C, P) float32 buffer; returns ``(params,
-    grads)``. Parameters keep their values; gradients start at zero. The
-    modules must have the same architecture."""
+    view into row c of one (C, P) float32 buffer (float64 for float64
+    modules, a CPU check's); returns ``(params, grads)``. Parameters keep
+    their values; gradients start at zero. The modules must have the same
+    architecture."""
     plists = [list(m.parameters()) for m in modules]
     device = plists[0][0].device
+    dtype = torch.float64 if plists[0][0].dtype == torch.float64 else torch.float32
     total = sum(p.numel() for p in plists[0])
-    flat_p = torch.empty(len(modules), total, dtype=torch.float32, device=device)
-    flat_g = torch.zeros(len(modules), total, dtype=torch.float32, device=device)
+    flat_p = torch.empty(len(modules), total, dtype=dtype, device=device)
+    flat_g = torch.zeros(len(modules), total, dtype=dtype, device=device)
     with torch.no_grad():
         for c, plist in enumerate(plists):
             if sum(p.numel() for p in plist) != total:
                 raise ValueError("chains of different sizes")
             offset = 0
             for p in plist:
-                if p.dtype != torch.float32 or p.device != device:
-                    raise ValueError("flat buffers need float32 parameters on one device")
+                if p.dtype != dtype or p.device != device:
+                    raise ValueError("flat buffers need parameters of one dtype (float32, or "
+                                     "float64) on one device")
                 k = p.numel()
                 flat_p[c, offset: offset + k].copy_(p.reshape(-1))
                 p.data = flat_p[c, offset: offset + k].view_as(p)
@@ -257,6 +302,37 @@ def epoch_indices(gen: torch.Generator, n: int, bsz: int) -> torch.Tensor:
     return perm.view(nb, bsz)
 
 
+def _data_shards(mesh: Optional["Mesh"]) -> int:
+    return 1 if mesh is None else mesh.shape["data"]
+
+
+def _dropout_gen(device, seed: int, batch_idx: int, mesh: Optional["Mesh"]) -> torch.Generator:
+    """A chain's dropout generator for batch ``batch_idx``; on a data mesh,
+    each data rank's own (the counterpart of ``fold_in(..., data_idx)``)."""
+    if _data_shards(mesh) > 1:
+        return make_generator(device, seed, batch_idx, "data", mesh.data_idx)
+    return make_generator(device, seed, batch_idx)
+
+
+def _reduce_over_data(state: TrainState, losses: torch.Tensor, mesh: Optional["Mesh"]) -> None:
+    """On a data mesh, in place: the gradients and losses summed over
+    'data' (one all-reduce of the whole gradient buffer, one of the
+    losses), then the BatchNorm running statistics averaged over it."""
+    if _data_shards(mesh) == 1:
+        return
+    mesh.all_reduce(state.grads, "data")
+    mesh.all_reduce(losses, "data")
+    mesh.all_reduce_many(state.bn_buffers(), "data", mean=True)
+
+
+def _batch_loss(logits: torch.Tensor, y: torch.Tensor, shards: int) -> torch.Tensor:
+    """The mean cross entropy, or on a data mesh this rank's share of the
+    global batch's: its sum over the global batch size."""
+    if shards == 1:
+        return cross_entropy_mean(logits, y)
+    return F.cross_entropy(logits, y, reduction="sum") / (y.shape[0] * shards)
+
+
 def train_step(
     state: TrainState,
     batches: Sequence[tuple],
@@ -271,10 +347,13 @@ def train_step(
     seed: int,
     aug: Optional[Sequence[tuple]] = None,
     dropout_seeds: Optional[Sequence[int]] = None,
+    mesh: Optional["Mesh"] = None,
 ) -> torch.Tensor:
     """One training step of every chain of ``state``, in place; returns the
     chains' losses, (C,), on the device. The body of both epochs, resident
-    (``train_steps``) and streamed (``stream_steps``).
+    (``train_steps``) and streamed (``stream_steps``). On a data mesh the
+    batches are this rank's rows and the step is the global batch's (module
+    docstring).
 
     ``batches[c]`` is chain c's ``(x, y)``: x NHWC, uint8 (normalized here
     with ``normalize``) or float32 (taken as normalized), y int64 labels;
@@ -283,6 +362,7 @@ def train_step(
     batch_idx)`` (a model with dropout raises without ``dropout_seeds``);
     ``seed`` keys the step's Langevin noise (one update over all
     chains)."""
+    shards = _data_shards(mesh)
     state.grads.zero_()
     losses = []
     for c, module in enumerate(state.modules):
@@ -293,15 +373,17 @@ def train_step(
             x = augment_normalized(x, spec, *aug[c])
         x = x.permute(0, 3, 1, 2).contiguous()
         gen = (None if dropout_seeds is None
-               else make_generator(x.device, dropout_seeds[c], batch_idx))
+               else _dropout_gen(x.device, dropout_seeds[c], batch_idx, mesh))
         with dropout_generator(module, gen):
-            loss = cross_entropy_mean(module(x), y)
+            loss = _batch_loss(module(x), y, shards)
         loss.backward()
         losses.append(loss.detach())
+    losses = torch.stack(losses)
+    _reduce_over_data(state, losses, mesh)
     lr = lr_fn(hyp, epoch, batch_idx, state.step)
     update_fn(state, hyp, lr=lr, noise_on=noise_on, is_first_step=state.step == 0, seed=seed)
     state.step += 1
-    return torch.stack(losses)
+    return losses
 
 
 def train_step_vmap(
@@ -320,6 +402,7 @@ def train_step_vmap(
     seed: int,
     aug: Optional[tuple] = None,
     dropout_seeds: Optional[Sequence[int]] = None,
+    mesh: Optional["Mesh"] = None,
 ) -> torch.Tensor:
     """``train_step`` for every chain at once: chain c trains on
     ``images[idx[c]]`` ((C, batch) indices) with ``aug``'s row c ((C, batch)
@@ -327,7 +410,8 @@ def train_step_vmap(
     batched forward and backward (``ChainForward``) and the same update.
     Chain c's dropout masks come from ``make_generator(device,
     dropout_seeds[c], batch_idx)``, drawn as ``train_step`` draws them.
-    Returns the (C,) losses on the device."""
+    Returns the (C,) losses on the device. On a data mesh ``idx`` and
+    ``aug`` are this rank's columns."""
     chains, bsz = idx.shape
     fwd, leaves, bns = state.batched()
     state.grads.zero_()
@@ -344,19 +428,22 @@ def train_step_vmap(
         if dropout_seeds is None:
             raise RuntimeError("active Dropout without a generator: a model with dropout "
                                "needs dropout_seeds")
-        layers, masks = fwd.masks(x[0], [make_generator(x.device, s, batch_idx)
+        layers, masks = fwd.masks(x[0], [_dropout_gen(x.device, s, batch_idx, mesh)
                                          for s in dropout_seeds])
     logits, stats = fwd(leaves, x, x_batched=True, layers=layers, masks=masks,
                         masks_batched=chains > 1)
-    losses = F.cross_entropy(logits.reshape(chains * bsz, -1), y,
-                             reduction="none").view(chains, bsz).mean(1)
+    ce = F.cross_entropy(logits.reshape(chains * bsz, -1), y, reduction="none").view(chains, bsz)
+    shards = _data_shards(mesh)
+    losses = ce.mean(1) if shards == 1 else ce.sum(1) / (bsz * shards)
     backward_into_views(losses.sum())
     if stats:
         fold_batch_stats(bns, stats)
+    losses = losses.detach()
+    _reduce_over_data(state, losses, mesh)
     lr = lr_fn(hyp, epoch, batch_idx, state.step)
     update_fn(state, hyp, lr=lr, noise_on=noise_on, is_first_step=state.step == 0, seed=seed)
     state.step += 1
-    return losses.detach()
+    return losses
 
 
 def train_steps(
@@ -375,6 +462,7 @@ def train_steps(
     aug: Optional[tuple] = None,
     dropout_seeds: Optional[Sequence[int]] = None,
     chain_strategy: Optional[str] = None,
+    mesh: Optional["Mesh"] = None,
 ) -> torch.Tensor:
     """Run one training step per batch of ``idx`` on every chain of
     ``state``, in place (``train_step_vmap`` when ``chain_strategy`` is
@@ -388,16 +476,26 @@ def train_steps(
     (one update over all chains); ``dropout_seeds[c]`` keys chain c's
     dropout, step i drawing from ``make_generator(device, seed, i)`` (the
     counterpart of ``fold_in(k_drop, i)``), and is needed only by models
-    with dropout."""
+    with dropout. On a data mesh each rank trains on its columns of every
+    batch of ``idx`` and ``aug`` (``mesh.data_rows``), which must split the
+    batch evenly."""
     chains = len(state.modules)
     idx = idx.reshape(chains, -1, idx.shape[-1])
     if aug is not None:
         aug = tuple(None if a is None else a.reshape(idx.shape) for a in aug)
+    shards = _data_shards(mesh)
+    if shards > 1:
+        if idx.shape[-1] % shards:
+            raise ValueError(f"a batch of {idx.shape[-1]} does not split over {shards} data ranks")
+        mine = mesh.data_rows(idx.shape[-1])
+        idx = idx[..., mine]
+        if aug is not None:
+            aug = tuple(None if a is None else a[..., mine] for a in aug)
     for m in state.modules:
         m.train()
     losses = []
     kw = dict(spec=spec, epoch=epoch, noise_on=noise_on, hyp=hyp, lr_fn=lr_fn,
-              update_fn=update_fn, dropout_seeds=dropout_seeds)
+              update_fn=update_fn, dropout_seeds=dropout_seeds, mesh=mesh)
     for bi in range(idx.shape[1]):
         if chain_strategy == "vmap":
             step_aug = None if aug is None else tuple(None if a is None else a[:, bi]

@@ -57,7 +57,8 @@ from .engine import (ChainForward, _padded_batches, backward_into_views, flatten
                      stacked_leaves)
 from .ensemble import Ensemble
 
-_MESH = "HMC over a device mesh is not ported yet (ROADMAP.md open item 15)"
+_MESH = ("HMC over a device mesh (its data-parallel potential) is not ported yet "
+         "(ROADMAP.md open item 15c)")
 
 
 def _sq_diff_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -47,8 +47,8 @@ from .ensemble import Ensemble
 from .subspaces import SubspaceModel
 from .swa import SWA
 
-_MESH = ("the PCA subspace sampler over a device mesh is not ported yet "
-         "(ROADMAP.md open item 15)")
+_MESH = ("the PCA subspace sampler over a device mesh (its data-parallel log density "
+         "and SWA phase) is not ported yet (ROADMAP.md open item 15c)")
 
 
 class PCASubspaceSampler(_Inference):

@@ -6,7 +6,8 @@ Counterpart of ``ursabench_tpu/inference/sgd_map.py``:
   ``update_hyp``), epochs + 1 epochs and then no more, ``num_samples``
   forced to 1.
 - DeepEnsemble: K independently initialised SGD runs, as K chains of one
-  sampler (``_EpochSampler``): ``sample()`` returns the K members.
+  sampler (``_EpochSampler``): ``sample()`` returns the K members, which a
+  mesh shards over its chain ranks.
 - MCdropout: the ``<Model>_dropout`` twin trained with SGD, a one-cycle
   learning rate stepped per batch and the dropout-lengthscale weight decay
   l^2 (1 - p) / (2 N); its S members share one set of weights (``expand``ed
@@ -86,9 +87,9 @@ class SGD(_EpochSampler):
 
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=1,
-                 device=None, chain_strategy="auto"):
+                 device=None, chain_strategy="auto", mesh=None):
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
-                         device, chain_strategy)
+                         device, chain_strategy, mesh)
         if hyperparameters is None:
             hyperparameters = dict(self._DEFAULT_HYP)
         self._setup(hyperparameters, eta_min_fraction=0.01)
@@ -135,12 +136,12 @@ class DeepEnsemble(SGD):
 
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=None,
-                 device=None, chain_strategy="auto"):
+                 device=None, chain_strategy="auto", mesh=None):
         hyperparameters = dict(hyperparameters or {**SGD._DEFAULT_HYP, "num_members": 5})
         members = int(hyperparameters.get("num_members", 5))
         super().__init__(hyperparameters, model=model, train=train,
                          model_loss=model_loss, seed=seed, chains=chains or members,
-                         device=device, chain_strategy=chain_strategy)
+                         device=device, chain_strategy=chain_strategy, mesh=mesh)
 
     def sample(self, num_samples=None, val_loader=None, debug_val_loss=False) -> Ensemble:
         del num_samples  # one draw per member; the members are the chains
@@ -159,16 +160,21 @@ class MCdropout(_EpochSampler):
 
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=1,
-                 device=None, model_name: str | None = None, chain_strategy="auto"):
+                 device=None, model_name: str | None = None, chain_strategy="auto",
+                 mesh=None):
         """``model`` may be a base module: pass ``model_name`` to build its
         ``_dropout`` twin from the registry, with the base module's class
-        count and compute dtype; or pass the twin itself."""
+        count and compute dtype; or pass the twin itself. ``mesh`` may be a
+        data mesh only: the members share chain 0's weights."""
+        if mesh is not None and mesh.shape["chain"] > 1:
+            raise ValueError("MCdropout's members share one chain's weights: use a mesh "
+                             f"with chain=1 (data parallelism), got {mesh.shape}")
         if model_name is not None:
             kw = {} if getattr(model, "dtype", None) is None else {"dtype": model.dtype}
             model = dropout_twin(model_name).build(
                 getattr(model, "num_classes", None) or 10, **kw)
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
-                         device, chain_strategy)
+                         device, chain_strategy, mesh)
         if hyperparameters is None:
             hyperparameters = dict(self._DEFAULT_HYP)
         self._setup(hyperparameters)
@@ -210,4 +216,5 @@ class MCdropout(_EpochSampler):
             self.sample_iterative(val_loader, debug_val_loss)
         shared = self._single_member()
         state = {k: v.expand((num_samples,) + tuple(v.shape)) for k, v in shared.items()}
-        return Ensemble(self.module, state, num_samples, dropout_seed=self.next_seed())
+        return Ensemble(self.module, state, num_samples, dropout_seed=self.next_seed(),
+                        mesh=self.mesh)

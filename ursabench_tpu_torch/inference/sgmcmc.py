@@ -18,7 +18,9 @@ after every epoch the schedule of ``enable_auto_checkpoint`` asks for.
 
 With ``chains`` C, every epoch advances all C chains (``_EpochSampler``)
 and each draw holds one member per chain: S draws make an ensemble of S * C
-members, draw-major, as the JAX package merges them.
+members, draw-major, as the JAX package merges them. With ``mesh`` (a
+``parallel.Mesh``) the chains are sharded over its chain ranks and each
+batch over its data ranks (``inference/engine.py``).
 
 The hyperparameters live in 0-dim device tensors that ``update_hyp`` fills
 in place, so changing them never rebuilds anything; the learning rate is
@@ -64,7 +66,7 @@ def _sghmc_hyp_update(state: TrainState, hyp, *, lr, noise_on, is_first_step, se
         *update_buffers(state, hyp), lr=lr,
         momentum=hyp["momentum"], wd_over_n=hyp["wd_over_n"],
         n_train=hyp["n_train"], noise_on=noise_on,
-        is_first_step=is_first_step, seed=seed,
+        is_first_step=is_first_step, seed=seed, **state.noise_block(),
     )
 
 
@@ -82,9 +84,9 @@ class SGHMC(_EpochSampler):
 
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=1,
-                 device=None, chain_strategy="auto"):
+                 device=None, chain_strategy="auto", mesh=None):
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
-                         device, chain_strategy)
+                         device, chain_strategy, mesh)
         if hyperparameters is None:
             hyperparameters = dict(self._DEFAULT_HYP)
         self._setup(hyperparameters, eta_min_fraction=self._ETA_MIN_FRACTION_INIT)
@@ -159,9 +161,9 @@ class cSGHMC(_EpochSampler):
 
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=1,
-                 device=None, chain_strategy="auto"):
+                 device=None, chain_strategy="auto", mesh=None):
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
-                         device, chain_strategy)
+                         device, chain_strategy, mesh)
         if hyperparameters is None:
             hyperparameters = dict(self._DEFAULT_HYP)
         self._setup(hyperparameters)

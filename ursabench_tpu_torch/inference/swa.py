@@ -15,6 +15,11 @@ The flat weight vector is the sampler's flat parameter buffer
 (``util.ravel`` order); a second module with its own flat buffer holds the
 mean for the BatchNorm refresh, so the training iterate and its BatchNorm
 buffers are never touched.
+
+``mesh`` may be a data mesh only (chain 1): each SGD minibatch is sharded
+over its data ranks, whose replicas of the trajectory and of its moments
+stay equal. A mesh with a chain axis > 1 raises ValueError, as in the JAX
+package: the trajectory is single.
 """
 
 from __future__ import annotations
@@ -56,12 +61,16 @@ class SWA(_EpochSampler):
 
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=1,
-                 device=None, **subspace_kwargs):
+                 device=None, mesh=None, **subspace_kwargs):
         if chains not in (1, None):
             raise NotImplementedError(
                 "SWA/SWAG run a single trajectory (the running weight moments "
                 "are chain-global); use SGHMC/SGLD/DeepEnsemble for chains")
-        super().__init__(hyperparameters, model, train, model_loss, seed, 1, device)
+        if mesh is not None and mesh.shape["chain"] > 1:
+            raise ValueError("SWA/SWAG are single-trajectory: use a mesh with chain=1 "
+                             f"(data parallelism), got {mesh.shape}; e.g. "
+                             "parallel.make_mesh(chain_devices=1)")
+        super().__init__(hyperparameters, model, train, model_loss, seed, 1, device, mesh=mesh)
         if hyperparameters is None:
             hyperparameters = dict(self._DEFAULT_HYP)
         self._subspace_kwargs = dict(subspace_kwargs)
@@ -168,4 +177,4 @@ class SWA(_EpochSampler):
                                           val_loader=val_loader,
                                           debug_val_loss=debug_val_loss)
         state = {k: v.expand((num_samples,) + tuple(v.shape)) for k, v in state.items()}
-        return Ensemble(self.module, state, num_samples)
+        return Ensemble(self.module, state, num_samples, mesh=self.mesh)

@@ -32,10 +32,11 @@ class SWAG(SWA):
 
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=1,
-                 device=None, reference_bug_compat: bool = False, **subspace_kwargs):
+                 device=None, reference_bug_compat: bool = False, mesh=None,
+                 **subspace_kwargs):
         self.reference_bug_compat = reference_bug_compat
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
-                         device, **subspace_kwargs)
+                         device, mesh, **subspace_kwargs)
         self.num_samples = int(self.hyperparameters.get("num_samples", 20))
         self.weight_variance = None
 
@@ -85,4 +86,4 @@ class SWAG(SWA):
         draws = [self.sample_iterative(update_bn=True, val_loader=val_loader,
                                        debug_val_loss=debug_val_loss, full_cov=full_cov)
                  for _ in range(num_samples)]
-        return Ensemble(self.module, stack_state_dicts(draws), num_samples)
+        return Ensemble(self.module, stack_state_dicts(draws), num_samples, mesh=self.mesh)

@@ -10,6 +10,11 @@ for a buffer of R rows (row r of the (R, P) buffer takes table row r: a
 sweep's K configurations, ``inference/vectorized.py``). A (1, 5) table is
 the float32[5]: the same launch and the same random stream.
 
+A buffer may be a block of a larger one (the rows of chains c0.. that one
+rank of a device mesh holds): ``offset`` is the global index of its first
+element, and element i then draws the normal of global element offset + i,
+as the whole buffer's launch would.
+
 The library is built and loaded by ``kernels/build.py`` at first use.
 """
 
@@ -34,7 +39,7 @@ def load_library() -> Library:
     fn = library.lib.sghmc_update_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_ulonglong, ctypes.c_void_p]
+                   ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return library
 
@@ -69,21 +74,24 @@ def _check(p, v, g, scalars):
 
 
 def sghmc_update_flat(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-                      scalars: torch.Tensor, seed: int):
+                      scalars: torch.Tensor, seed: int, offset: int = 0):
     """One SGHMC/SGLD step in place on contiguous float32 CUDA buffers.
 
     ``scalars`` is a device float32[5], (lr, momentum, wd_over_n,
     noise_scale, is_first), or an (R, 5) table of them, row r for row r of
     the buffers seen as (R, numel / R). ``seed`` keys the in-kernel Philox
-    stream (element i of the flat buffer draws from (seed, i)) and must
-    differ between steps. Launches on the current stream, without
-    synchronising. Returns ``(p, v)``."""
+    stream (element i of the flat buffer draws from (seed, offset + i)) and
+    must differ between steps; ``offset`` is the global index of element 0
+    when the buffer is a block of a larger one. Launches on the current
+    stream, without synchronising. Returns ``(p, v)``."""
     rows = _check(p, v, g, scalars)
+    if offset < 0:
+        raise ValueError(f"offset must be >= 0, got {offset}")
     fn = load_library().lib.sghmc_update_f32
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = fn(p.data_ptr(), v.data_ptr(), g.data_ptr(), scalars.data_ptr(),
-                 p.numel(), rows, int(seed) & (2 ** 64 - 1), stream)
+                 p.numel(), rows, int(seed) & (2 ** 64 - 1), int(offset), stream)
     if err != 0:
         raise RuntimeError(f"sghmc_update_f32 launch failed with CUDA error {err}")
     sghmc_update_flat.launches += 1

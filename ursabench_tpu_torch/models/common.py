@@ -77,7 +77,9 @@ def dropout_twin(name: str) -> ModelCfg:
 class Conv2d(nn.Conv2d):
     """An ``nn.Conv2d`` (bias-free unless ``bias``) that computes in
     ``dtype`` when it is set: the input, the float32 kernel and the bias are
-    cast to it first."""
+    cast to it first, and the bias is added to the rounded convolution, as
+    flax's ``Conv(dtype=...)`` adds it (a fused bias would round once, and
+    the gradients would then drift from flax's by a second bf16 error)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype: Optional[torch.dtype] = None,
@@ -89,8 +91,8 @@ class Conv2d(nn.Conv2d):
         d = self.compute_dtype
         if d is None:
             return super().forward(x)
-        b = None if self.bias is None else self.bias.to(d)
-        return self._conv_forward(x.to(d), self.weight.to(d), b)
+        y = self._conv_forward(x.to(d), self.weight.to(d), None)
+        return y if self.bias is None else y + self.bias.to(d).view(1, -1, 1, 1)
 
 
 class Linear(nn.Linear):
@@ -268,8 +270,9 @@ class BatchNorm2d(nn.Module):
                                 self.weight, self.bias, False, 0.0, self.eps)
         if self.stats_out:
             # vmap's rule for a batched weight normalizes, then applies the
-            # affine part in float32: normalizing in float32 keeps one rounding
-            x = x.to(torch.float32)
+            # affine part in float32 (float64 stays): normalizing in float32
+            # keeps one rounding
+            x = x.to(torch.promote_types(x.dtype, torch.float32))
             out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)

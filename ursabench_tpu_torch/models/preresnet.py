@@ -112,7 +112,7 @@ class PreResNet(nn.Module):
         for blk in self.blocks:
             out = blk(out)
         out = F.relu(self.bn(out))
-        out = out.to(torch.float32).mean(dim=(2, 3))
+        out = out.to(torch.promote_types(out.dtype, torch.float32)).mean(dim=(2, 3))
         return self.fc(out)
 
 

@@ -15,7 +15,10 @@ value per row of (K, P) buffers: a sweep's K configurations in one call.
 On CUDA tensors the step is kernel K1
 (``kernels/sghmc.py``), which makes its normals in the kernel; on CPU
 tensors it is the plain version, with normals from a generator seeded by
-``seed``.
+``seed``. A buffer that is a block of a larger one (a rank's chains on a
+device mesh) passes its first element's global index ``offset`` and the
+larger buffer's size ``total``: it then draws the normals the whole buffer
+would draw there, on either path.
 """
 
 from __future__ import annotations
@@ -59,13 +62,18 @@ def sghmc_update(
     is_first_step: bool,
     seed: int,
     noise: torch.Tensor | None = None,
+    offset: int = 0,
+    total: int | None = None,
 ):
     """One SGHMC/SGLD step over flat buffers, in place. Returns
     ``(params, momentum_buf)``. With (K,) hyperparameters the buffers are
     (K, P) and row k takes config k's (one launch, K1's per-row table).
 
     ``noise`` (CPU only) supplies the standard normals, so a test can hand
-    in the JAX package's draw."""
+    in the JAX package's draw. ``offset`` and ``total`` (default: the
+    buffer's own size) place the buffer in a larger one of ``total``
+    elements: on the CPU the normals of all ``total`` are drawn and the
+    block's taken, so the block's noise is what the whole buffer's is."""
     scalars = sghmc_scalars(lr=lr, momentum=momentum, wd_over_n=wd_over_n,
                             n_train=n_train, noise_on=noise_on,
                             is_first_step=is_first_step, device=params.device)
@@ -73,10 +81,14 @@ def sghmc_update(
         if noise is not None:
             raise ValueError("the CUDA kernel draws its own normals; "
                              "noise= is for CPU tensors")
-        return sghmc_update_flat(params, momentum_buf, grads, scalars, seed)
+        return sghmc_update_flat(params, momentum_buf, grads, scalars, seed, offset)
     if noise is None:
+        n = params.numel()
+        total = n if total is None else int(total)
+        if not 0 <= offset <= total - n:
+            raise ValueError(f"a block of {n} at {offset} does not fit in {total}")
         gen = torch.Generator().manual_seed(int(seed) & (2 ** 63 - 1))
-        noise = torch.randn(params.shape, generator=gen)
+        noise = torch.randn(total, generator=gen)[offset: offset + n].view(params.shape)
     return sghmc_update_flat_reference(params, momentum_buf, grads, scalars, noise)
 
 

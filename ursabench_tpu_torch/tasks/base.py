@@ -42,6 +42,16 @@ def accumulate_split(ensemble: Ensemble, split, smooth_probs: bool):
     index 0 and the padded rows are sliced off at the end. Batch ``bi`` is
     passed to ``logits_all``, which keys the members' dropout streams.
 
+    An ensemble made on a device mesh is evaluated where it lies, as the
+    JAX package's ``shard_ensemble_eval`` lays it out: each rank sums its
+    own members on its rows of every batch (the batch split over 'data';
+    not for members with dropout streams, whose masks are drawn for the
+    whole batch: each data rank evaluates it all), and one all-reduce of
+    the zero-filled sums, over the chain ranks where the members are
+    sharded and over the data ranks where the rows are, gives each rank
+    the sums of the whole ensemble (``ensemble.gather()``'s, up to the
+    order of the sum).
+
     Adds the pass's seconds (to the host copy of its sums) to
     ``accumulate_split.seconds`` and its images to ``.images``."""
     t0 = time.perf_counter()
@@ -54,18 +64,25 @@ def accumulate_split(ensemble: Ensemble, split, smooth_probs: bool):
     if pad:
         idx = torch.cat([idx, torch.zeros(pad, dtype=idx.dtype, device=device)])
     idx = idx.view(nb, bsz)
+    mesh = ensemble.mesh
+    split_rows = mesh is not None and ensemble.dropout_seed is None
+    mine = mesh.data_rows(bsz) if split_rows else slice(0, bsz)  # this rank's rows
     acc_p = acc_e = None
     for bi in range(nb):
-        x = normalize(images.index_select(0, idx[bi]), split.spec)
+        x = normalize(images.index_select(0, idx[bi, mine]), split.spec)
         logits = ensemble.logits_all(x.permute(0, 3, 1, 2).contiguous(), bi)
         probs = softmax_probs(logits.to(torch.float32))
         smoothed = central_smoothing(probs)
         if acc_p is None:
             acc_p = torch.zeros(nb * bsz, probs.shape[-1], device=device)
             acc_e = torch.zeros(nb * bsz, device=device)
-        rows = slice(bi * bsz, (bi + 1) * bsz)
+        rows = slice(bi * bsz + mine.start, bi * bsz + mine.stop)
         acc_p[rows] = torch.sum(smoothed if smooth_probs else probs, dim=0)
         acc_e[rows] = torch.sum(predictive_entropy(smoothed), dim=0)
+    axis = {(True, True): "all", (True, False): "chain", (False, True): "data"}.get(
+        (ensemble.sharded, split_rows and mesh.shape["data"] > 1))
+    if axis is not None:
+        mesh.all_reduce_many([acc_p, acc_e], axis)
     out = acc_p[:n].cpu().numpy(), acc_e[:n].cpu().numpy()
     accumulate_split.seconds += time.perf_counter() - t0
     accumulate_split.images += n

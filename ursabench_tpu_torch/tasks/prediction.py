@@ -72,6 +72,7 @@ class Prediction(_Task):
 
     @torch.no_grad()
     def _accumulate_timed(self, models: Ensemble):
+        models = models.gather()  # every member on every rank: one latency a batch
         probs_chunks, ent_chunks = [], []
         for bi, (x, _) in enumerate(self.split.batches(models.device)):
             x = x.permute(0, 3, 1, 2).contiguous()

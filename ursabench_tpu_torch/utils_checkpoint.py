@@ -77,6 +77,9 @@ def load_variables(path: str, module: nn.Module) -> nn.Module:
 
 
 def save_ensemble(path: str, ensemble) -> None:
+    """Write the whole ensemble (gathered first when it was made on a device
+    mesh: a collective, so every rank calls it)."""
+    ensemble = ensemble.gather()
     tree = {"state": ensemble.state, "num_members": ensemble.num_members}
     if ensemble.dropout_seed is not None:
         tree["dropout_seed"] = np.asarray(ensemble.dropout_seed, np.int64)
