@@ -135,7 +135,7 @@ Phases, each ending with its seconds:
    uninterrupted run within 1e-6 of its largest weight (the largest
    difference printed); (e) `cli time` over the nine methods on
    MLP200MNIST / MNIST (10,000 train images, cut from 60,000), S=3, T cut
-   from 10 to 2 after 1 warm-up trial: every method's mean beside the
+   from 10 to 1 after 1 warm-up trial: every method's mean beside the
    torch-CPU baseline, K1 once a step of the SGHMC, SGLD, cSGHMC and cSGLD
    trials.
 15. host streaming and the rest of the profiling layer (stream): (a)
@@ -144,9 +144,9 @@ Phases, each ending with its seconds:
    HostStreamingSplit (M = 1) and chunked (M = 16): a warm-up epoch each,
    every streamed transfer of it compared on the card, after its step, with
    the host's gather of native.permutation(n, seed + epoch), then one timed
-   epoch each in the order resident, streamed, chunked, chunked, streamed,
-   resident: steps/s, streamed_pct_of_in_hbm, the host's time in the
-   stream and in ursa_stream_next a step, H2D GB/s; K1 once a step; three
+   epoch each in the order resident, streamed, chunked: steps/s,
+   streamed_pct_of_in_hbm, the host's time in the stream and in
+   ursa_stream_next a step, H2D GB/s; K1 once a step; three
    float32-mode batches equal to gather_normalize; (b) TVResNet-50 bf16 at
    224x224, batch 128, SGHMC streamed from a uint8 memmap of 4,096 synthetic
    images written under smoke_out/stream/ (cut from ImageNet's 1,281,167):
@@ -190,11 +190,22 @@ NCCL refuses two ranks on one device): PreResNet-20 SGHMC x2 chains on a
 (2, 1) mesh against one process of the same seed (||a - b|| / ||b|| at
 most 1e-5, TF32 off, cuDNN deterministic), Prediction on the sharded
 ensemble equal to the gathered one, MLP200MNIST on (1, 2) within rtol
-2e-4 / atol 1e-5 of one process with bit-equal replicas, K1 once a step on
-each rank; the seconds are two processes on one card, no scaling figure;
-(c) NCCL at a world size of 1 under ``torchrun --standalone``: one
-all-reduce, and ``cli run --mesh auto`` with the result keys of a run
-without torchrun; its JSON under smoke_out/mesh/.
+2e-4 / atol 1e-5 of one process with bit-equal replicas; HMC on
+MLP200MNIST (4,096 images): on (1, 2) the CE sum and gradient within 1e-5
+relative of one process, the same accepts, the draws within rtol 2e-4 /
+atol 1e-5, and two chains on (2, 1) against one process as above; PCA-ESS
+on PreResNet-20 (1,024 CIFAR-10 images) on (1, 2), its SWA phase on the
+data mesh: the log density within 1e-5 of the local-BN oracle (each half
+batch's own statistics), Prediction finite; PreResNet-20 streamed on (1, 2)
+per batch and in chunks of 16 (2,048 images) bit-equal to the resident
+sharded epoch on the stream's order, each rank's bytes a step half a
+batch's; SGHMC x2 on PreResNet-20 on (2, 1) checkpointed every 2 epochs,
+killed and resumed bit-equal, rank 0's file against one process's; K1 once
+a step on each rank; the seconds are two processes on one card, no scaling
+figure; (c) NCCL at a world size of 1 under ``torchrun --standalone``: one
+all-reduce, then ``cli run --mesh auto`` as it is and with ``--stream``
+(the result keys and values of runs without torchrun) and twice with
+``--checkpoint_path`` (the second resumes); its JSON under smoke_out/mesh/.
 Then a JSON line describing each kernel (its launches on the main path,
 K1's summed over the slice, the ImageNet slice, the samplers, the
 experiment, the hypopt, the hmc_ess, the stream, the chains and the mesh
@@ -283,7 +294,7 @@ SAMPLERS = {
     "SGD": (dict(hyperparameters=SGD_HYP), {}, 1, 3, 1),
     "DeepEnsemble": (dict(hyperparameters={**SGD_HYP, "epochs": 1, "num_members": 3}), {},
                      3, 2, 3),
-    "MCdropout": (dict(hyperparameters=MCD_HYP, model_name="WideResNet28x10"), {}, 4, 5, 1),
+    "MCdropout": (dict(hyperparameters=MCD_HYP), {}, 4, 5, 1),  # on the bf16 twin itself
     "SWA": (dict(hyperparameters=SWA_HYP, max_rank=3, pca_rank=2), {}, 3, 5, 1),
     "SWAG": (dict(hyperparameters=SWA_HYP, max_rank=3, pca_rank=2), {"full_cov": True},
              3, 5, 1),
@@ -344,15 +355,17 @@ HE_RESUME = {
                             "num_swag_iterates": 3, "rank": 2, "max_rank": 3,
                             "temperature": 100.0, "prior_std": 1.0}, 1, 2),
 }  # method -> (hyperparameters, checkpoint every, draws before the kill)
-# (e) cli time over the nine methods: S=3, T cut from 10 to 2 after 1 warm-up
-# trial, the train split from 60,000 images
-HE_TIME_T, HE_TIME_WARMUP, HE_TIME_TRAIN, HE_TIME_TEST = 2, 1, 10000, 2000
+# (e) cli time over the nine methods: S=3, T cut from 10 to 1 after 1 warm-up
+# trial (2 until the mesh phase grew), the train split from 60,000 images
+HE_TIME_T, HE_TIME_WARMUP, HE_TIME_TRAIN, HE_TIME_TEST = 1, 1, 10000, 2000
 HE_OUT = "smoke_out/hmc_ess"
 # the stream phase: (a) PreResNet-20 streamed per batch and in chunks of 16
 # (bench.py:146-148's chunk_batches), (b) TVResNet-50 from a memmap of
 # ST_IMAGENET_N images (cut from ImageNet's 1,281,167), (c) cli run --stream,
 # (d) export, (e) trace_dir
 STREAM_CHUNK = 16
+# (a)'s timed epochs, one a mode since the mesh phase grew (R S C C S R until then)
+ST_ORDER = ("resident", "streamed", "chunked")
 ST_IMAGENET_N = 4096
 ST_OUT = "smoke_out/stream"
 # the chains phase: one cut SGHMC epoch under scan and vmap at C chains, batch 128;
@@ -379,15 +392,33 @@ CH_OUT = "smoke_out/chains"
 # refuses two ranks on one device), PreResNet-20 SGHMC x2 chains over MESH_TRAIN
 # images on a (2, 1) mesh (one epoch, one draw: 4 steps) and MLP200MNIST x1 chain
 # over MESH_MLP_TRAIN images on a (1, 2) mesh, each against one process of the
-# same seed; (c) NCCL at a world size of 1 under torchrun
+# same seed; HMC on MLP200MNIST over MESH_MLP_TRAIN images on (1, 2) and (2, 1)
+# against one process; PCA-ESS on PreResNet-20 over MESH_PCA_TRAIN images on
+# (1, 2) against the local-BN oracle; PreResNet-20 streamed over (1, 2), per
+# batch and in chunks of STREAM_CHUNK, against the resident sharded epoch
+# (MESH_STREAM_TRAIN images: one chunk); PreResNet-20 SGHMC x2 on (2, 1)
+# checkpointed every 2 epochs, killed after 2, resumed; (c) NCCL at a world
+# size of 1 under torchrun, with cli run, --stream and --checkpoint_path
 MESH_TRAIN, MESH_MLP_TRAIN = 512, 4096
+MESH_PCA_TRAIN, MESH_STREAM_TRAIN = 1024, BATCH * STREAM_CHUNK
+MESH_HMC = {"step_size": 2e-4, "num_samples": 2, "L": 10, "tau": 100.0, "burn": 0,
+            "mass": 0.19}
+MESH_PCA = {"swag_lr": 0.02, "swag_wd": 5e-4, "lr_init": 0.05, "num_samples": 2,
+            "swag_momentum": 0.9, "swag_burn_in_epochs": 1, "num_swag_iterates": 2, "rank": 2,
+            "max_rank": 2, "temperature": 5000.0, "prior_std": 2.0}
+MESH_POTENTIAL = 1e-5  # HMC's CE sum and gradient on (1, 2) against one process, relative
+MESH_ORACLE = 1e-5  # PCA-ESS's log density on (1, 2) against the local-BN oracle, relative
 MESH_HYP = {"lr": 0.05, "prior_std": 1.0, "num_samples": 1, "alpha": 0.1, "burn_in_epochs": 0}
+MESH_CKPT_HYP = {**MESH_HYP, "num_samples": 2, "burn_in_epochs": 1}  # 3 epochs of 4 steps
 MESH_PRR_GAP = 1e-5  # PreResNet-20 on (2, 1) against one process: ||a - b|| / ||b||
 MESH_TIMEOUT = 300  # seconds for the two ranks, or for one torchrun command
 MESH_RUN = ["--dataset", "MNIST", "--model", "MLP200MNIST", "--inference_method", "SGLD",
             "--hyperparams", json.dumps({**MNIST_HYP, "num_samples": 2, "burn_in_epochs": 1}),
             "--synthetic_n_train", "4096", "--synthetic_n_test", "1024", "--num_trials", "1"]
 MESH_OUT = "smoke_out/mesh"
+MESH_TORCHRUN = {"plain": [], "stream": ["--stream"],
+                 "checkpoint": ["--checkpoint_path", f"{MESH_OUT}/torchrun_ck",
+                                "--checkpoint_every", "1"]}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1110,6 +1141,7 @@ def samplers_phase(device) -> dict:
           f"unexpected split {num_classes} {train.n} {test.n}")
     cfg = models.get_model("WideResNet28x10")
     build = lambda: cfg.build(WRN_CLASSES, dtype=torch.bfloat16)  # noqa: E731
+    twin = models.dropout_twin("WideResNet28x10")
     check(sum(p.numel() for p in build().parameters()) == WRN_FLAT, "WRN parameter count")
     x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
     x = x.permute(0, 3, 1, 2).contiguous()
@@ -1119,7 +1151,9 @@ def samplers_phase(device) -> dict:
     for name, (kw, sample_kw, members, epochs, chains) in SAMPLERS.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sampler = getattr(inference, name)(model=build(), train=train, seed=0, device=device,
+        module = (twin.build(WRN_CLASSES, dtype=torch.bfloat16) if name == "MCdropout"
+                  else build())
+        sampler = getattr(inference, name)(model=module, train=train, seed=0, device=device,
                                            **kw)
         ens = sampler.sample(**sample_kw)
         torch.cuda.synchronize()
@@ -2141,8 +2175,8 @@ def stream_cifar(device, splits) -> dict:
     """(a) PreResNet-20 / CIFAR-10 (50,000 images, batch 128, fp32, SGHMC, one
     chain), resident, streamed (M=1) and chunked (M=16): a warm-up epoch
     each (every streamed transfer checked byte for byte), then one timed
-    epoch each in the order resident, streamed, chunked, chunked, streamed,
-    resident; float32-mode batches against gather_normalize."""
+    epoch each in the order ``ST_ORDER``; float32-mode batches against
+    gather_normalize."""
     from ursabench_tpu_torch import inference, models
     from ursabench_tpu_torch.data import native
     from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
@@ -2157,16 +2191,18 @@ def stream_cifar(device, splits) -> dict:
         modes[name] = _stream_sampler(device, train, cfg.build(10), chunk)
     ms = {name: [] for name in modes}
     stats = {name: {} for name in modes}
-    for name in ("resident", "streamed", "chunked", "chunked", "streamed", "resident"):
+    for name in ST_ORDER:
         sampler = modes[name][0]
         ms[name].append(_timed_epoch(sampler, None if name == "resident" else stats[name]))
-    steps = sum(3 * m[0].train.num_batches for m in modes.values())
+    epochs = 1 + len(ST_ORDER) // len(modes)  # the warm-up and the timed ones, each mode
+    steps = sum(epochs * m[0].train.num_batches for m in modes.values())
     launches = sghmc_update_flat.launches
     check(launches == steps, f"stream (a): K1 launched {launches} times for {steps} steps")
     out = {"launches": launches}
     for name, (sampler, stream, checked) in modes.items():
         losses = [float(v) for v in sampler.epoch_losses]
-        check(len(losses) == 3 and all(map(math.isfinite, losses)), f"{name}: losses {losses}")
+        check(len(losses) == epochs and all(map(math.isfinite, losses)),
+              f"{name}: losses {losses}")
         sps = [1e3 / v for v in ms[name]]
         out[name] = {"steps_per_sec": sps, "steps": sampler.train.num_batches,
                      "checked_transfers": checked, "stats": stats[name], "losses": losses}
@@ -2174,8 +2210,9 @@ def stream_cifar(device, splits) -> dict:
             print(f"  {name} (M={stream.chunk_batches}): "
                   f"{' / '.join(f'{v:.1f}' for v in sps)} steps/s over {stream.num_batches} "
                   f"steps; {checked} transfers of the warm-up epoch byte-equal to the host's "
-                  f"gather; {_stream_line(stats[name], 2 * stream.num_batches)}", flush=True)
-    mean = {name: sum(out[name]["steps_per_sec"]) / 2 for name in modes}
+                  f"gather; {_stream_line(stats[name], (epochs - 1) * stream.num_batches)}",
+                  flush=True)
+    mean = {name: sum(out[name]["steps_per_sec"]) / (epochs - 1) for name in modes}
     out["streamed_pct_of_in_hbm"] = 100 * mean["streamed"] / mean["resident"]
     out["chunked_pct_of_in_hbm"] = 100 * mean["chunked"] / mean["resident"]
 
@@ -2192,13 +2229,15 @@ def stream_cifar(device, splits) -> dict:
         check(x.dtype == torch.float32 and torch.equal(x.cpu(), torch.from_numpy(wx))
               and torch.equal(y.cpu(), torch.from_numpy(wy).long()),
               f"float32 streamed batch {t} differs from gather_normalize")
-    print(f"  PreResNet-20 / CIFAR-10 bs{BATCH} fp32 SGHMC, steps/s in the order R S C C S R: "
+    print(f"  PreResNet-20 / CIFAR-10 bs{BATCH} fp32 SGHMC, steps/s in the order "
+          f"{' '.join(name[0].upper() for name in ST_ORDER)}: "
           f"resident {' / '.join(f'{v:.1f}' for v in out['resident']['steps_per_sec'])}, "
           f"streamed {' / '.join(f'{v:.1f}' for v in out['streamed']['steps_per_sec'])}, "
           f"chunked (M={STREAM_CHUNK}) "
           f"{' / '.join(f'{v:.1f}' for v in out['chunked']['steps_per_sec'])}; "
           f"streamed_pct_of_in_hbm {out['streamed_pct_of_in_hbm']:.1f}, chunked "
-          f"{out['chunked_pct_of_in_hbm']:.1f} (means of the two); K1 {launches} launches = "
+          f"{out['chunked_pct_of_in_hbm']:.1f} (means of the timed epochs); K1 {launches} "
+          f"launches = "
           f"{steps} steps; 3 float32-mode batches equal to gather_normalize", flush=True)
     return out
 
@@ -2716,11 +2755,13 @@ def _mesh_metrics(ens, split, num_classes) -> dict:
     return task.get_performance_metrics()
 
 
-def _mesh_work(device, chain_mesh, data_mesh) -> dict:
+def _mesh_work(device, chain_mesh, data_mesh, tmp: str) -> dict:
     """What the mesh phase runs on a rank, or in one process with both
     meshes None: PreResNet-20 SGHMC x2 chains (one draw after one epoch)
-    and its Prediction, sharded and gathered; MLP200MNIST SGHMC x1 chain.
-    K1's launches are counted."""
+    and its Prediction, sharded and gathered; MLP200MNIST SGHMC x1 chain;
+    HMC on MLP200MNIST; PreResNet-20 SGHMC x2 checkpointed and resumed;
+    on the ranks, PCA-ESS and the streamed epochs over the data mesh. K1's
+    launches are counted."""
     from ursabench_tpu_torch import data, inference, models
     from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN
     from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
@@ -2739,16 +2780,181 @@ def _mesh_work(device, chain_mesh, data_mesh) -> dict:
            "members": (ens.num_members, ens.local_members),
            "metrics": (_mesh_metrics(ens, splits["test"], c),
                        _mesh_metrics(full, splits["test"], c))}
-    splits, c = data.loaders("MNIST", None, batch_size=BATCH, use_validation=False,
-                             synthetic_n_train=MESH_MLP_TRAIN, synthetic_n_test=BATCH)
+    out["resume"] = _mesh_resume(device, splits["train"], c, chain_mesh, tmp)
+    mnist, c = data.loaders("MNIST", None, batch_size=BATCH, use_validation=False,
+                            synthetic_n_train=MESH_MLP_TRAIN, synthetic_n_test=BATCH)
     m = inference.SGHMC(MESH_HYP, model=models.get_model("MLP200MNIST").build(c),
-                        train=splits["train"], seed=1, device=device, mesh=data_mesh)
+                        train=mnist["train"], seed=1, device=device, mesh=data_mesh)
     m.sample()
+    out["mlp"] = m._state.params.cpu()
+    out["hmc"] = _mesh_hmc(device, mnist["train"], c, chain_mesh, data_mesh)
+    if data_mesh is not None:
+        out["pca"] = _mesh_pca(device, data_mesh)
+        out["stream"] = _mesh_stream(device, data_mesh)
+    _sync(device)
+    out.update(k1=sghmc_update_flat.launches, seconds=time.perf_counter() - t0)
+    return out
+
+
+def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize()
-    out.update(mlp=m._state.params.cpu(), k1=sghmc_update_flat.launches,
-               seconds=time.perf_counter() - t0)
+
+
+def _flat_members(ens) -> torch.Tensor:
+    """An ensemble's members (gathered) as the rows of one float64 matrix."""
+    state = ens.gather().state
+    n = next(iter(state.values())).shape[0]
+    return torch.cat([v.reshape(n, -1).double().cpu() for v in state.values()], 1)
+
+
+def _mesh_hmc(device, train, c, chain_mesh, data_mesh) -> dict:
+    """HMC on MLP200MNIST: on the data mesh (or one process) one chain's CE
+    sum and gradient at its init and its MESH_HMC draws; on the chain mesh
+    (or one process) two chains under scan."""
+    from ursabench_tpu_torch import inference, models
+
+    def hmc(chains, mesh):
+        return inference.HMC(MESH_HMC, model=models.get_model("MLP200MNIST").build(c),
+                             train=train, seed=2, chains=chains, device=device,
+                             chain_strategy="scan", mesh=mesh)
+
+    one = hmc(1, data_mesh)
+    ce = one._ce_sum(one._theta0[0].clone(), grad=True)
+    out = {"ce": float(ce), "grad": one._grads.detach().cpu().clone(),
+           "batches": tuple(one._batches.shape)}
+    out["one_chain"] = _flat_members(one.sample())
+    two = hmc(2, chain_mesh)
+    out["two_chains"] = _flat_members(two.sample())
+    out["accept"] = (one.accept_rate, two.accept_rate)
     return out
+
+
+@torch.no_grad()
+def _local_bn_lnpdf(sampler, theta, halves: int) -> float:
+    """The PCA-ESS log density of ``sampler`` at ``theta`` with each batch
+    split in ``halves`` by hand, on this process alone: each part's
+    train-mode forward with its own batch statistics, the cross entropy
+    masked as the sampler masks it (the oracle of a data mesh's local
+    BatchNorm)."""
+    import torch.nn.functional as F
+
+    from ursabench_tpu_torch.data.transforms import normalize
+    from ursabench_tpu_torch.inference.engine import _sharded_batches
+
+    swa, train = sampler.swa, sampler.train
+    module = swa._eval_module
+    swa._eval_params.copy_(sampler.subspace(theta))
+    module.train()
+    batches = _sharded_batches(train.n, train.batch_size, None, swa._images.device)
+    part = train.batch_size // halves
+    total = torch.zeros((), dtype=torch.float64, device=swa._images.device)
+    for b in batches:
+        valid, b = (b >= 0).to(torch.float32), b.clamp_min(0)
+        for h in range(halves):
+            rows = slice(h * part, (h + 1) * part)
+            x = normalize(swa._images.index_select(0, b[rows]), train.spec)
+            ce = F.cross_entropy(module(x.permute(0, 3, 1, 2).contiguous()).float(),
+                                 swa._labels.index_select(0, b[rows]), reduction="none")
+            total += torch.sum(ce * valid[rows]).double()
+    return float(-total / sampler.temperature)
+
+
+def _mesh_pca(device, data_mesh) -> dict:
+    """PCA-ESS on PreResNet-20 over MESH_PCA_TRAIN CIFAR-10 images on the
+    data mesh: the SWA phase data-parallel, MESH_PCA's draws, the log
+    density at the last draw against the local-BN oracle, Prediction."""
+    from ursabench_tpu_torch import data, inference, models
+    from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN
+
+    splits, c = data.loaders("CIFAR10", None, batch_size=BATCH, use_validation=False,
+                             transform_train=CIFAR_TRAIN, transform_test=CIFAR_TEST,
+                             synthetic_n_train=MESH_PCA_TRAIN, synthetic_n_test=2 * BATCH)
+    t0 = time.perf_counter()
+    p = inference.PCASubspaceSampler(MESH_PCA, model=models.get_model("PreResNet20").build(c),
+                                     train=splits["train"], seed=3, device=device,
+                                     mesh=data_mesh)
+    ens = p.sample()
+    theta = p.current_theta[0]
+    got = float(p.lnpdf(theta))
+    want = _local_bn_lnpdf(p, theta, data_mesh.shape["data"])
+    whole = _local_bn_lnpdf(p, theta, 1)
+    return {"lnpdf": got, "oracle": want, "whole": whole, "proposals": p.bracket_iters,
+            "swa_epochs": p.swa.epochs_run, "metrics": _mesh_metrics(ens, splits["test"], c),
+            "seconds": time.perf_counter() - t0}
+
+
+def _mesh_stream(device, data_mesh) -> dict:
+    """PreResNet-20 SGHMC over MESH_STREAM_TRAIN CIFAR-10 images on the data
+    mesh (crops, flips, the noise on): one epoch streamed from this rank's
+    rows per batch and in chunks of STREAM_CHUNK, each against the resident
+    sharded epoch driven by the stream's permutation with the same crops,
+    flips and noise seeds; each rank's bytes a step."""
+    from ursabench_tpu_torch import data, inference, models
+    from ursabench_tpu_torch.data import native
+    from ursabench_tpu_torch.data.transforms import CIFAR_TRAIN, draw_augment
+    from ursabench_tpu_torch.inference import engine
+
+    splits, c = data.loaders("CIFAR10", None, batch_size=BATCH, use_validation=False,
+                             transform_train=CIFAR_TRAIN, synthetic_n_train=MESH_STREAM_TRAIN,
+                             synthetic_n_test=BATCH)
+    train = splits["train"]
+
+    def sampler(split):
+        return inference.SGHMC(MESH_HYP, model=models.get_model("PreResNet20").build(c),
+                               train=split, seed=4, device=device, mesh=data_mesh)
+
+    b = sampler(train)
+    nb = train.n // BATCH
+    idx = torch.from_numpy(native.permutation(train.n, 7)).view(nb, BATCH).to(device)
+    engine.train_steps(
+        b._state, b._images, b._labels, idx, spec=train.spec, epoch=0,
+        noise_on=b._noise_gate.fill_(1.0), hyp=b._hyp, lr_fn=b._LR_FN, update_fn=b._UPDATE_FN,
+        seeds=torch.randint(0, 2 ** 63 - 1, (nb,), generator=b._noise_gen).tolist(),
+        aug=draw_augment(b._data_gens[0], (nb, BATCH), train.spec), mesh=data_mesh)
+    want = [b._state.params, b._state.momentum, *b.module.buffers()]
+    out = {}
+    for m in (1, STREAM_CHUNK):
+        stream = native.HostStreamingSplit(train.images, train.labels, BATCH, train.spec,
+                                           seed=7, chunk_batches=m, mesh=data_mesh)
+        a = sampler(stream)
+        _sync(device)
+        t0 = time.perf_counter()
+        a._run_epoch(noise_on=True)
+        _sync(device)
+        out[m] = {"equal": all(torch.equal(x, y) for x, y in zip(
+                      [a._state.params, a._state.momentum, *a.module.buffers()], want)),
+                  "bytes_per_step": stream.stats["bytes"] / nb, "steps": nb,
+                  "seconds": time.perf_counter() - t0, "params": a._state.params.cpu()}
+    out["batch_bytes"] = BATCH * (int(np.prod(train.images.shape[1:])) + 4)
+    return out
+
+
+def _mesh_resume(device, train, c, chain_mesh, tmp: str) -> dict:
+    """PreResNet-20 SGHMC x2 (chain mesh or one process), MESH_CKPT_HYP:
+    two draws uninterrupted; one draw (2 epochs) checkpointed every 2
+    epochs to ``tmp/ck.npz``, then a new sampler resumed from it and its
+    second draw; the file as rank 0 wrote it."""
+    from ursabench_tpu_torch import inference, models
+    from ursabench_tpu_torch.utils_checkpoint import load_pytree
+
+    def make():
+        return inference.SGHMC(MESH_CKPT_HYP, model=models.get_model("PreResNet20").build(c),
+                               train=train, seed=6, chains=2, device=device,
+                               chain_strategy="scan", mesh=chain_mesh)
+
+    path = f"{tmp}/ck.npz"
+    full = make()
+    want = [full.sample_iterative() for _ in range(2)][1]
+    part = make()
+    part.enable_auto_checkpoint(path, 2, resume=False)
+    part.sample_iterative()
+    res = make()
+    resumed = res.enable_auto_checkpoint(path, 2)
+    got = res.sample_iterative()
+    return {"resumed": resumed and res.epochs_run == 3,
+            "equal": all(torch.equal(got[k], want[k]) for k in want),
+            "file": load_pytree(path) if chain_mesh is None or chain_mesh.rank == 0 else None}
 
 
 def _mesh_rank(rank: int, store: str, out: str) -> None:
@@ -2767,7 +2973,7 @@ def _mesh_rank(rank: int, store: str, out: str) -> None:
     parallel.initialize(f"file://{store}", 2, rank, backend="gloo", timeout_s=120)
     try:
         chain_mesh, data_mesh = parallel.Mesh(2, 1), parallel.Mesh(1, 2)
-        res = _mesh_work(torch.device("cuda"), chain_mesh, data_mesh)
+        res = _mesh_work(torch.device("cuda"), chain_mesh, data_mesh, out)
         res["backend"] = dist.get_backend()
         torch.save(res, f"{out}/rank{rank}.pt")
     finally:
@@ -2804,7 +3010,8 @@ def _nccl_world1() -> int:
     """Under torchrun (one process): ``parallel.initialize()``, one NCCL
     all-reduce on the card (prints the backend, world and sum), then ``cli
     run --mesh auto`` in the same process group (its ``initialize()`` finds
-    the group made)."""
+    the group made): as it is, with ``--stream``, and twice with
+    ``--checkpoint_path`` (the second run resumes)."""
     import torch.distributed as dist
 
     from ursabench_tpu_torch import cli, parallel
@@ -2818,8 +3025,12 @@ def _nccl_world1() -> int:
                                       "world": dist.get_world_size(), "sum": t.tolist()}}),
           flush=True)
     try:
-        return cli.main(["run", *MESH_RUN, "--mesh", "auto", "--save_path",
-                         f"{MESH_OUT}/torchrun"])
+        for name, extra in MESH_TORCHRUN.items():
+            for _ in range(2 if name == "checkpoint" else 1):
+                if cli.main(["run", *MESH_RUN, "--mesh", "auto", *extra, "--save_path",
+                             f"{MESH_OUT}/torchrun_{name}"]):
+                    return 1
+        return 0
     finally:
         dist.destroy_process_group()
 
@@ -2836,25 +3047,32 @@ def _torchrun(args: list) -> str:
     return out.stdout
 
 
-def mesh_phase(device, row_len: int) -> dict:
-    """The device mesh on the one card: (a) K1 with a global offset; (b) two
-    ranks sharing the card as child processes against one process; (c)
-    NCCL at a world size of 1 and the runner under torchrun."""
-    import os
+def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    return _rel(a.double().reshape(-1), b.double().reshape(-1))
 
-    os.makedirs(MESH_OUT, exist_ok=True)
-    out = {"k1": k1_offset_check(device, row_len)}
 
-    torch.cuda.empty_cache()  # room for the two ranks' contexts beside this process
-    t0 = time.perf_counter()
-    ranks = _two_ranks()
-    two_s = time.perf_counter() - t0
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        one = _mesh_work(device, None, None)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+def _file_gap(a: dict, b: dict, path: str = "") -> float:
+    """The largest relative gap between two checkpoint files' float arrays;
+    their keys, shapes and every other array (generators, counters) equal,
+    or a failed check."""
+    check(sorted(a) == sorted(b), f"mesh: checkpoint keys {sorted(a)} != {sorted(b)}")
+    gap = 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, dict):
+            gap = max(gap, _file_gap(x, y, f"{path}{k}/"))
+            continue
+        check(x.shape == y.shape and x.dtype == y.dtype, f"mesh: checkpoint {path}{k} differs")
+        if x.dtype.kind == "f":
+            gap = max(gap, _rel_gap(torch.from_numpy(x), torch.from_numpy(y)))
+        else:
+            check(np.array_equal(x, y), f"mesh: checkpoint {path}{k} differs")
+    return gap
+
+
+def _mesh_checks(ranks: list, one: dict) -> dict:
+    """The two ranks against one process and against each other; returns
+    what the phase prints."""
     a, b = ranks[0]["preresnet"], one["preresnet"]
     gap = _rel(torch.cat([a[k].double().reshape(-1) for k in b]),
                torch.cat([b[k].double().reshape(-1) for k in b]))
@@ -2873,42 +3091,152 @@ def mesh_phase(device, row_len: int) -> dict:
                      - (1e-5 + 2e-4 * one["mlp"].abs())).max())
     check(mlp_gap <= 0, f"mesh: MLP200MNIST on (1, 2) outside rtol 2e-4, atol 1e-5 of one "
                         f"process (by {mlp_gap:.3g})")
+    # HMC: the potential on (1, 2), its draws, and two chains on (2, 1)
+    h, h1 = [r["hmc"] for r in ranks], one["hmc"]
+    ce_gap = abs(h[0]["ce"] - h1["ce"]) / abs(h1["ce"])
+    grad_gap = _rel_gap(h[0]["grad"], h1["grad"])
+    check(ce_gap <= MESH_POTENTIAL and grad_gap <= MESH_POTENTIAL,
+          f"mesh: HMC's potential on (1, 2) {ce_gap:.3g} / gradient {grad_gap:.3g} from one "
+          f"process (limit {MESH_POTENTIAL})")
+    check(h[0]["batches"] == (1, MESH_MLP_TRAIN // 2) and h1["batches"] == (1, MESH_MLP_TRAIN),
+          f"mesh: HMC batches {h[0]['batches']} / {h1['batches']}")
+    flags = [[bool((t[i + 1] != t[i]).any()) for i in range(t.shape[0] - 1)]
+             for t in (h[0]["one_chain"], h1["one_chain"])]
+    check(flags[0] == flags[1] and h[0]["accept"][0] == h1["accept"][0],
+          f"mesh: HMC accepts on (1, 2) {flags[0]} vs one process {flags[1]}")
+    hmc_gap = float(((h[0]["one_chain"] - h1["one_chain"]).abs()
+                     - (1e-5 + 2e-4 * h1["one_chain"].abs())).max())
+    check(hmc_gap <= 0 and torch.equal(h[0]["one_chain"], h[1]["one_chain"]),
+          f"mesh: HMC draws on (1, 2) outside rtol 2e-4, atol 1e-5 of one process (by "
+          f"{hmc_gap:.3g}) or replicas differ")
+    hmc2_gap = _rel_gap(h[0]["two_chains"], h1["two_chains"])
+    check(hmc2_gap <= MESH_PRR_GAP and h[0]["accept"][1] == h1["accept"][1],
+          f"mesh: HMC x2 on (2, 1) {hmc2_gap:.3g} from one process")
+    # PCA-ESS on (1, 2) against the local-BN oracle
+    pca = ranks[0]["pca"]
+    oracle_gap = abs(pca["lnpdf"] - pca["oracle"]) / abs(pca["oracle"])
+    check(oracle_gap <= MESH_ORACLE and ranks[1]["pca"]["lnpdf"] == pca["lnpdf"],
+          f"mesh: PCA-ESS log density on (1, 2) {pca['lnpdf']} vs local-BN oracle "
+          f"{pca['oracle']} ({oracle_gap:.3g})")
+    _metrics_finite("mesh PCA-ESS", pca["metrics"])
+    # streamed epochs on (1, 2)
+    for m in (1, STREAM_CHUNK):
+        st = [r["stream"][m] for r in ranks]
+        check(all(x["equal"] for x in st) and torch.equal(st[0]["params"], st[1]["params"]),
+              f"mesh: streamed epoch (M={m}) on (1, 2) differs from the resident sharded "
+              "epoch or between replicas")
+        check(all(x["bytes_per_step"] == ranks[0]["stream"]["batch_bytes"] / 2 for x in st),
+              f"mesh: streamed bytes a step {[x['bytes_per_step'] for x in st]}, not half a "
+              f"batch's {ranks[0]['stream']['batch_bytes']}")
+    # checkpoints on (2, 1)
+    for r in ranks + [one]:
+        check(r["resume"]["resumed"] and r["resume"]["equal"],
+              f"mesh: SGHMC x2 resume {r['resume']['resumed']} / {r['resume']['equal']}")
+    file_gap = _file_gap(ranks[0]["resume"]["file"], one["resume"]["file"])
+    check(file_gap <= MESH_PRR_GAP, f"mesh: the (2, 1) checkpoint {file_gap:.3g} from one "
+                                    "process's")
+    return {"gap": gap, "metrics_max_abs": worst, "hmc_ce_gap": ce_gap,
+            "hmc_grad_gap": grad_gap, "hmc_accepts": flags[0],
+            "hmc2_gap": hmc2_gap, "pca": {k: pca[k] for k in ("lnpdf", "oracle", "whole",
+                                                              "proposals", "seconds")},
+            "oracle_gap": oracle_gap, "file_gap": file_gap,
+            "stream": {m: [{k: r["stream"][m][k] for k in ("bytes_per_step", "seconds")}
+                           for r in ranks] for m in (1, STREAM_CHUNK)}}
+
+
+def mesh_phase(device, row_len: int) -> dict:
+    """The device mesh on the one card: (a) K1 with a global offset; (b) two
+    ranks sharing the card as child processes against one process; (c)
+    NCCL at a world size of 1 and the runner under torchrun."""
+    import glob
+    import os
+
+    os.makedirs(f"{MESH_OUT}/one", exist_ok=True)
+    out = {"k1": k1_offset_check(device, row_len)}
+
+    torch.cuda.empty_cache()  # room for the two ranks' contexts beside this process
+    t0 = time.perf_counter()
+    ranks = _two_ranks()
+    two_s = time.perf_counter() - t0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = _mesh_work(device, None, None, f"{MESH_OUT}/one")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    got = _mesh_checks(ranks, one)
     steps = MESH_TRAIN // BATCH + MESH_MLP_TRAIN // BATCH
-    check(all(r["k1"] == steps for r in ranks) and one["k1"] == steps,
-          f"mesh: K1 launches {[r['k1'] for r in ranks]} / {one['k1']}, expected {steps} each")
+    resume_steps = (3 + 2 + 1) * MESH_TRAIN // BATCH  # uninterrupted, killed, resumed
+    stream_steps = 3 * MESH_STREAM_TRAIN // BATCH  # resident, per batch, chunked
+    want = [steps + resume_steps + stream_steps] * 2 + [steps + resume_steps]
+    check([r["k1"] for r in ranks] + [one["k1"]] == want,
+          f"mesh: K1 launches {[r['k1'] for r in ranks]} / {one['k1']}, expected {want}")
+    pca, st = got["pca"], got["stream"]
     print(f"  (b) two processes sharing one card ({ranks[0]['backend']} on CUDA tensors: NCCL "
           f"refuses two ranks on one device), {two_s:.1f} s for both ranks (start-up "
           f"included; not a scaling figure), {ranks[0]['seconds']:.1f} / "
           f"{ranks[1]['seconds']:.1f} s of work, one process {one['seconds']:.1f} s: "
-          f"PreResNet-20 x2 chains on (2, 1) {gap:.3g} from one process (limit "
+          f"PreResNet-20 x2 chains on (2, 1) {got['gap']:.3g} from one process (limit "
           f"{MESH_PRR_GAP}, TF32 off, cudnn deterministic); Prediction sharded vs gathered "
-          f"max |d| {worst:.3g}; MLP200MNIST on (1, 2) within rtol 2e-4 / atol 1e-5, replicas "
-          f"bit-equal; K1 {steps} launches a rank", flush=True)
-    out["two_ranks"] = {"seconds": two_s, "gap": gap, "metrics_max_abs": worst,
-                        "k1": [r["k1"] for r in ranks] + [one["k1"]]}
+          f"max |d| {got['metrics_max_abs']:.3g}; MLP200MNIST on (1, 2) within rtol 2e-4 / "
+          f"atol 1e-5, replicas bit-equal", flush=True)
+    print(f"      HMC on MLP200MNIST: (1, 2) potential {got['hmc_ce_gap']:.3g} / gradient "
+          f"{got['hmc_grad_gap']:.3g} from one process (limit {MESH_POTENTIAL}), accepts "
+          f"{got['hmc_accepts']} as one process's; x2 on (2, 1) {got['hmc2_gap']:.3g} from "
+          f"one process. PCA-ESS on PreResNet-20 (1, 2), SWA on the data mesh: log density "
+          f"{pca['lnpdf']:.6f} vs the local-BN oracle {pca['oracle']:.6f} "
+          f"({got['oracle_gap']:.3g}; whole-batch statistics {pca['whole']:.6f}), proposals "
+          f"{pca['proposals']}, {pca['seconds']:.1f} s", flush=True)
+    print(f"      streamed PreResNet-20 on (1, 2) bit-equal to the resident sharded epoch, "
+          f"replicas bit-equal: bytes a step a rank "
+          + ", ".join(f"M={m} {st[m][0]['bytes_per_step']:.0f} / "
+                      f"{st[m][1]['bytes_per_step']:.0f} ({st[m][0]['seconds']:.2f} / "
+                      f"{st[m][1]['seconds']:.2f} s an epoch of "
+                      f"{MESH_STREAM_TRAIN // BATCH} steps)" for m in st)
+          + f", half of a batch's {ranks[0]['stream']['batch_bytes']}; SGHMC x2 on (2, 1) "
+          f"killed after 2 epochs and resumed bit-equal, its file {got['file_gap']:.3g} from "
+          f"one process's; K1 {want} launches (ranks, one process)", flush=True)
+    out["two_ranks"] = {"seconds": two_s, "k1": [r["k1"] for r in ranks] + [one["k1"]],
+                        **{k: v for k, v in got.items() if k != "stream"},
+                        "stream": got["stream"]}
 
     t0 = time.perf_counter()
-    lines = [json.loads(line) for line in _torchrun([__file__, "--nccl_world1"]).splitlines()
+    for stale in glob.glob(f"{MESH_OUT}/torchrun_ck*"):  # the first run must not resume
+        os.remove(stale)
+    stdout = _torchrun([__file__, "--nccl_world1"])
+    lines = [json.loads(line) for line in stdout.splitlines()
              if line.startswith('{"nccl_world1"')]
     check(len(lines) == 1 and lines[0]["nccl_world1"]["backend"] == "nccl"
           and lines[0]["nccl_world1"]["sum"] == [2.5] * 4, f"mesh: NCCL at world 1: {lines}")
+    resumed = re.findall(r"resumed chain at epoch \d+", stdout)
+    check(len(resumed) == 1, f"mesh: the second --checkpoint_path run printed {resumed}")
     runs: list = []
-    _, launches = _run_cli(MESH_RUN + ["--save_path", f"{MESH_OUT}/plain"], runs)
-    with np.load(f"{MESH_OUT}/torchrun_tests.npz") as f1, \
-            np.load(f"{MESH_OUT}/plain_tests.npz") as f2:
-        keys = sorted(f1.files)
-        check(keys == sorted(f2.files), f"mesh: torchrun keys {keys} != {sorted(f2.files)}")
-        check(all(np.isfinite(f1[k]).all() for k in keys), "mesh: torchrun results not finite")
-        diff = max(float(abs(f1[k] - f2[k])) for k in keys)
-    check(diff == 0, f"mesh: cli run under torchrun differs from a run without it by {diff:.3g} "
-                     "(one process, one card, the same seed)")
+    launches = 0
+    diffs = {}
+    for name in ("plain", "stream"):
+        _, n = _run_cli(MESH_RUN + MESH_TORCHRUN[name] + ["--save_path",
+                                                        f"{MESH_OUT}/{name}"], runs)
+        launches += n
+        with np.load(f"{MESH_OUT}/torchrun_{name}_tests.npz") as f1, \
+                np.load(f"{MESH_OUT}/{name}_tests.npz") as f2:
+            keys = sorted(f1.files)
+            check(keys == sorted(f2.files), f"mesh: torchrun keys {keys} != {sorted(f2.files)}")
+            check(all(np.isfinite(f1[k]).all() for k in keys),
+                  f"mesh: torchrun {name} results not finite")
+            diffs[name] = max(float(abs(f1[k] - f2[k])) for k in keys)
+        check(diffs[name] == 0, f"mesh: cli run {MESH_TORCHRUN[name]} under torchrun differs "
+                                f"from a run without it by {diffs[name]:.3g} (one process, "
+                                "one card, the same seed)")
+    with np.load(f"{MESH_OUT}/torchrun_checkpoint_tests.npz") as f:
+        check(all(np.isfinite(f[k]).all() for k in f.files),
+              "mesh: torchrun --checkpoint_path results not finite")
     nccl_s = time.perf_counter() - t0
     print(f"  (c) NCCL at world 1 under torchrun --standalone --nproc_per_node 1: all-reduce "
-          f"{lines[0]['nccl_world1']}, then cli run --mesh auto in that process group: the "
-          f"{len(keys)} result keys and values of a run without it (largest difference "
-          f"{diff:.3g}; a world of 1 builds no mesh); "
-          f"{nccl_s:.1f} s", flush=True)
-    out["nccl"] = {"seconds": nccl_s, "keys": len(keys), "max_diff": diff}
+          f"{lines[0]['nccl_world1']}, then cli run --mesh auto in that process group, as it "
+          f"is and with --stream: the {len(keys)} result keys and values of runs without it "
+          f"(largest differences {diffs}; a world of 1 builds no mesh); with "
+          f"--checkpoint_path twice, the second {resumed[0]}; {nccl_s:.1f} s", flush=True)
+    out["nccl"] = {"seconds": nccl_s, "keys": len(keys), "max_diff": diffs}
     out["launches"] = sum(r["k1"] for r in ranks) + one["k1"] + launches
     with open(f"{MESH_OUT}/mesh_phase.json", "w") as f:
         json.dump(out, f, indent=1, default=str)

@@ -11,6 +11,7 @@ tests/test_mcmc_correctness.py and the float64 oracles of the
 difference-form log ratio."""
 
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -256,8 +257,10 @@ def test_tf32_is_off_inside_the_potential_and_restored_after():
 def test_refusals():
     _, ts_, c = _splits()
     model = tmodels.get_model("MLP200MNIST").build(c)
-    with pytest.raises(NotImplementedError, match="open item 15"):
-        hmc.HMC(HYP, model=model, train=ts_["train"], device="cpu", mesh=object())
+    # a chain axis that does not divide the chains (a mesh's shape, without a world)
+    mesh = types.SimpleNamespace(size=2, shape={"chain": 2, "data": 1})
+    with pytest.raises(ValueError, match="do not split over a chain axis of 2"):
+        hmc.HMC(HYP, model=model, train=ts_["train"], device="cpu", chains=3, mesh=mesh)
     vmapped = hmc.HMC(HYP, model=model, train=ts_["train"], device="cpu", chains=2,
                       chain_strategy="vmap")
     assert vmapped._resolved_chain_strategy == "vmap"

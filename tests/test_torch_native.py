@@ -36,11 +36,23 @@ def _code(path):
 
 
 def test_library_builds_from_the_ports_own_copy_of_dataio():
-    """``csrc/dataio.cc`` is ``native/dataio.cc``'s code, line for line (one
-    comment differs: it names the reference file without a checkout path)."""
-    assert _code(native.SOURCE) == _code(ROOT / "native" / "dataio.cc")
+    """``csrc/dataio.cc`` holds ``native/dataio.cc``'s code, every line in
+    its order (one comment differs: it names the reference file without a
+    checkout path), with the version raised to 5; what it adds is the data
+    rank's row window (``window_order``, ``ursa_stream_window``: 42 lines
+    of code)."""
+    ref = [line.replace("return 4;", "return 5;") if "ursa_dataio_version" in line else line
+           for line in _code(ROOT / "native" / "dataio.cc")]
+    port = _code(native.SOURCE)
+    rest = iter(port)
+    assert all(line in rest for line in ref), "the reference's code is not kept in order"
+    added = list(port)
+    for line in ref:
+        added.remove(line)
+    assert any("ursa_stream_window" in line for line in added)
+    assert len(added) == 42
     lib = native.load_library()
-    assert lib.ursa_dataio_version() == native.DATAIO_VERSION == 4
+    assert lib.ursa_dataio_version() == native.DATAIO_VERSION == 5
     path = build.library_path(native.SOURCE)
     assert path.exists() and path.parent == build.BUILD_DIR
     assert path.name.startswith("libdataio-")

@@ -20,6 +20,7 @@ and handed to the ranks as numpy arrays; no sharded JAX program runs here.
 """
 
 import copy
+import importlib
 import json
 import multiprocessing as mp
 import os
@@ -78,15 +79,19 @@ def _no_synth_cache(monkeypatch):
 # -- spawning a world of ranks ---------------------------------------------------------
 
 def _rank_main(case: str, rank: int, world: int, tmp: str, args: tuple) -> None:
-    """One rank: join the world, run ``case(*args)``, pickle its result to
-    ``rank<r>.pkl`` (a traceback to ``rank<r>.err`` on failure)."""
+    """One rank: join the world, run ``case(*args)`` (a function of this
+    module, or ``"module:function"`` of another test module), pickle its
+    result to ``rank<r>.pkl`` (a traceback to ``rank<r>.err`` on
+    failure)."""
     os.environ["URSA_SYNTH_CACHE"] = "0"
     torch.set_num_threads(1)
     tmp = pathlib.Path(tmp)
     try:
         parallel.initialize(f"file://{tmp / 'store'}", world, rank, backend="gloo",
                             timeout_s=60)
-        out = globals()[case](*args)
+        module, _, name = case.rpartition(":")
+        fn = getattr(importlib.import_module(module), name) if module else globals()[name]
+        out = fn(*args)
         with open(tmp / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
     except BaseException:
@@ -385,7 +390,7 @@ def test_update_hyp_over_the_mesh_rebuilds_nothing(world4):
 
 def _case_world2(jax_start, jax_perm, tmp: str) -> dict:
     """(1, 2): the JAX parity epoch, SWA, PreResNet-8 with BatchNorm, crop
-    and flip, dropout streams, MCdropout, the runner and the refusals."""
+    and flip, dropout streams, MCdropout and the runner."""
     out = {}
     mesh = parallel.make_mesh(chain_devices=1)
     splits, c = _mnist()
@@ -433,40 +438,7 @@ def _case_world2(jax_start, jax_perm, tmp: str) -> dict:
     finally:
         torch.distributed.new_group = new_group
     out["run_groups"] = len(groups)
-    refusals = {}
-    for name, call in (
-            ("HMC", lambda: experiment.main(RUN_ARGV + ["--inference_method", "HMC"],
-                                            device="cpu")),
-            ("PCA", lambda: tinference.PCASubspaceSampler(None, model=_mlp(c),
-                                                          train=splits["train"],
-                                                          device="cpu", mesh=mesh)),
-            ("stream", lambda: tinference.SGLD(RUN_HYP, model=_mlp(c),
-                                               train=_stream(splits), device="cpu",
-                                               mesh=mesh)),
-            ("checkpoint", lambda: _sghmc(splits, c, chains=1, seed=0, mesh=mesh)
-             .enable_auto_checkpoint(str(pathlib.Path(tmp) / "ck.npz")))):
-        try:
-            call()
-            refusals[name] = None
-        except NotImplementedError as e:
-            refusals[name] = str(e)
-    out["refusals"] = refusals
     return out
-
-
-class _StreamLike:
-    """What the epoch samplers read of a ``HostStreamingSplit`` before its
-    first epoch: a split with ``epoch`` streams from the host."""
-
-    def __init__(self, split):
-        self.n, self.batch_size, self.spec = split.n, split.batch_size, split.spec
-
-    def epoch(self, device):
-        raise AssertionError("not reached: the sampler refuses the mesh first")
-
-
-def _stream(splits):
-    return _StreamLike(splits["train"])
 
 
 def _bn_sampler(mesh=None):
@@ -637,13 +609,6 @@ def test_runner_over_two_ranks(world2, tmp_path):
             tol = (dict(rtol=0, atol=2e-3) if "model_uncertainty_auc" in k
                    else dict(rtol=2e-4, atol=1e-5))
             np.testing.assert_allclose(r["run"][k], v, err_msg=k, **tol)
-
-
-def test_unported_paths_over_a_mesh_name_their_sub_slice(world2):
-    for r in world2[0]:
-        got = r["refusals"]
-        assert "open item 15c" in got["HMC"] and "open item 15c" in got["PCA"]
-        assert "open item 15e" in got["stream"] and "open item 15f" in got["checkpoint"]
 
 
 # -- one process: layouts, K1's blocks, refusals ---------------------------------------------

@@ -296,6 +296,38 @@ def test_mcdropout_members_share_weights_and_differ():
     assert not torch.allclose(a, ens.logits_all(x, 1))  # and each batch
 
 
+def test_mcdropout_twin_takes_the_registrys_dtype_as_in_jax():
+    """With ``model_name`` the ``_dropout`` twin is built without the base
+    module's compute dtype, as the JAX package builds it
+    (``ursabench_tpu/inference/sgd_map.py:189-194``): a bf16 base gives a
+    float32 twin on both sides. Its first epoch, from JAX's weights over
+    JAX's permutation, then equals the JAX twin's to 1e-5, and the loss to
+    1e-5 (a bf16 twin misses by 5e-3). Dropout is at rate 0 on both sides
+    for the epoch: the masks come from streams that cannot match."""
+    hyp = {"lr": 0.05, "epochs": 1, "dropout": 0.2, "lengthscale": 0.01,
+           "num_samples": 2, "momentum": 0.9, "weight_decay": 0}
+    js_, ts_, c = _splits()
+    js = jsgd.MCdropout(hyp, model=jmodels.get_model("MLP200MNIST").build(c, dtype=jnp.bfloat16),
+                        train=js_["train"], model_name="MLP200MNIST", key=jax.random.PRNGKey(2))
+    ts = sgd_map.MCdropout(hyp, model=tmodels.get_model("MLP200MNIST").build(
+        c, dtype=torch.bfloat16), train=ts_["train"], device="cpu", model_name="MLP200MNIST")
+    assert js.module.dtype is None and ts.module.dtype is None
+    assert js.module.dropout == ts.module.drop1.p == 0.2
+    js.module, js._epoch_fn = js.module.clone(dropout=0.0), None
+    js._setup(hyp)
+    ts.module.drop1 = ts.module.drop2 = None
+    ts._has_dropout = False
+    start, perm = _start(js), _perm(js._state.key, 96)
+    js._state, loss_j = js._epoch_fn(js._state, jnp.float32(0.0), jnp.float32(0.0),
+                                     js._hyp_scalars)
+    params_from_jax(ts.module, start)
+    loss_t = _run_port_epoch(ts, [perm])
+    assert float(loss_t) == pytest.approx(float(loss_j), abs=1e-5)
+    _assert_module_equals(ts.module, _start(js), "MLP200MNIST")
+    moved = params_from_jax(tmodels.get_model("MLP200MNIST").build(c), start)
+    assert float((ts._state.params - engine.flatten_parameters(moved)[0]).abs().max()) > 1e-3
+
+
 def _collect_both(js, ts, perm, rng, k, collect_j, collect_t):
     """Feed k random iterates, drawn in JAX's order, to both samplers."""
     unravel = jutil.unraveler(js._state.params)

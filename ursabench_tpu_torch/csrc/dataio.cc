@@ -44,6 +44,9 @@ struct UrsaStream {
                     // normalizes — same order as the in-HBM epoch path)
   float scale[16], bias[16];
   std::vector<int64_t> order;
+  // a data rank's row window (ursa_stream_window): rows [lo, lo + len) of
+  // every sub-batch of sub rows; sub == 0 streams every row
+  int64_t sub = 0, lo = 0, len = 0;
   std::vector<Slot> ring;
   int64_t produced = 0, consumed = 0;
   bool stop = false;
@@ -76,6 +79,19 @@ void fill_slot(UrsaStream* s, Slot* slot, int64_t bi) {
     slot->y[b] = static_cast<int32_t>(s->labels[idx[b]]);
   }
   slot->batch_index = bi;
+}
+
+// Keep the row window of every sub-batch in the order, in place: entry
+// k * len + r becomes entry k * sub + lo + r (never ahead of the entry it
+// reads), so transfer bi's rows start at bi * batch as without a window.
+void window_order(UrsaStream* s) {
+  if (s->sub == 0) return;
+  const int64_t subs = s->num_batches * (s->batch / s->len);
+  for (int64_t k = 0; k < subs; ++k) {
+    for (int64_t r = 0; r < s->len; ++r) {
+      s->order[k * s->len + r] = s->order[k * s->sub + s->lo + r];
+    }
+  }
 }
 
 void worker_loop(UrsaStream* s) {
@@ -294,8 +310,45 @@ void ursa_stream_reset(void* handle, uint64_t seed, int32_t shuffle) {
   if (!shuffle) {
     for (int64_t i = 0; i < s->n; ++i) s->order[i] = i;
   }
+  window_order(s);
   for (auto& slot : s->ring) slot.batch_index = -1;
   s->worker = std::thread(worker_loop, s);
+}
+
+// Stream only a data rank's rows: of every sub-batch of `sub` rows of a
+// transfer (a global batch), rows [lo, lo + len), so a transfer of `batch`
+// rows delivers batch / sub * len of them, for the same number of
+// transfers. Stops the worker, shrinks the slots and rewinds the stream
+// for `seed` (ursa_stream_reset). Returns 0, or -1 (the stream unchanged)
+// for a window that does not fit or a stream that has one already.
+int32_t ursa_stream_window(void* handle, int64_t sub, int64_t lo, int64_t len,
+                           uint64_t seed, int32_t shuffle) {
+  auto* s = static_cast<UrsaStream*>(handle);
+  if (s->sub != 0 || sub <= 0 || s->batch % sub != 0 || lo < 0 || len <= 0 ||
+      lo + len > sub) {
+    return -1;
+  }
+  {
+    std::lock_guard<std::mutex> lk(s->mu);
+    s->stop = true;
+  }
+  s->cv_space.notify_all();
+  if (s->worker.joinable()) s->worker.join();
+  s->sub = sub;
+  s->lo = lo;
+  s->len = len;
+  s->batch = s->batch / sub * len;
+  const int64_t item_bytes = s->item_pixels * s->channels;
+  for (auto& slot : s->ring) {
+    if (s->u8) {
+      slot.x8.resize(s->batch * item_bytes);
+    } else {
+      slot.x.resize(s->batch * item_bytes);
+    }
+    slot.y.resize(s->batch);
+  }
+  ursa_stream_reset(handle, seed, shuffle);
+  return 0;
 }
 
 void ursa_stream_destroy(void* handle) {
@@ -309,6 +362,6 @@ void ursa_stream_destroy(void* handle) {
   delete s;
 }
 
-int32_t ursa_dataio_version() { return 4; }
+int32_t ursa_dataio_version() { return 5; }
 
 }  // extern "C"

@@ -2,9 +2,10 @@
 ``HostStreamingSplit``, the train split for datasets too large for the card.
 
 Counterpart of ``ursabench_tpu/data/native.py``. ``csrc/dataio.cc`` is the
-JAX package's ``native/dataio.cc``, byte for byte: a seeded Fisher-Yates
-permutation (mt19937_64), the batch gathers, and a prefetch stream whose
-C++ worker thread gathers batch i+1 while Python dispatches batch i. The
+JAX package's ``native/dataio.cc`` plus a data rank's row window
+(``ursa_stream_window``, version 5): a seeded Fisher-Yates permutation
+(mt19937_64), the batch gathers, and a prefetch stream whose C++ worker
+thread gathers batch i+1 while Python dispatches batch i. The
 library is built with the host's C++ compiler at first use
 (``kernels/build.py``); a failed build raises, and nothing falls back to
 numpy when the library is missing.
@@ -35,7 +36,7 @@ import torch
 from ..kernels.build import CSRC, load
 
 SOURCE = CSRC / "dataio.cc"
-DATAIO_VERSION = 4  # ursa_dataio_version() of csrc/dataio.cc
+DATAIO_VERSION = 5  # ursa_dataio_version() of csrc/dataio.cc
 _STAGE_DEPTH = 2
 _MAX_AFFINE_CHANNELS = 16  # dataio.cc's per-channel tables in float32 mode
 
@@ -58,6 +59,7 @@ _SIGNATURES = {
     "ursa_stream_next_u8": ([ctypes.c_void_p, _u8p, _i32p], _i64),
     "ursa_stream_num_batches": ([ctypes.c_void_p], _i64),
     "ursa_stream_reset": ([ctypes.c_void_p, _u64, _i32], None),
+    "ursa_stream_window": ([ctypes.c_void_p, _i64, _i64, _i64, _u64, _i32], _i32),
     "ursa_stream_destroy": ([ctypes.c_void_p], None),
     "ursa_dataio_version": ([], _i32),
 }
@@ -158,13 +160,24 @@ class HostStreamingSplit:
     the wait, the slot's release, the copies' launch) and, on a GPU, the
     copy stream's seconds (``copy_s``, from CUDA events around each
     transfer's two copies, their launch included; read at the end of each
-    epoch)."""
+    epoch).
+
+    On a data mesh (``mesh``, a ``parallel.Mesh`` with a chain axis of 1,
+    or ``data=(data_idx, data)``) the split streams one data rank's share:
+    its ``mesh.data_rows(batch_size)`` rows of every global batch of the
+    same permutation, gathered and copied by ``dataio.cc`` (its row
+    window), so a transfer moves 1/data of a batch (of each of a chunk's M
+    batches). ``batch_size`` and ``num_batches`` stay the global batch's;
+    ``local_batch`` is the rows a rank receives. A chain axis above 1, or a
+    batch the data axis does not divide, raises ValueError (the JAX
+    package's conditions)."""
 
     _handle = None  # the C++ stream, made at the first epoch
 
     def __init__(self, images: np.ndarray, labels: np.ndarray, batch_size: int, spec,
                  shuffle: bool = True, seed: int = 0, transfer_dtype: str = "uint8",
-                 chunk_batches: int = 1, stage_depth: int = _STAGE_DEPTH):
+                 chunk_batches: int = 1, stage_depth: int = _STAGE_DEPTH, mesh=None,
+                 data: Optional[Tuple[int, int]] = None):
         if transfer_dtype not in ("uint8", "float32"):
             raise ValueError(f"transfer_dtype must be 'uint8' or 'float32', got {transfer_dtype!r}")
         if images.ndim != 4 or images.dtype != np.uint8:
@@ -180,6 +193,20 @@ class HostStreamingSplit:
         self.transfer_dtype = transfer_dtype
         self.chunk_batches = chunk_batches
         self.stage_depth = stage_depth
+        if mesh is not None:
+            if data is not None:
+                raise ValueError("pass a mesh or data=(data_idx, data), not both")
+            if mesh.shape["chain"] != 1:
+                raise ValueError("streamed epochs shard over 'data' only: the mesh's chain "
+                                 f"axis must be 1, got {mesh.shape}")
+            data = (mesh.data_idx, mesh.shape["data"])
+        data_idx, shards = (0, 1) if data is None else (int(data[0]), int(data[1]))
+        if not 0 <= data_idx < shards:
+            raise ValueError(f"data rank {data_idx} of {shards}")
+        if batch_size % shards:
+            raise ValueError(f"a batch of {batch_size} does not split over {shards} data ranks")
+        self.data_layout = (data_idx, shards)
+        self.local_batch = batch_size // shards
         self.epochs_started = 0
         self.stats = {"transfers": 0, "bytes": 0, "wait_s": 0.0, "host_s": 0.0, "copy_s": 0.0}
         self._handle_refs = None  # the library and the arrays the C++ stream reads
@@ -204,14 +231,25 @@ class HostStreamingSplit:
             self._handle_refs[0].ursa_stream_destroy(handle)
 
     def _rows(self) -> int:
+        """The global rows a transfer covers."""
         return self.batch_size * self.chunk_batches
+
+    def _local_rows(self) -> int:
+        """The rows a transfer moves to this rank."""
+        return self.local_batch * self.chunk_batches
+
+    def _window(self, rows: np.ndarray) -> np.ndarray:
+        """This rank's rows of a transfer's global ``rows`` of the order."""
+        d, _ = self.data_layout
+        lo = d * self.local_batch
+        return rows.reshape(-1, self.batch_size)[:, lo:lo + self.local_batch].reshape(-1)
 
     def _yield_shapes(self):
         item = tuple(self.images.shape[1:])
         if self.chunk_batches > 1:
-            return ((self.chunk_batches, self.batch_size) + item,
-                    (self.chunk_batches, self.batch_size))
-        return (self.batch_size,) + item, (self.batch_size,)
+            return ((self.chunk_batches, self.local_batch) + item,
+                    (self.chunk_batches, self.local_batch))
+        return (self.local_batch,) + item, (self.local_batch,)
 
     def _native(self) -> bool:
         """Whether ``dataio.cc``'s stream takes this split: any uint8
@@ -221,7 +259,7 @@ class HostStreamingSplit:
     def _ring(self, device: torch.device):
         """``stage_depth`` (x, y) host slots, pinned for a GPU; made once."""
         if self._slots is None or self._slots[0] != device:
-            rows, item = self._rows(), int(np.prod(self.images.shape[1:]))
+            rows, item = self._local_rows(), int(np.prod(self.images.shape[1:]))
             dtype = torch.uint8 if self.transfer_dtype == "uint8" else torch.float32
             pin = device.type == "cuda"
             self._slots = (device, [(torch.empty((rows, item), dtype=dtype, pin_memory=pin),
@@ -254,6 +292,10 @@ class HostStreamingSplit:
             raise RuntimeError("ursa_stream_create refused the split")
         self._handle = handle
         self._handle_refs = (lib, images, labels, mean, std)
+        d, shards = self.data_layout
+        if shards > 1 and lib.ursa_stream_window(handle, self.batch_size, d * self.local_batch,
+                                                 self.local_batch, seed, shuf) != 0:
+            raise RuntimeError("ursa_stream_window refused the split's data rank")
         return handle
 
     def _fill(self, epoch_seed: int, ring, free) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
@@ -261,6 +303,7 @@ class HostStreamingSplit:
         for every transfer of the epoch; ``free(i)`` is called before slot i
         is written. The host's wait goes to ``stats["wait_s"]``."""
         nt, rows = self.n // self._rows(), self._rows()
+        local = self._local_rows()
         if self._native():
             lib = load_library()
             handle = self._ensure_stream(lib, epoch_seed)
@@ -277,9 +320,10 @@ class HostStreamingSplit:
                      else np.arange(self.n, dtype=np.int64))
 
             def write(t, x, y):
-                gather_normalize(self.images, self.labels, order[t * rows:(t + 1) * rows],
+                gather_normalize(self.images, self.labels,
+                                 self._window(order[t * rows:(t + 1) * rows]),
                                  self.spec.mean, self.spec.std,
-                                 out_x=x.numpy().reshape((rows,) + self.images.shape[1:]),
+                                 out_x=x.numpy().reshape((local,) + self.images.shape[1:]),
                                  out_y=y.numpy())
         for t in range(nt):
             i = t % len(ring)

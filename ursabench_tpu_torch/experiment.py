@@ -21,10 +21,11 @@ over the N ranks as the JAX runner lays them over its devices: ``auto`` a
 ('chain', 'data') mesh (``parallel.auto_mesh``'s layout), ``chain`` chains
 only (``chain_mesh``'s), ``none`` no mesh; with one process every choice
 means no mesh and the run is unchanged. The mesh is built once a run and
-serves every trial's sampler. Every rank computes every metric; only rank
-0 writes the CSV row and the ``.npz``. HMC and the PCA subspace sampler
-over a mesh raise ``NotImplementedError`` (ROADMAP.md open item 15c), as do
-``--stream`` (15e) and ``--checkpoint_path`` (15f) over one.
+serves every trial's sampler, every method's included (HMC and the PCA
+subspace sampler shard their full-data passes over 'data'). Every rank
+computes every metric; only rank 0 writes the CSV row, the ``.npz`` and
+the checkpoints. ``--stream`` over a mesh streams each data rank's rows of
+every batch (a mesh with a chain axis above 1 refuses it).
 
 ``--stream`` keeps the train split on the host and streams it to the
 device (``data.native.HostStreamingSplit``, seeded with ``--seed``, M =
@@ -35,7 +36,9 @@ imbalanced Decision rerun trains on its own resident split.
 
 ``--checkpoint_path P`` checkpoints every sampler of the run to
 ``P.seed<seed>.npz`` every ``--checkpoint_every`` epochs (draws, for HMC and
-the PCA subspace sampler) and resumes from that file when it exists.
+the PCA subspace sampler) and resumes from that file when it exists; over
+a mesh rank 0 writes the one-process file and every rank resumes its own
+chains from it, printing where it stands.
 ``--pretrained_model_path`` loads a variables file (either package's
 ``utils_checkpoint.save_variables``) into every chain of an epoch sampler
 before it samples, and before a checkpoint is restored, so that a resumed
@@ -128,9 +131,10 @@ def build_parser():
 _STREAMED_METHODS = {"SGHMC", "SGLD", "cSGHMC", "cSGLD", "SGD", "MCdropout"}
 
 
-def _stream_split(args, split):
-    """The train split as a ``HostStreamingSplit``, or exit for a method
-    that needs the whole split on the device."""
+def _stream_split(args, split, mesh=None):
+    """The train split as a ``HostStreamingSplit`` (a data rank's rows of
+    every batch, on ``mesh``), or exit for a method that needs the whole
+    split on the device."""
     if args.inference_method not in _STREAMED_METHODS:
         raise SystemExit(
             f"--stream supports the epoch-driven samplers {sorted(_STREAMED_METHODS)}; "
@@ -140,7 +144,7 @@ def _stream_split(args, split):
 
     return HostStreamingSplit(split.images, split.labels, batch_size=split.batch_size,
                               spec=split.spec, seed=args.seed,
-                              chunk_batches=args.stream_chunk)
+                              chunk_batches=args.stream_chunk, mesh=mesh)
 
 
 def _load_hyp(args):
@@ -183,10 +187,11 @@ def _load_pretrained(sampler, pretrained: dict) -> None:
 
 def _progress(sampler) -> str:
     """Where a resumed chain stands: epochs for an epoch sampler, draws for
-    HMC and the PCA subspace sampler, which have no epochs."""
-    if isinstance(sampler, _EpochSampler):
-        return f"epoch {sampler.epochs_run}"
-    return f"draw {sampler.draws_done}"
+    HMC and the PCA subspace sampler, which have no epochs; on a mesh, on
+    which rank."""
+    done = (f"epoch {sampler.epochs_run}" if isinstance(sampler, _EpochSampler)
+            else f"draw {sampler.draws_done}")
+    return done if sampler.mesh is None else f"{done} (rank {sampler.mesh.rank})"
 
 
 def _make_sampler(args, hyp, module, train_split, seed, device, mesh=None):
@@ -301,7 +306,7 @@ def main(argv=None, device=None):
         )
     train_split, test_split = loaders["train"], loaders["test"]
     if args.stream:
-        train_split = _stream_split(args, train_split)
+        train_split = _stream_split(args, train_split, mesh)
     num_classes = int(num_classes)
     build_kw = {"dtype": torch.bfloat16} if args.dtype == "bf16" else {}
     module = cfg.build(num_classes, **build_kw)

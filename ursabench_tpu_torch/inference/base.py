@@ -21,7 +21,9 @@ package's local decision). A mesh of one rank is no mesh.
 Mid-chain checkpoints (``enable_auto_checkpoint``): an epoch sampler saves
 its chain state every N epochs (``utils_checkpoint.save_sampler_state``)
 and restores it at once; HMC and the PCA subspace sampler save theirs every
-N draws and resume inside ``sample()``.
+N draws and resume inside ``sample()``. On a mesh rank 0 writes the file of
+one process, gathered from every chain rank, and each rank restores its
+own block; generators are named by global chain id.
 """
 
 from __future__ import annotations
@@ -224,12 +226,13 @@ class _Inference:
                                resume: bool = True) -> bool:
         """Save the chain to ``path`` every ``every_epochs`` epochs (draws,
         for HMC and the PCA subspace sampler); with ``resume``, restore an
-        existing checkpoint there. Returns True if one was restored."""
-        if self.mesh is not None:
-            raise NotImplementedError("checkpoints of a sampler sharded over a device mesh "
-                                      "are not ported yet (ROADMAP.md open item 15f)")
+        existing checkpoint there. Returns True if one was restored. On a
+        mesh every rank calls it with the same path, which every rank reads
+        and rank 0 writes."""
         self._ckpt_path = path
         self._ckpt_every = max(1, int(every_epochs))
+        if self.mesh is not None:  # no rank looks before every rank is here
+            self.mesh.barrier()
         if resume and os.path.exists(path):
             self._restore_checkpoint(path)
             return True
@@ -240,6 +243,22 @@ class _Inference:
 
     def _restore_checkpoint(self, path: str) -> None:
         raise NotImplementedError
+
+    def _chain_generators(self) -> Dict[str, list]:
+        """This rank's per-chain generators by kind, in ``chain_ids`` order:
+        chain c's is checkpointed as ``<kind><c>``."""
+        return {}
+
+    def _shared_generators(self) -> Dict[str, torch.Generator]:
+        """The generators every chain (and every rank) shares, by name."""
+        return {}
+
+    def _generators(self) -> Dict[str, torch.Generator]:
+        """Every generator this rank draws from, by a stable name."""
+        gens = dict(self._shared_generators())
+        for kind, rows in self._chain_generators().items():
+            gens.update({f"{kind}{c}": g for c, g in zip(self.chain_ids, rows)})
+        return gens
 
 
 class _EpochSampler(_Inference):
@@ -257,6 +276,8 @@ class _EpochSampler(_Inference):
     on the host: each epoch streams its batches through ``engine.
     stream_steps``, one chain only, and the split's permutation takes the
     place of the data generator's (which still draws the crops and flips).
+    On a data mesh the split streams this rank's rows of every batch: it
+    must have been made with the sampler's mesh (ValueError otherwise).
 
     On a mesh ``self.modules`` are this rank's chains (``chain_ids``) and
     ``self.chains`` counts every rank's; the epoch is ``engine.
@@ -274,12 +295,15 @@ class _EpochSampler(_Inference):
         self._streamed = hasattr(train, "epoch")
         if not self._streamed:
             self._images, self._labels = train.device_tensors(self.device)
-        elif self.mesh is not None:
-            raise NotImplementedError("streamed epochs over a device mesh are not ported "
-                                      "yet (ROADMAP.md open item 15e)")
         elif self.chains > 1:
             raise ValueError(f"host-streaming epochs are single-chain: chains={self.chains}")
         else:
+            layout = (0, 1) if self.mesh is None else (self.mesh.data_idx,
+                                                       self.mesh.shape["data"])
+            if getattr(train, "data_layout", (0, 1)) != layout:
+                raise ValueError(f"the stream's data layout {train.data_layout} (data_idx, "
+                                 f"data) is not the sampler's mesh's {layout}: make the "
+                                 "HostStreamingSplit with the same mesh")
             self._images = self._labels = None
         self.modules = [self.module] + [copy.deepcopy(self.module)
                                         for _ in range(len(self.chain_ids) - 1)]
@@ -349,7 +373,7 @@ class _EpochSampler(_Inference):
                   lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds, aug=aug,
                   dropout_seeds=dropout_seeds)
         if self._streamed:
-            loss = stream_steps(self._state, split, **kw)
+            loss = stream_steps(self._state, split, mesh=self.mesh, **kw)
         else:
             loss = train_steps(self._state, self._images, self._labels, idx, spec=split.spec,
                                chain_strategy=self._resolved_chain_strategy, mesh=self.mesh,
@@ -374,11 +398,21 @@ class _EpochSampler(_Inference):
     def _single_member(self) -> StateDict:
         return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
 
-    def _generators(self) -> Dict[str, torch.Generator]:
-        """Every generator the chains draw from, by a stable name."""
-        gens = {f"data{c}": g for c, g in enumerate(self._data_gens)}
-        gens["noise"] = self._noise_gen
-        gens.update({f"dropout{i}": g for i, (g, _) in enumerate(self._dropout_gens)})
+    def _dropout_shared(self) -> bool:
+        """Whether one dropout generator draws every chain's seeds (a
+        sweep's rows keep one each)."""
+        return len(self._dropout_gens) == 1 and self._dropout_gens[0][1] == self.chains
+
+    def _chain_generators(self) -> Dict[str, list]:
+        gens = {"data": list(self._data_gens)}
+        if not self._dropout_shared():
+            gens["dropout"] = [g for g, _ in self._dropout_gens]
+        return gens
+
+    def _shared_generators(self) -> Dict[str, torch.Generator]:
+        gens = {"noise": self._noise_gen}
+        if self._dropout_shared():
+            gens["dropout0"] = self._dropout_gens[0][0]
         return gens
 
     def _maybe_checkpoint(self) -> None:

@@ -33,7 +33,8 @@ The gradient buffer is zeroed with ``zero_()`` before each step, never set
 to None.
 
 On a device mesh (``parallel.Mesh``, the ``mesh`` argument of the three step
-functions) the state is one rank's block of chains (``TrainState.row_offset``
+functions and of ``stream_steps``, whose split streams a data rank's rows
+of every batch) the state is one rank's block of chains (``TrainState.row_offset``
 and ``total_rows`` place it in the global buffer, so K1 draws that block's
 noise) and every step follows the JAX package's sharded epoch
 (``ursabench_tpu/inference/engine.py:317-480``): each data rank of a chain
@@ -531,6 +532,7 @@ def stream_steps(
     seeds: Sequence[int],
     aug: Optional[tuple] = None,
     dropout_seeds: Optional[Sequence[int]] = None,
+    mesh: Optional["Mesh"] = None,
 ) -> torch.Tensor:
     """One epoch of ``train_step`` over the batches a ``HostStreamingSplit``
     streams to the device of ``state`` (one chain), in place; returns the
@@ -538,13 +540,20 @@ def stream_steps(
     its M steps in turn, batch ``chunk_idx * M + j``, and the epoch's loss
     is the mean of the chunks' mean losses (the JAX package's chunked
     epoch; with M = 1, the mean of the batches'). ``aug`` and ``seeds``
-    are indexed by batch, as in ``train_steps`` with one chain."""
+    are indexed by batch, as in ``train_steps`` with one chain. On a data
+    mesh the split streams this rank's rows of every batch (it was made
+    with the mesh), ``aug`` covers the whole batch and this rank takes its
+    columns, and each step is ``train_step``'s sharded one: every replica
+    runs the same update."""
     if len(state.modules) != 1:
         raise ValueError("host-streaming epochs are single-chain")
     state.module.train()
     m = split.chunk_batches
     if aug is not None:
         aug = tuple(None if a is None else a.reshape(1, split.num_batches, -1) for a in aug)
+        if _data_shards(mesh) > 1:
+            mine = mesh.data_rows(split.batch_size)
+            aug = tuple(None if a is None else a[..., mine] for a in aug)
     chunk_means = []
     for ci, (x, y) in enumerate(split.epoch(state.params.device)):
         if m == 1:
@@ -555,7 +564,8 @@ def stream_steps(
             losses.append(train_step(
                 state, [(x[j], y[j])], spec=split.spec, epoch=epoch, batch_idx=bi,
                 noise_on=noise_on, hyp=hyp, lr_fn=lr_fn, update_fn=update_fn,
-                seed=seeds[bi], aug=_aug_at(aug, 1, bi), dropout_seeds=dropout_seeds))
+                seed=seeds[bi], aug=_aug_at(aug, 1, bi), dropout_seeds=dropout_seeds,
+                mesh=mesh))
         chunk_means.append(torch.stack(losses).mean(0))
     if not chunk_means:
         raise ValueError(f"the stream has {split.n} samples, fewer than one transfer "
@@ -572,6 +582,21 @@ def _padded_batches(n: int, bsz: int, fill, device) -> torch.Tensor:
     if pad:
         idx = torch.cat([idx, fill(idx, pad)])
     return idx.view(nb, bsz)
+
+
+def _sharded_batches(n: int, bsz: int, mesh: Optional["Mesh"], device) -> torch.Tensor:
+    """The index batches of a full-data pass: ``arange(n)`` in batches of
+    ``bsz``, the last filled up with -1. On a data mesh ``bsz`` is rounded
+    down to a multiple of the data axis (one row a rank at least) and the
+    result is this rank's (num_batches, bsz / data) columns (the JAX
+    package's data-parallel HMC potential and ESS log density)."""
+    shards = _data_shards(mesh)
+    if shards > 1:
+        if n < shards:
+            raise ValueError(f"{n} samples do not split over {shards} data ranks")
+        bsz = max(shards, bsz - bsz % shards)
+    batches = _padded_batches(n, bsz, lambda idx, pad: torch.full_like(idx[:pad], -1), device)
+    return batches if shards == 1 else batches[:, mesh.data_rows(bsz)].contiguous()
 
 
 @torch.no_grad()

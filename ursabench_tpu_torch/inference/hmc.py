@@ -38,6 +38,21 @@ broadcast to every member. Draws advance in
 chunks of ``draw_chunk``; after each chunk a checkpoint is written when
 ``enable_auto_checkpoint``'s interval (counted in draws) divides the draws
 done.
+
+On a device mesh (``mesh``) the potential is data-parallel, as in the JAX
+package: ``grad_batch`` is rounded down to a multiple of the data axis
+(``max(data, bsz - bsz % data)``), and each data rank takes its
+``bsz / data`` columns of every index batch, Kahan-sums its own cross
+entropy and backpropagates it into its own gradient buffer; one
+all-reduce over 'data' of the CE sums and the gradient buffer then gives
+every data rank the full-batch sum and gradient (the all-reduce of local
+gradients, never a gradient through a collective). The chains block over
+'chain' (``mesh.chain_block``: the chain count must divide, as for the
+epoch samplers). Every rank draws every chain's momentum and uniform from
+the one generator in chain order and keeps its block's, so a chain mesh
+draws what one process draws, and the data ranks of a row draw the same
+values and take the same Metropolis-Hastings decisions.
+``accept_rate`` covers every chain.
 """
 
 from __future__ import annotations
@@ -53,13 +68,9 @@ from ..data.transforms import normalize
 from ..models.common import dropout_generator, dropout_layers
 from ..util import make_generator
 from .base import _Inference
-from .engine import (ChainForward, _padded_batches, backward_into_views, flatten_parameters,
+from .engine import (ChainForward, _sharded_batches, backward_into_views, flatten_parameters,
                      stacked_leaves)
 from .ensemble import Ensemble
-
-_MESH = ("HMC over a device mesh (its data-parallel potential) is not ported yet "
-         "(ROADMAP.md open item 15c)")
-
 
 def _sq_diff_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``sum(a**2) - sum(b**2)`` over the last axis as ``sum((a - b) * (a +
@@ -89,16 +100,14 @@ class HMC(_Inference):
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=1,
                  device=None, chain_strategy="auto", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
-                         device, chain_strategy)
+                         device, chain_strategy, mesh)
         if hyperparameters is None:
             hyperparameters = dict(self._DEFAULT_HYP)
         self._images, self._labels = train.device_tensors(self.device)
         self._params, self._grads = flatten_parameters(self.module)
         if self._resolved_chain_strategy == "vmap":  # the chains' thetas, batched
-            self._chain_params = torch.zeros(self.chains, self._params.numel(),
+            self._chain_params = torch.zeros(len(self.chain_ids), self._params.numel(),
                                              device=self.device)
             self._chain_grads = torch.zeros_like(self._chain_params)
             self._leaves = stacked_leaves(self.module, self._chain_params, self._chain_grads)
@@ -120,13 +129,12 @@ class HMC(_Inference):
             raise ValueError(f"HMC needs L >= 1 and draw_chunk >= 1, got {self.L}, "
                              f"{self.draw_chunk}")
         n, bsz = self.train.n, min(self.train.n, int(hyp.get("grad_batch", 4096)))
-        batches = _padded_batches(n, bsz, lambda idx, pad: torch.full_like(idx[:pad], -1),
-                                  self.device)
+        batches = _sharded_batches(n, bsz, self.mesh, self.device)
         self._valid = (batches >= 0).to(torch.float32)
         self._batches = batches.clamp_min(0)
         run = self.next_seed()
         theta0 = []
-        for c in range(self.chains):
+        for c in self.chain_ids:
             self.fresh_variables(self.module, run, c)
             theta0.append(self._params.detach().clone())
         self._theta0 = torch.stack(theta0)  # (C, P)
@@ -140,10 +148,17 @@ class HMC(_Inference):
 
     # -- potential ---------------------------------------------------------------
 
+    def _reduce(self, total: torch.Tensor, grads: torch.Tensor, grad: bool) -> torch.Tensor:
+        """On a data mesh, the local CE sums (and with ``grad`` the local
+        gradient buffer) summed over 'data' in place: one all-reduce."""
+        if self.mesh is not None:
+            self.mesh.all_reduce_many([total, grads] if grad else [total], "data")
+        return total
+
     def _ce_sum(self, theta: torch.Tensor, grad: bool) -> torch.Tensor:
         """The Kahan-accumulated CE sum over the train split at ``theta``
         (P,), a 0-dim tensor; with ``grad``, its gradient is left in
-        ``self._grads``."""
+        ``self._grads`` (over every data rank's rows, on a mesh)."""
         module = self.module
         with torch.no_grad():
             self._params.copy_(theta)
@@ -168,7 +183,7 @@ class HMC(_Inference):
                 t = total + val
                 comp = (t - total) - val
                 total = t
-        return total
+        return self._reduce(total, self._grads, grad)
 
     def _ce_sums(self, theta: torch.Tensor, grad: bool) -> torch.Tensor:
         """``_ce_sum`` of every chain at once: (C,) Kahan-accumulated CE sums
@@ -204,7 +219,7 @@ class HMC(_Inference):
                 t = total + val
                 comp = (t - total) - val
                 total = t
-        return total
+        return self._reduce(total, self._chain_grads, grad)
 
     def _grad_u(self, theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(CE sum, gradient of the potential) at ``theta``: (P,) for one
@@ -254,12 +269,22 @@ class HMC(_Inference):
                          device=self.device) * math.sqrt(self.mass)
         return p0, torch.rand((), generator=self._gen, device=self.device)
 
+    def _chain_draws(self, theta: torch.Tensor):
+        """Every chain's momentum and accept uniform, chain by chain from
+        the one generator; the rows of this rank's chains ``theta`` (C', P):
+        (C', P) and (C',)."""
+        rows = [self._momentum_and_uniform(theta[0]) for _ in range(self.chains)]
+        keep = slice(self.chain_ids[0], self.chain_ids[-1] + 1)
+        return tuple(torch.stack(col[keep]) for col in zip(*rows))
+
     def _draw(self, theta: torch.Tensor, ll: torch.Tensor):
-        """One transition of every chain: (C, P), (C,) -> the same and the
-        (C,) accepts; in turn, or batched under ``"vmap"``."""
+        """One transition of this rank's chains: (C', P), (C',) -> the same
+        and the (C',) accepts; in turn, or batched under ``"vmap"``."""
+        p0, u = self._chain_draws(theta)
         if self._resolved_chain_strategy == "vmap":
-            return self._transition(theta, ll)[:3]
-        rows = [self._transition(theta[c], ll[c])[:3] for c in range(self.chains)]
+            return self._transition(theta, ll, (p0, u))[:3]
+        rows = [self._transition(theta[c], ll[c], (p0[c], u[c]))[:3]
+                for c in range(theta.shape[0])]
         return tuple(torch.stack(col) for col in zip(*rows))
 
     def _initial_ce_sums(self, theta: torch.Tensor) -> torch.Tensor:
@@ -275,25 +300,30 @@ class HMC(_Inference):
         self._resume_state = load_pytree(path)
         self.draws_done = int(self._resume_state["draws_done"])
 
+    def _shared_generators(self):
+        return {"hmc": self._gen}
+
     def _save_chain(self, theta, ll, trajectory, accepts, done) -> None:
         if not self._checkpoint_due(done):
             return
-        from ..utils_checkpoint import generator_states, save_pytree
+        from ..utils_checkpoint import save_chain_state
 
-        save_pytree(self._ckpt_path, {
-            "theta": theta, "ll": ll, "generators": generator_states({"hmc": self._gen}),
-            "trajectory": torch.stack(trajectory), "accepts": torch.stack(accepts),
-            "draws_done": done,
-        })
+        save_chain_state(self._ckpt_path, self, {
+            "theta": theta, "ll": ll, "trajectory": torch.stack(trajectory),
+            "accepts": torch.stack(accepts), "draws_done": done,
+        }, {"theta": 0, "ll": 0, "trajectory": 1, "accepts": 1})
 
     def _resume(self):
-        from ..utils_checkpoint import set_generator_states
+        from ..utils_checkpoint import chain_block, restore_generators
 
         r, self._resume_state = self._resume_state, None
-        set_generator_states({"hmc": self._gen}, r["generators"])
-        to = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
-        return (to(r["theta"]), to(r["ll"]), list(to(r["trajectory"])),
-                list(to(r["accepts"])), int(r["draws_done"]))
+        restore_generators(self, r["generators"])
+
+        def to(a, dim=0):
+            return torch.from_numpy(chain_block(self, a, dim)).to(self.device)
+
+        return (to(r["theta"]), to(r["ll"]), list(to(r["trajectory"], 1)),
+                list(to(r["accepts"], 1)), int(r["draws_done"]))
 
     # -- sampling ----------------------------------------------------------------
 
@@ -316,10 +346,13 @@ class HMC(_Inference):
                 done += 1
             self.draws_done = done
             self._save_chain(theta, ll, trajectory, accepts, done)
-        self.accept_rate = float(torch.stack(accepts).float().mean())
+        accepted = torch.stack(accepts).float()  # (draws, C')
+        if self.mesh is not None:
+            accepted = self.mesh.chain_rows(accepted, dim=1)
+        self.accept_rate = float(accepted.mean())
         if debug:
             print("HMC acceptance rate:", self.accept_rate)
-        kept = torch.stack(trajectory)[self.burn:]  # (kept, C, P)
+        kept = torch.stack(trajectory)[self.burn:]  # (kept, C', P)
         flat = kept.reshape(-1, kept.shape[-1])  # draw-major, chains within a draw
         S = flat.shape[0]
         state, offset = {}, 0
@@ -328,4 +361,5 @@ class HMC(_Inference):
             offset += p.numel()
         for name, b in self._buffers.items():
             state[name] = b.expand((S,) + tuple(b.shape))
-        return Ensemble(self.module, state, S)
+        return Ensemble(self.module, state, kept.shape[0] * self.chains, mesh=self.mesh,
+                        chains=self.chains)

@@ -30,6 +30,17 @@ the same draws. A checkpoint (``enable_auto_checkpoint``, counted in draws)
 holds the subspace, the trained BatchNorm statistics, the ESS state, the
 generators and each draw's coordinates: a resumed run skips phase 1 and
 reprojects the draws it already has.
+
+On a device mesh (``mesh``), as in the JAX package: the SWA phase gets the
+mesh when its chain axis is 1 (a data-parallel SWA) and otherwise runs
+whole on every rank; the ESS chains block over 'chain' (``mesh.
+chain_block``), each with its generator ``ess<c>`` of its global chain id;
+the log density is data-parallel, each data rank taking its columns of
+every batch (the batch rounded down to a multiple of the data axis) and one
+all-reduce over 'data' summing the cross entropy. ESS has no gradient, so
+that value is the whole of the reduction. The batch statistics are then
+each data rank's own, as under JAX's ``shard_map``: on a BatchNorm net a
+data mesh evaluates another (local-statistics) density than one process.
 """
 
 from __future__ import annotations
@@ -42,14 +53,10 @@ from ..models.common import dropout_generator, dropout_layers
 from ..ops.ess import elliptical_slice, elliptical_slice_chains
 from ..util import derive_seed, make_generator, stack_state_dicts
 from .base import _Inference
-from .engine import ChainForward, _padded_batches, stacked_views
+from .engine import ChainForward, _sharded_batches, stacked_views
 from .ensemble import Ensemble
 from .subspaces import SubspaceModel
 from .swa import SWA
-
-_MESH = ("the PCA subspace sampler over a device mesh (its data-parallel log density "
-         "and SWA phase) is not ported yet (ROADMAP.md open item 15c)")
-
 
 class PCASubspaceSampler(_Inference):
     _DEFAULT_HYP = {
@@ -61,10 +68,8 @@ class PCASubspaceSampler(_Inference):
     def __init__(self, hyperparameters, model=None, train=None,
                  model_loss="multi_class_linear_output", seed=0, chains=1,
                  device=None, chain_strategy="auto", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
-                         device, chain_strategy)
+                         device, chain_strategy, mesh)
         if hyperparameters is None:
             hyperparameters = dict(self._DEFAULT_HYP)
         self._resume_state = None
@@ -86,14 +91,15 @@ class PCASubspaceSampler(_Inference):
             "num_iterates": int(hyp["num_swag_iterates"]),
             "subspace_type": "pca",
         }
+        # the SWA phase is one trajectory: data-parallel on a mesh without a chain axis
+        swa_mesh = self.mesh if self.mesh is not None and self.mesh.shape["chain"] == 1 else None
         self.swa = SWA(swa_hyp, model=self.module, train=self.train, seed=self.next_seed(),
-                       device=self.device, max_rank=self.max_rank, pca_rank=self.rank)
+                       device=self.device, max_rank=self.max_rank, pca_rank=self.rank,
+                       mesh=swa_mesh)
         run = self.next_seed()
         self._gens = [torch.Generator().manual_seed(derive_seed(run, "ess", c))
-                      for c in range(self.chains)]
-        bsz = self.train.batch_size
-        batches = _padded_batches(self.train.n, bsz,
-                                  lambda idx, pad: torch.full_like(idx[:pad], -1), self.device)
+                      for c in self.chain_ids]
+        batches = _sharded_batches(self.train.n, self.train.batch_size, self.mesh, self.device)
         self._valid = (batches >= 0).to(torch.float32)
         self._batches = batches.clamp_min(0)
         self._has_dropout = bool(dropout_layers(self.module))
@@ -128,7 +134,7 @@ class PCASubspaceSampler(_Inference):
             ce = F.cross_entropy(logits.to(torch.float32), labels.index_select(0, b),
                                  reduction="none")
             total = total + torch.sum(ce * self._valid[bi])
-        return -total / self.temperature
+        return -self._over_data(total) / self.temperature
 
     @torch.no_grad()
     def lnpdf_chains(self, theta: torch.Tensor) -> torch.Tensor:
@@ -154,11 +160,17 @@ class PCASubspaceSampler(_Inference):
             ce = F.cross_entropy(logits.to(torch.float32).flatten(0, 1), y,
                                  reduction="none").view(chains, -1)
             total = total + torch.sum(ce * self._valid[bi], dim=1)
-        return -total / self.temperature
+        return -self._over_data(total) / self.temperature
+
+    def _over_data(self, total: torch.Tensor) -> torch.Tensor:
+        """The CE sums of this rank's rows summed over 'data' (one
+        all-reduce on a data mesh)."""
+        return total if self.mesh is None else self.mesh.all_reduce(total, "data")
 
     def _set_subspace(self, mean: torch.Tensor, cov_factor: torch.Tensor) -> None:
         self.subspace = SubspaceModel(mean.to(self.device), cov_factor.to(self.device))
-        self.current_theta = torch.zeros(self.chains, self.subspace.rank, device=self.device)
+        self.current_theta = torch.zeros(len(self.chain_ids), self.subspace.rank,
+                                         device=self.device)
         self.current_lnpdf = None
         self.subspace_constructed = True
 
@@ -172,8 +184,8 @@ class PCASubspaceSampler(_Inference):
         return states[0] if self.chains == 1 else stack_state_dicts(states)
 
     def sample_iterative(self, update_bn=True, val_loader=None, debug_val_loss=False):
-        """One ESS draw per chain in the shared subspace (phase 1 first, if
-        it has not run)."""
+        """One ESS draw per chain (this rank's, on a mesh) in the shared
+        subspace (phase 1 first, if it has not run)."""
         if not self.subspace_constructed:
             self.swa.sample()
             mean, _, cov_factor = self.swa.get_space()
@@ -191,7 +203,7 @@ class PCASubspaceSampler(_Inference):
         else:
             out = [elliptical_slice(self.current_theta[c], prior[c], self.lnpdf,
                                     self.current_lnpdf[c], generator=self._gens[c])
-                   for c in range(self.chains)]
+                   for c in range(len(self._gens))]
             theta, lp, iters = (torch.stack([o[0] for o in out]),
                                 torch.stack([o[1] for o in out]), [o[2] for o in out])
         self.current_theta, self.current_lnpdf = theta, lp
@@ -220,8 +232,8 @@ class PCASubspaceSampler(_Inference):
 
     # -- mid-chain checkpoints ----------------------------------------------------
 
-    def _generators(self):
-        return {f"ess{c}": g for c, g in enumerate(self._gens)}
+    def _chain_generators(self):
+        return {"ess": self._gens}
 
     def _restore_checkpoint(self, path: str) -> None:
         from ..utils_checkpoint import load_pytree
@@ -232,26 +244,29 @@ class PCASubspaceSampler(_Inference):
     def _save_chain(self, draw_thetas) -> None:
         if not self._checkpoint_due(len(draw_thetas)):
             return
-        from ..utils_checkpoint import generator_states, save_pytree
+        from ..utils_checkpoint import save_chain_state
 
-        save_pytree(self._ckpt_path, {
+        save_chain_state(self._ckpt_path, self, {
             "mean": self.subspace.mean, "cov_factor": self.subspace.cov_factor,
             "batch_stats": dict(self.module.named_buffers()),
             "theta": self.current_theta, "lnpdf": self.current_lnpdf,
-            "generators": generator_states(self._generators()),
             "draw_thetas": torch.stack(draw_thetas),
-        })
+        }, {"theta": 0, "lnpdf": 0, "draw_thetas": 1})
 
     def _resume(self) -> list:
         """The subspace, the trained BatchNorm statistics and the ESS state
         from the checkpoint; returns the coordinates already drawn."""
-        from ..utils_checkpoint import copy_into, set_generator_states
+        from ..utils_checkpoint import chain_block, copy_into, restore_generators
 
         r, self._resume_state = self._resume_state, None
-        to = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+
+        def to(a, dim=None):  # this rank's chains of a chain-indexed array
+            return torch.from_numpy(a if dim is None else chain_block(self, a, dim)
+                                    ).to(self.device)
+
         self._set_subspace(to(r["mean"]), to(r["cov_factor"]))
         for name, value in r.get("batch_stats", {}).items():
             copy_into(self.module.get_buffer(name), value, name)
-        self.current_theta, self.current_lnpdf = to(r["theta"]), to(r["lnpdf"])
-        set_generator_states(self._generators(), r["generators"])
-        return list(to(r["draw_thetas"]))
+        self.current_theta, self.current_lnpdf = to(r["theta"], 0), to(r["lnpdf"], 0)
+        restore_generators(self, r["generators"])
+        return list(to(r["draw_thetas"], 1))

@@ -163,16 +163,16 @@ class MCdropout(_EpochSampler):
                  device=None, model_name: str | None = None, chain_strategy="auto",
                  mesh=None):
         """``model`` may be a base module: pass ``model_name`` to build its
-        ``_dropout`` twin from the registry, with the base module's class
-        count and compute dtype; or pass the twin itself. ``mesh`` may be a
-        data mesh only: the members share chain 0's weights."""
+        ``_dropout`` twin from the registry with the base module's class
+        count, in the registry's default compute dtype (float32) whatever
+        the base's, as the JAX package builds it; or pass the twin itself
+        (built in any dtype). ``mesh`` may be a data mesh only: the members
+        share chain 0's weights."""
         if mesh is not None and mesh.shape["chain"] > 1:
             raise ValueError("MCdropout's members share one chain's weights: use a mesh "
                              f"with chain=1 (data parallelism), got {mesh.shape}")
         if model_name is not None:
-            kw = {} if getattr(model, "dtype", None) is None else {"dtype": model.dtype}
-            model = dropout_twin(model_name).build(
-                getattr(model, "num_classes", None) or 10, **kw)
+            model = dropout_twin(model_name).build(getattr(model, "num_classes", None) or 10)
         super().__init__(hyperparameters, model, train, model_loss, seed, chains,
                          device, chain_strategy, mesh)
         if hyperparameters is None:

@@ -17,7 +17,10 @@ out:
 The collectives use only ``all_reduce`` (and no ``all_gather``), so one
 path serves NCCL, gloo on CPU tensors and gloo on CUDA tensors (which has
 no all-gather): rows are assembled as a sum of zero-filled buffers, each
-rank writing its own block.
+rank writing its own block. ``gather_rows`` assembles a checkpoint's
+(C, ...) blocks for rank 0 that way, and ``barrier`` is an all-reduce of
+one element; both move host tensors (generator states) to the backend's
+device and back, since NCCL reduces CUDA tensors only.
 
 A ``Mesh`` spans the whole process group: one of another size raises
 (the pure layout rules of ``distributed`` give a shape without one).
@@ -138,6 +141,44 @@ class Mesh:
         out = local.new_zeros(shape)
         out.narrow(dim, self.chain_idx * n, n).copy_(local)
         return self.all_reduce(out, "chain")
+
+    def gather_rows(self, blocks: Sequence[torch.Tensor], dim: int = 0
+                    ) -> Optional[List[torch.Tensor]]:
+        """Every chain rank's blocks of each of ``blocks`` along ``dim``, in
+        chain order, as CPU tensors on rank 0 (None on the others): one
+        all-reduce over 'chain' a dtype of zero-filled buffers, on the
+        backend's device (a sum with zeros is exact, uint8 generator states
+        included; bool blocks travel as uint8). A collective: every rank
+        calls it."""
+        if self.shape["chain"] == 1:
+            out = [b.detach().cpu() for b in blocks]
+        else:
+            device = _collective_device()
+            out = []
+            for b in blocks:
+                shape = list(b.shape)
+                n = shape[dim]
+                shape[dim] = n * self.shape["chain"]
+                dtype = torch.uint8 if b.dtype == torch.bool else b.dtype
+                full = torch.zeros(shape, dtype=dtype, device=device)
+                full.narrow(dim, self.chain_idx * n, n).copy_(b)
+                out.append(full)
+            self.all_reduce_many(out, "chain")
+            out = [t.cpu().to(b.dtype) for t, b in zip(out, blocks)]
+        return out if self.rank == 0 else None
+
+    def barrier(self) -> None:
+        """Wait for every rank (an all-reduce of one element over 'all')."""
+        if self.size > 1:
+            dist.all_reduce(torch.zeros(1, device=_collective_device()))
+
+
+def _collective_device() -> torch.device:
+    """Where a collective of host data runs: the rank's card under NCCL,
+    the host under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 def make_mesh(n_devices: Optional[int] = None, chain_devices: Optional[int] = None) -> Mesh:

@@ -21,6 +21,13 @@ steps):
    order), the data ranks' replicas bit-equal; then PreResNet-20's rate on
    (1, N) against one card (BatchNorm local to each rank's rows, so this
    is a rate only).
+3. **HMC's data-parallel potential** (1, N): MLP200MNIST over 60,000
+   MNIST images in gradient batches of 4,096 (4,096 / N rows a rank), the
+   CE sum and its gradient at the init against one card's (||a - b|| /
+   ||b|| within 1e-5: the all-reduce sums in another order); then
+   full-batch gradient evaluations a second (``HMC._grad_u``: every batch's
+   forward and backward, one all-reduce of the CE sum and the gradient)
+   against one card.
 
 Every rate is taken in ``REPEATS`` windows of whole epochs, each at least
 ``WINDOW_S`` seconds long (the epoch count set from an untimed epoch, every
@@ -50,9 +57,13 @@ HYP = {"lr": 0.05, "prior_std": 1.0, "num_samples": 2, "alpha": 0.1, "burn_in_ep
 BATCH = 128
 CIFAR_IMAGES = 50_000  # one CIFAR-10 epoch: 391 steps
 MLP_IMAGES = 4096
+HMC_IMAGES = 60_000  # MNIST's train split: 15 gradient batches of 4,096
+HMC_HYP = {"step_size": 2e-4, "num_samples": 1, "L": 1, "tau": 100.0, "burn": 0, "mass": 0.19,
+           "grad_batch": 4096}
 WINDOW_S = 10.0  # the shortest timed window
 REPEATS = 3  # timed windows a rate
 CHAIN_GAP = 1e-5  # the chain mesh against one process, ||a - b|| / ||b||
+POTENTIAL_GAP = 1e-5  # HMC's CE sum and gradient on (1, N) against one card
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -77,34 +88,46 @@ def _sampler(device, name, split, classes, chains, mesh, strategy="scan"):
                            mesh=mesh)
 
 
-def _timed_epochs(sampler, epochs: int, group: bool) -> float:
-    """Seconds of ``epochs`` noisy epochs of ``sampler``, from the host
-    clock around the card's (and, with ``group``, every rank's) finish."""
+def _epoch(sampler):
+    """One noisy epoch of ``sampler``: the unit of the samplers' rates."""
+    return lambda: sampler._run_epoch(noise_on=True)
+
+
+def _timed(unit, count: int, group: bool) -> float:
+    """Seconds of ``count`` calls of ``unit``, from the host clock around
+    the card's (and, with ``group``, every rank's) finish."""
     torch.cuda.synchronize()
     if group:
         dist.barrier()
     t0 = time.perf_counter()
-    for _ in range(epochs):
-        sampler._run_epoch(noise_on=True)
+    for _ in range(count):
+        unit()
     torch.cuda.synchronize()
     if group:
         dist.barrier()
     return time.perf_counter() - t0
 
 
-def _rate(sampler, device, group: bool, scale: float) -> dict:
-    """``scale`` x epochs a second of ``sampler`` in ``REPEATS`` windows of
-    whole epochs, each at least ``WINDOW_S`` long by an untimed first
-    epoch (with ``group``, every rank's longest, so all ranks run the same
+def _rate(unit, device, group: bool, scale: float) -> dict:
+    """``scale`` x calls of ``unit`` a second in ``REPEATS`` windows of
+    whole calls, each at least ``WINDOW_S`` long by an untimed first call
+    (with ``group``, every rank's longest, so all ranks run the same
     count)."""
-    first = torch.tensor([_timed_epochs(sampler, 1, group)], device=device)
+    first = torch.tensor([_timed(unit, 1, group)], device=device)
     if group:
         dist.all_reduce(first, op=dist.ReduceOp.MAX)
-    epochs = max(1, math.ceil(WINDOW_S / float(first)))
-    rates = [scale * epochs / _timed_epochs(sampler, epochs, group) for _ in range(REPEATS)]
+    count = max(1, math.ceil(WINDOW_S / float(first)))
+    rates = [scale * count / _timed(unit, count, group) for _ in range(REPEATS)]
     median = statistics.median(rates)
-    return {"epochs_a_window": epochs, "windows": rates, "median": median,
+    return {"calls_a_window": count, "windows": rates, "median": median,
             "spread": (max(rates) - min(rates)) / median}
+
+
+def _hmc(device, split, classes, mesh):
+    from .. import inference, models
+
+    return inference.HMC(HMC_HYP, model=models.get_model("MLP200MNIST").build(classes),
+                         train=split, seed=0, device=device, mesh=mesh)
 
 
 def run(device) -> dict:
@@ -125,18 +148,18 @@ def run(device) -> dict:
     s._run_epoch(noise_on=True)
     sharded = chain_mesh.chain_rows(s._state.params)
     out["chain_mesh"] = {"chains": world, "steps": steps,
-                         "step_forwards_per_s": _rate(s, device, True, steps * world)}
+                         "step_forwards_per_s": _rate(_epoch(s), device, True, steps * world)}
     del s
     one = {}  # the N chains on one card: "scan" on rank 0's, "vmap" on rank 1's
     if rank == 0:
         ref = _sampler(device, "PreResNet20", splits["train"], c, world, None)
         ref._run_epoch(noise_on=True)
         out["chain_gap"] = _rel(sharded, ref._state.params)
-        one["scan"] = _rate(ref, device, False, steps * world)
+        one["scan"] = _rate(_epoch(ref), device, False, steps * world)
         del ref
     elif rank == 1:
         ref = _sampler(device, "PreResNet20", splits["train"], c, world, None, "vmap")
-        one["vmap"] = _rate(ref, device, False, steps * world)
+        one["vmap"] = _rate(_epoch(ref), device, False, steps * world)
         del ref
     ones = [None] * world
     dist.all_gather_object(ones, one)
@@ -152,7 +175,7 @@ def run(device) -> dict:
     data_mesh.all_reduce(replicas, "data")
     out["replicas_equal"] = all(torch.equal(replicas[0], r) for r in replicas)
     p = _sampler(device, "PreResNet20", splits["train"], c, 1, data_mesh)
-    out["data_mesh"] = {"steps_per_s": _rate(p, device, True, steps)}
+    out["data_mesh"] = {"steps_per_s": _rate(_epoch(p), device, True, steps)}
     del p
     if rank == 0:
         ref = _sampler(device, "MLP200MNIST", mnist["train"], cm, 1, None)
@@ -162,7 +185,24 @@ def run(device) -> dict:
         out["mlp_within_tolerance"] = bool(excess <= 0)
         out["mlp_gap"] = _rel(params, ref._state.params)
         out["data_mesh"]["one_card"] = _rate(
-            _sampler(device, "PreResNet20", splits["train"], c, 1, None), device, False, steps)
+            _epoch(_sampler(device, "PreResNet20", splits["train"], c, 1, None)), device,
+            False, steps)
+
+    # 3. HMC's data-parallel potential: agreement, then gradients a second
+    mnist, cm = _splits("MNIST", HMC_IMAGES)
+    h = _hmc(device, mnist["train"], cm, data_mesh)
+    theta = h._theta0[0].clone()
+    ce, grad = h._grad_u(theta)
+    ce, grad = ce.clone(), grad.clone()
+    out["hmc"] = {"images": HMC_IMAGES, "batches": list(h._batches.shape),
+                  "gradients_per_s": _rate(lambda: h._grad_u(theta), device, True, 1)}
+    del h
+    if rank == 0:
+        ref = _hmc(device, mnist["train"], cm, None)
+        ce1, grad1 = ref._grad_u(theta)
+        out["hmc"]["ce_gap"] = _rel(ce, ce1)
+        out["hmc"]["grad_gap"] = _rel(grad, grad1)
+        out["hmc"]["one_card"] = _rate(lambda: ref._grad_u(theta), device, False, 1)
     dist.barrier()
     return out
 
@@ -191,7 +231,8 @@ def main(argv=None) -> int:
     if "chain_gap" not in out:
         return 0  # ranks other than 0
     ok = (out["chain_gap"] <= CHAIN_GAP and out["mlp_within_tolerance"]
-          and out["replicas_equal"])
+          and out["replicas_equal"] and out["hmc"]["ce_gap"] <= POTENTIAL_GAP
+          and out["hmc"]["grad_gap"] <= POTENTIAL_GAP)
     out["ok"] = ok
     for line in out["cards"]:
         print(line, flush=True)

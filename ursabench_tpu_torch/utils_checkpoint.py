@@ -13,6 +13,14 @@ Counterpart of ``ursabench_tpu/utils_checkpoint.py``:
   draw from (CUDA generators included), so a resumed chain continues the
   same streams.
 
+A sampler on a device mesh writes the file of one process: rank 0 gathers
+every chain rank's block of each chain-indexed array and every chain's
+generators (``save_chain_state``: one all-reduce over 'chain' a dtype),
+writes, and every rank waits for the write before it goes on; on a resume
+each rank reads its own block (``chain_block``) and generators. Generators
+are named by global chain id (``data0``, ``data1``, ...), so a checkpoint
+moves between layouts of the same chain count.
+
 A file is written beside its path and renamed over it, so a run killed
 while saving leaves the previous checkpoint whole.
 """
@@ -100,16 +108,58 @@ def load_ensemble(path: str, module: nn.Module, device=None):
                     dropout_seed=None if seed is None else int(seed))
 
 
-def generator_states(generators: Dict[str, torch.Generator]) -> Dict[str, torch.Tensor]:
-    return {name: g.get_state() for name, g in generators.items()}
+def generator_names(sampler) -> list:
+    """Every generator of ``sampler`` by name, over every rank: its shared
+    ones, and ``<prefix><c>`` for each chain c of each per-chain kind."""
+    chains = range(sampler.chains)
+    return sorted(list(sampler._shared_generators())
+                  + [f"{p}{c}" for p in sampler._chain_generators() for c in chains])
 
 
-def set_generator_states(generators: Dict[str, torch.Generator], states: Dict) -> None:
-    if set(states) != set(generators):
+def restore_generators(sampler, states: Dict) -> None:
+    """Set this rank's generators from a checkpoint's ``generators``,
+    which must name every generator of every rank."""
+    if sorted(states) != generator_names(sampler):
         raise ValueError(f"checkpoint generators {sorted(states)} != the sampler's "
-                         f"{sorted(generators)}")
-    for name, g in generators.items():
+                         f"{generator_names(sampler)}")
+    for name, g in sampler._generators().items():
         g.set_state(torch.from_numpy(np.asarray(states[name])))
+
+
+def chain_block(sampler, array, dim: int = 0) -> np.ndarray:
+    """This rank's chains of a checkpoint's chain-indexed ``array`` (all of
+    them without a mesh), along ``dim``."""
+    ids = sampler.chain_ids
+    index = [slice(None)] * np.ndim(array)
+    index[dim] = slice(ids[0], ids[-1] + 1)
+    return np.asarray(array)[tuple(index)]
+
+
+def save_chain_state(path: str, sampler, tree: dict, chain_dims: Dict[str, int]) -> None:
+    """Write ``tree`` and every generator of ``sampler`` (as ``generators``)
+    to ``path`` in the one-process layout. The entries named in
+    ``chain_dims`` are tensors of this rank's chains along that axis; on a mesh they
+    are assembled on rank 0, which writes, and every rank waits for the
+    file (collectives: every rank calls it)."""
+    mesh = sampler.mesh
+    chain = sampler._chain_generators()
+    prefixes = sorted(chain)
+    names = sorted(chain_dims)
+    blocks = ([torch.stack([g.get_state() for g in chain[p]]) for p in prefixes]
+              + [tree[k].movedim(chain_dims[k], 0) for k in names])
+    if mesh is not None:
+        blocks = mesh.gather_rows(blocks)
+    if blocks is not None:
+        out = dict(tree)
+        gens = {n: g.get_state() for n, g in sampler._shared_generators().items()}
+        for p, rows in zip(prefixes, blocks):
+            gens.update({f"{p}{c}": rows[c] for c in range(rows.shape[0])})
+        for k, rows in zip(names, blocks[len(prefixes):]):
+            out[k] = rows.movedim(0, chain_dims[k])
+        out["generators"] = gens
+        save_pytree(path, out)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def copy_into(dst: torch.Tensor, src, name: str) -> None:
@@ -123,30 +173,29 @@ def copy_into(dst: torch.Tensor, src, name: str) -> None:
 
 
 def save_sampler_state(path: str, sampler) -> None:
-    """An epoch sampler's chains, mid-run."""
+    """An epoch sampler's chains, mid-run (every rank's, on a mesh: every
+    rank calls it)."""
     st = sampler._state
-    buffers = {name: torch.stack([m.get_buffer(name) for m in sampler.modules])
-               for name, _ in sampler.module.named_buffers()}
-    save_pytree(path, {
-        "params": st.params,
-        "momentum": st.momentum,
-        "batch_stats": buffers,
-        "generators": generator_states(sampler._generators()),
-        "step": np.asarray(st.step),
-        "epochs_run": np.asarray(sampler.epochs_run),
-        "burnt_in": np.asarray(1 if sampler.burnt_in else 0),
-    })
+    names = [name for name, _ in sampler.module.named_buffers()]
+    tree = {"params": st.params, "momentum": st.momentum,
+            "step": np.asarray(st.step), "epochs_run": np.asarray(sampler.epochs_run),
+            "burnt_in": np.asarray(1 if sampler.burnt_in else 0)}
+    tree.update({f"batch_stats/{name}": torch.stack([m.get_buffer(name) for m in sampler.modules])
+                 for name in names})
+    save_chain_state(path, sampler, tree, {k: 0 for k in tree if k in ("params", "momentum")
+                                           or k.startswith("batch_stats/")})
 
 
 def restore_sampler_state(path: str, sampler) -> None:
+    """This rank's chains of an epoch sampler's checkpoint."""
     tree = load_pytree(path)
     st = sampler._state
-    copy_into(st.params, tree["params"], "params")
-    copy_into(st.momentum, tree["momentum"], "momentum")
+    copy_into(st.params, chain_block(sampler, tree["params"]), "params")
+    copy_into(st.momentum, chain_block(sampler, tree["momentum"]), "momentum")
     for name, rows in tree.get("batch_stats", {}).items():
-        for c, module in enumerate(sampler.modules):
-            copy_into(module.get_buffer(name), rows[c], name)
-    set_generator_states(sampler._generators(), tree["generators"])
+        for module, row in zip(sampler.modules, chain_block(sampler, rows)):
+            copy_into(module.get_buffer(name), row, name)
+    restore_generators(sampler, tree["generators"])
     st.step = int(tree["step"])
     sampler.epochs_run = int(tree["epochs_run"])
     sampler.burnt_in = bool(int(tree["burnt_in"]))
