@@ -86,7 +86,9 @@ Phases, each ending with its seconds:
    ensemble distilled onto MLP200MNIST and an entropy head, the distilled
    error within 0.2 of the ensemble's and the distilled OOD AUROCs in
    [0, 1]; the seconds of sampling, of each task's BMA passes and of its
-   host metrics, and the step-forwards/s.
+   host metrics, and the step-forwards/s; before (a), config 4's data
+   stage (its CIFAR-100 splits, STL10 and SVHN, loaded as the runner loads
+   them) twice into a fresh synthetic cache: a miss, then a hit.
 13. the hyperparameter-optimization layer (hypopt): (a) K1's per-row table
    at 4 PreResNet-20 rows (1,089,128 floats): bit-equal to its plain version
    with the noise off and distinct lr, momentum and weight decay a row; a
@@ -137,7 +139,9 @@ Phases, each ending with its seconds:
    MLP200MNIST / MNIST (10,000 train images, cut from 60,000), S=3, T cut
    from 10 to 1 after 1 warm-up trial: every method's mean beside the
    torch-CPU baseline, K1 once a step of the SGHMC, SGLD, cSGHMC and cSGLD
-   trials.
+   trials; then the MCdropout and SGD rows split, one more trial each with
+   the CUDA-synchronized seconds of the sampler's set-up, of each of its
+   epochs (3 and 1 of 79 steps) and of the harvest after them.
 15. host streaming and the rest of the profiling layer (stream): (a)
    PreResNet-20 / synthetic CIFAR-10 at full size (50,000 images, batch
    128, fp32, SGHMC on one chain), resident, streamed through
@@ -164,8 +168,8 @@ Phases, each ending with its seconds:
    (2,048 CIFAR-10 images) at C = 1, 2, 4 and 8, and WideResNet-28x10 bf16
    (2,048 CIFAR-100 images) at C = 1, 2 and 4 (a C whose vmap run would not
    fit is skipped and printed): a warm-up epoch of each strategy (its peak
-   memory), then epochs timed with CUDA events in the order scan, vmap,
-   vmap, scan: aggregate and per-chain step-forwards/s and vmap/scan; K1
+   memory), then one epoch of each timed with CUDA events, scan then vmap:
+   aggregate and per-chain step-forwards/s and vmap/scan; K1
    once a step in every epoch; each model's vmap against scan from one seed
    over one batch, the first step's gradients and, after 4 noisy steps,
    parameters, momenta, BatchNorm statistics and losses: ||vmap - scan|| /
@@ -200,21 +204,30 @@ batch's own statistics), Prediction finite; PreResNet-20 streamed on (1, 2)
 per batch and in chunks of 16 (2,048 images) bit-equal to the resident
 sharded epoch on the stream's order, each rank's bytes a step half a
 batch's; SGHMC x2 on PreResNet-20 on (2, 1) checkpointed every 2 epochs,
-killed and resumed bit-equal, rank 0's file against one process's; K1 once
-a step on each rank; the seconds are two processes on one card, no scaling
-figure; (c) NCCL at a world size of 1 under ``torchrun --standalone``: one
-all-reduce, then ``cli run --mesh auto`` as it is and with ``--stream``
-(the result keys and values of runs without torchrun) and twice with
-``--checkpoint_path`` (the second resumes); its JSON under smoke_out/mesh/.
+killed and resumed bit-equal, rank 0's file against one process's; one HMC
+chain and one PCA-ESS chain on MLP200MNIST (4,096 images) on (2, 1),
+replicated on both ranks (the chain axis does not divide one chain), each
+bit-equal to one process on both; K1 once a step on each rank; the seconds
+are two processes on one card, no scaling figure; (c) NCCL at a world size
+of 1 under ``torchrun --standalone``: one all-reduce, then ``cli run --mesh
+auto`` as it is and with ``--stream`` (the result keys and values of runs
+without torchrun) and twice with ``--checkpoint_path`` (the second
+resumes); (d) three ranks sharing the card under ``torchrun --standalone``
+(gloo on CUDA tensors): ``cli run --mesh chain --chains 2`` lays (2, 1) over
+ranks 0-1 and rank 2 idles and writes nothing; rank 0's results within the
+runner's limits (rtol 2e-4, atol 1e-5; 2e-3 on the model-uncertainty
+AUROCs) of one process's; its JSON under smoke_out/mesh/.
 Then a JSON line describing each kernel (its launches on the main path,
 K1's summed over the slice, the ImageNet slice, the samplers, the
 experiment, the hypopt, the hmc_ess, the stream, the chains and the mesh
-phases, the mesh phase's two ranks included; its
+phases, the mesh phase's child ranks included; its
 error against its plain version, its time, the plain version's, its
 bound and the single library call's where there is one), and last the JSON
 line {"ok": true, "device": {...}}. Any failed check exits non-zero before
 it.
-Exits non-zero without a CUDA device. TF32 off throughout.
+Exits non-zero without a CUDA device. TF32 off throughout. The synthetic
+data cache (URSA_SYNTH_CACHE) is a directory under smoke_out/ emptied at the
+start of every run, so no entry of an earlier run is read.
 """
 
 from __future__ import annotations
@@ -307,6 +320,7 @@ K1_WRN_CALLS = 20  # graph-timed K1 calls at the two stacked WRN chains
 EXP_HYP = {"lr": 0.1, "prior_std": 0.5, "alpha": 0.5, "burn_in_epochs": 1, "num_samples": 2}
 EXP_TRIALS = 2
 EXP_OUT = "smoke_out/experiment"  # the runner's CSV rows and .npz files
+SYNTH_CACHE = "smoke_out/synth_cache"  # the run's synthetic data cache, emptied at its start
 MNIST_HYP = {"lr": 0.03, "prior_std": 1.0, "num_samples": 4, "burn_in_epochs": 3}  # SGLD
 MNIST_TRAIN, MNIST_TEST = 4096, 1024
 # the hypopt phase: BASELINE.md config 5 (benchmarks/baseline_suite.py:161-195),
@@ -377,6 +391,9 @@ CH_MODELS = (
     ("WideResNet28x10", "CIFAR100", 2048, "bf16", (1, 2, 4)),
 )
 CH_CHECK_STEPS, CH_CHECK_CHAINS = 4, 2  # vmap against scan: 4 noisy steps of 2 chains
+# the timed turns of each row, after its warm-up: one a strategy (scan vmap vmap
+# scan until the mesh phase grew again)
+CH_ORDER = ("scan", "vmap")
 # its limits: in float32, ||vmap - scan|| / ||scan|| (TF32 off); in bf16, vmap's
 # distance from a float32 run of the same seed, as a multiple of bf16 scan's own
 CH_FP32, CH_BF16 = 1e-4, 2.0
@@ -414,8 +431,12 @@ MESH_PRR_GAP = 1e-5  # PreResNet-20 on (2, 1) against one process: ||a - b|| / |
 MESH_TIMEOUT = 300  # seconds for the two ranks, or for one torchrun command
 MESH_RUN = ["--dataset", "MNIST", "--model", "MLP200MNIST", "--inference_method", "SGLD",
             "--hyperparams", json.dumps({**MNIST_HYP, "num_samples": 2, "burn_in_epochs": 1}),
-            "--synthetic_n_train", "4096", "--synthetic_n_test", "1024", "--num_trials", "1"]
+            "--synthetic_n_train", str(MESH_MLP_TRAIN), "--synthetic_n_test", "1024",
+            "--num_trials", "1"]
 MESH_OUT = "smoke_out/mesh"
+# (d): cli run over three ranks sharing the card, a (2, 1) chain mesh and one idle rank
+MESH_RUN3 = MESH_RUN + ["--mesh", "chain", "--chains", "2", "--chain_strategy", "scan"]
+MESH_WORLD3 = 3
 MESH_TORCHRUN = {"plain": [], "stream": ["--stream"],
                  "checkpoint": ["--checkpoint_path", f"{MESH_OUT}/torchrun_ck",
                                 "--checkpoint_every", "1"]}
@@ -550,6 +571,7 @@ def reference_probs(module_factory, ens, x):
 
 def slice_phase(device):
     from ursabench_tpu_torch import data, inference, models, tasks
+    from ursabench_tpu_torch.data.arrays import device_tensor
     from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN, normalize
     from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
 
@@ -597,7 +619,7 @@ def slice_phase(device):
 
     # the BMA pass against plain modules on the first test batch, and the
     # error rate and nll against numpy in float64
-    x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
+    x = normalize(device_tensor(test.images[:BATCH], device), test.spec)
     want = reference_probs(lambda: cfg.build(num_classes).to(device), ens,
                            x.permute(0, 3, 1, 2).contiguous()).cpu().numpy()
     check(np.allclose(task.ensemble_proba[:BATCH], want, rtol=1e-5, atol=1e-5),
@@ -712,6 +734,7 @@ def microbench_phase(device) -> dict:
 
 
 def latency_phase(device, ens, test) -> list:
+    from ursabench_tpu_torch.data.arrays import device_tensor
     from ursabench_tpu_torch.data.transforms import normalize
     from ursabench_tpu_torch.profiling.latency import (ProfileConfig, build_engine,
                                                        member_cost, profile_config,
@@ -723,7 +746,7 @@ def latency_phase(device, ens, test) -> list:
     # batch: held on a freshly initialised 2-member ensemble, whose weights do
     # not depend on the run, and printed for the slice's trained one, whose
     # weights do (cuDNN's backward is not deterministic)
-    x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
+    x = normalize(device_tensor(test.images[:BATCH], device), test.spec)
     x = x.permute(0, 3, 1, 2).contiguous()
     for label, e in (("fresh", random_ensemble("PreResNet20", 10, 2, device)),
                      ("trained", ens)):
@@ -941,6 +964,7 @@ def model_check(device, test) -> None:
     import torch.nn.functional as F
 
     from ursabench_tpu_torch import models
+    from ursabench_tpu_torch.data.arrays import device_tensor
     from ursabench_tpu_torch.data.transforms import normalize
     from ursabench_tpu_torch.kernels.conv1x1 import conv1x1_mm, conv1x1_wgrad
 
@@ -951,7 +975,7 @@ def model_check(device, test) -> None:
     seen = {}
     hook = conv.register_forward_hook(
         lambda mod, inp, out: seen.update(x=inp[0].detach(), y=out.detach()))
-    x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
+    x = normalize(device_tensor(test.images[:BATCH], device), test.spec)
     with torch.no_grad():
         m.train()(x.permute(0, 3, 1, 2).contiguous())
     hook.remove()
@@ -978,6 +1002,7 @@ def imagenet_phase(device) -> dict:
     """TVResNet-50 bf16 SGHMC + BMA at 224^2 (profiling/imagenet_train.run),
     then the K3 check on the model's own layer."""
     from ursabench_tpu_torch import models
+    from ursabench_tpu_torch.data.arrays import device_tensor
     from ursabench_tpu_torch.data.transforms import normalize
     from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
     from ursabench_tpu_torch.profiling import imagenet_train as IT
@@ -995,7 +1020,7 @@ def imagenet_phase(device) -> dict:
     for k, val in metrics.items():
         nan_by_design = k.startswith("misclass") and err in (0.0, 1.0)
         check(math.isfinite(val) or nan_by_design, f"metric {k} = {val}")
-    x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
+    x = normalize(device_tensor(test.images[:BATCH], device), test.spec)
     want = reference_probs(
         lambda: models.get_model("TVResNet50").build(IT.CLASSES, dtype=torch.bfloat16).to(device),
         ens, x.permute(0, 3, 1, 2).contiguous()).cpu().numpy()
@@ -1129,6 +1154,7 @@ def samplers_phase(device) -> dict:
     then Prediction on 512 test images; K1 once a step for cSGHMC's two
     chains and for cSGLD, and never for the others."""
     from ursabench_tpu_torch import data, inference, models, tasks
+    from ursabench_tpu_torch.data.arrays import device_tensor
     from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN, normalize
     from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
 
@@ -1143,7 +1169,7 @@ def samplers_phase(device) -> dict:
     build = lambda: cfg.build(WRN_CLASSES, dtype=torch.bfloat16)  # noqa: E731
     twin = models.dropout_twin("WideResNet28x10")
     check(sum(p.numel() for p in build().parameters()) == WRN_FLAT, "WRN parameter count")
-    x = normalize(torch.from_numpy(test.images[:BATCH]).to(device), test.spec)
+    x = normalize(device_tensor(test.images[:BATCH], device), test.spec)
     x = x.permute(0, 3, 1, 2).contiguous()
 
     sghmc_update_flat.launches = 0
@@ -1272,6 +1298,59 @@ def _stage_line(timings) -> str:
     return "; ".join(parts)
 
 
+def _data_stage_miss_hit(argv, device) -> dict:
+    """The runner's data stage for ``argv`` (its train and test splits, then
+    its OOD pairings, loaded as ``experiment.main`` loads them), twice into
+    a fresh synthetic cache of its own: a miss, which generates and writes
+    every set, then a hit, which maps them. Beside each, the move of every
+    split it loaded to the card (``device_tensors``, as the samplers and
+    tasks make it), which on a hit pages the mapped sets in."""
+    import os
+    import shutil
+
+    from ursabench_tpu_torch import data, experiment, models
+
+    args = experiment.build_parser().parse_args(argv)
+    cfg = models.get_model(args.model)
+    cache, saved = os.path.abspath(f"{SYNTH_CACHE}_config4"), os.environ.get("URSA_SYNTH_CACHE")
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["URSA_SYNTH_CACHE"] = cache
+    out = {}
+    try:
+        for kind in ("miss", "hit"):
+            t0 = time.perf_counter()
+            splits, _ = data.loaders(
+                args.dataset, args.data_path, args.batch_size, args.num_workers,
+                transform_train=cfg.transform_train, transform_test=cfg.transform_test,
+                shuffle_train=True, use_validation=args.use_val, val_size=args.validation,
+                split_classes=args.split_classes, seed=args.seed,
+                synthetic_n_train=args.synthetic_n_train,
+                synthetic_n_test=args.synthetic_n_test)
+            ood = experiment._load_ood(args, cfg)
+            out[kind] = time.perf_counter() - t0
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            moved = [split.device_tensors(device)
+                     for split in [*splits.values(), *(o["test"] for o in ood)]]
+            torch.cuda.synchronize(device)
+            out[f"{kind}_to_card"] = time.perf_counter() - t0
+            del moved
+        out["entries"] = len(os.listdir(cache)) // 2
+    finally:
+        if saved is None:
+            del os.environ["URSA_SYNTH_CACHE"]
+        else:
+            os.environ["URSA_SYNTH_CACHE"] = saved
+    check(out["entries"] == 6, f"config 4's data stage cached {out['entries']} sets, not 6")
+    print(f"  config 4's data stage ({args.dataset} {args.synthetic_n_train} / "
+          f"{args.synthetic_n_test} images, STL10 and SVHN as its OOD pairings; "
+          f"{out['entries']} synthetic sets): cache miss {out['miss']:.3f} s, hit "
+          f"{out['hit']:.3f} s; its splits to the card after the miss "
+          f"{out['miss_to_card']:.3f} s, after the hit {out['hit_to_card']:.3f} s (the "
+          "hit's page-in)", flush=True)
+    return out
+
+
 def experiment_phase(device) -> dict:
     """The benchmark runner on the card, through `cli run`: (a) BASELINE
     config 4 at full width and depth in test mode, with the imbalanced
@@ -1295,6 +1374,7 @@ def experiment_phase(device) -> dict:
             "--synthetic_n_train", str(WRN_TRAIN), "--synthetic_n_test", str(WRN_TEST),
             "--batch_size", str(BATCH), "--use_dm_imbalance", "--save_path", save,
             "--hyperparams", json.dumps(EXP_HYP)]
+    out["data_stage"] = _data_stage_miss_hit(argv, device)
     seconds, launches = _run_cli(argv, runs)
     timings = dict(experiment.TIMINGS)
     check(len(runs) == 2 * EXP_TRIALS, f"{len(runs)} samplers, not {2 * EXP_TRIALS}")
@@ -2064,7 +2144,57 @@ def time_run(device, tmp) -> dict:
         print(f"    {m}: {timer[m + '_mean']:.3f} +- {timer[m + '_std']:.3f} s over "
               f"{HE_TIME_T} trials; torch-CPU baseline (60,000 images) {base}", flush=True)
     print(f"  (e) cli time: {seconds:.1f} s, K1 {launches} launches", flush=True)
-    return {"seconds": seconds, "launches": launches, "times": timer}
+    split = {m: _time_split(device, m) for m in ("MCdropout", "SGD")}
+    return {"seconds": seconds, "launches": launches, "times": timer, "split": split}
+
+
+def _time_split(device, method: str) -> dict:
+    """One more ``cli time`` trial of ``method`` (its tuned values, the
+    burn-in zeroed, S=3) with the CUDA-synchronized seconds of the
+    sampler's set-up, of each epoch it trains, and of the harvest (the rest
+    of ``sample()``); the epochs and steps must be the protocol's: MCdropout
+    1 + 1 + 1 epochs, SGD epochs + 1 = 1, though the CPU baseline
+    (benchmarks/torch_cpu_methods.py:284-297) trains none."""
+    from ursabench_tpu_torch import data, inference, models, time_script
+
+    cfg = models.get_model("MLP200MNIST")
+    splits, c = data.loaders("MNIST", None, BATCH, transform_train=cfg.transform_train,
+                             transform_test=cfg.transform_test, use_validation=False, seed=1,
+                             synthetic_n_train=HE_TIME_TRAIN, synthetic_n_test=HE_TIME_TEST)
+    train = splits["train"]
+    hyp = time_script.normalize_burnin(method, time_script.load_method_hyp(None, method), 3)
+    build = models.dropout_twin("MLP200MNIST") if method == "MCdropout" else cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler = inference.get_inference(method)(hyperparameters=hyp, model=build.build(c),
+                                              train=train, seed=1, device=device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    epochs, run_epoch = [], sampler._run_epoch
+
+    def timed_epoch(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = run_epoch(*args, **kw)
+        torch.cuda.synchronize()
+        epochs.append(time.perf_counter() - t)
+        return loss
+
+    sampler._run_epoch = timed_epoch
+    t0 = time.perf_counter()
+    ens = sampler.sample()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    want = 3 if method == "MCdropout" else 1  # epochs, and members
+    check(len(epochs) == want and ens.num_members == want,
+          f"cli time split: {method} trained {len(epochs)} epochs, {ens.num_members} members")
+    steps = len(epochs) * train.num_batches
+    print(f"    {method} split: set-up {setup:.3f} s, {len(epochs)} epoch(s) of "
+          f"{train.num_batches} steps ({steps} steps) {sum(epochs):.3f} s "
+          f"({', '.join(f'{e:.3f}' for e in epochs)}), harvest {total - sum(epochs):.3f} s; "
+          "the torch-CPU baseline trains no step", flush=True)
+    return {"setup_s": setup, "epochs_s": epochs, "harvest_s": total - sum(epochs),
+            "steps": steps}
 
 
 def hmc_ess_phase(device) -> dict:
@@ -2505,9 +2635,9 @@ def _ch_agree(device, name, dataset, dtype, launches: list) -> dict:
 
 def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
     """The timed rows of one model: at each C, a warm-up epoch of each
-    strategy (its peak memory), then timed epochs in the order scan, vmap,
-    vmap, scan; a C whose vmap run would not fit beside what is allocated
-    (C times the one-chain vmap epoch's working memory) is skipped."""
+    strategy (its peak memory), then timed epochs in the turns CH_ORDER; a C
+    whose vmap run would not fit beside what is allocated (C times the
+    one-chain vmap epoch's working memory) is skipped."""
     import gc
 
     split, c = _ch_split(name, dataset, n)
@@ -2524,7 +2654,7 @@ def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
             for strategy in ("scan", "vmap"):
                 samplers[strategy] = _ch_sampler(device, name, split, c, dtype, chains, strategy)
                 peak[strategy] = _ch_peak(samplers[strategy], launches)
-            for strategy in ("scan", "vmap", "vmap", "scan"):
+            for strategy in CH_ORDER:
                 ms[strategy].append(_ch_epoch(samplers[strategy], launches))
         except torch.cuda.OutOfMemoryError:
             print(f"  {name} C={chains}: skipped, out of memory", flush=True)
@@ -2554,9 +2684,9 @@ def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
 
 
 def _ch_hmc(device) -> dict:
-    """HMC x CH_ROWS chains on MLP200MNIST over 10,240 images, in turns scan,
-    vmap, vmap, scan from the same seed: gradients/s, s a draw, the accept
-    rate; vmap's draws against scan's (the same accepts)."""
+    """HMC x CH_ROWS chains on MLP200MNIST over 10,240 images, in the turns
+    CH_ORDER from the same seed: gradients/s, s a draw, the accept rate;
+    vmap's draws against scan's (the same accepts)."""
     from ursabench_tpu_torch import inference, models
 
     split, c = _ch_split("MLP200MNIST", "MNIST", 10240)
@@ -2564,7 +2694,7 @@ def _ch_hmc(device) -> dict:
                              train=split, seed=1, device=device, chains=CH_ROWS,
                              chain_strategy=k) for k in ("scan", "vmap")}
     secs, runs = {"scan": [], "vmap": []}, {}
-    for k in ("scan", "vmap", "vmap", "scan"):
+    for k in CH_ORDER:
         hmcs[k]._gen.manual_seed(7)  # every run draws the same momenta and uniforms
         ens, sec = _timed_sample(hmcs[k])
         secs[k].append(sec)
@@ -2584,7 +2714,7 @@ def _ch_pca(device) -> dict:
     """PCA-ESS x CH_ROWS chains on PreResNet-20 over 2,048 images: the SWA
     phase and a first draw, then one check draw in turn and in lock step from
     the same state and streams (the same points and bracket counts), then
-    draws timed in the order in-turn, lock-step, lock-step, in-turn."""
+    draws timed in the turns CH_ORDER (in turn, lock step)."""
     from ursabench_tpu_torch import inference, models
 
     split, c = _ch_split("PreResNet20", "CIFAR10", 2048)
@@ -2607,7 +2737,7 @@ def _ch_pca(device) -> dict:
           f"chains: lock-step ESS brackets {check_draw['vmap'][1]} against in-turn "
           f"{check_draw['scan'][1]}, points {worst:.3g} apart")
     secs, props = {"scan": [], "vmap": []}, {"scan": [], "vmap": []}
-    for k in ("scan", "vmap", "vmap", "scan"):
+    for k in CH_ORDER:
         pca._resolved_chain_strategy = k
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2622,7 +2752,7 @@ def _ch_pca(device) -> dict:
 def _ch_sweep(device, launches: list) -> dict:
     """MethodSweep of CH_ROWS SGHMC configs (lr CH_SWEEP_LR) on PreResNet-20
     over 2,048 images: a warm-up epoch of each strategy, then epochs timed
-    in the order scan, vmap, vmap, scan; sweep step-forwards/s."""
+    in the turns CH_ORDER; sweep step-forwards/s."""
     from ursabench_tpu_torch import inference, models
 
     split, c = _ch_split("PreResNet20", "CIFAR10", 2048)
@@ -2634,7 +2764,7 @@ def _ch_sweep(device, launches: list) -> dict:
         check(sw.sampler._resolved_chain_strategy == k, f"sweep strategy {k}")
         _ch_epoch(sw.sampler, launches)
     ms = {"scan": [], "vmap": []}
-    for k in ("scan", "vmap", "vmap", "scan"):
+    for k in CH_ORDER:
         ms[k].append(_ch_epoch(sweeps[k].sampler, launches))
     steps = split.num_batches
     return {"step_forwards_per_s": {k: [CH_ROWS * steps * 1e3 / v for v in ms[k]] for k in ms}}
@@ -2667,7 +2797,7 @@ def chains_phase(device) -> dict:
             if key in agree:
                 print(f"    {name} {dtype} {key}: " + ", ".join(
                     f"{k} {v:.2e}" for k, v in agree[key].items()), flush=True)
-    print("  chains table (SGHMC, batch 128, one epoch a run, turns scan vmap vmap scan; "
+    print(f"  chains table (SGHMC, batch 128, one epoch a run, turns {' '.join(CH_ORDER)}; "
           "step-forwards/s aggregate, per chain, vmap/scan, peak GB allocated):", flush=True)
     for r in out["rows"]:
         if r.get("skipped"):
@@ -2759,7 +2889,8 @@ def _mesh_work(device, chain_mesh, data_mesh, tmp: str) -> dict:
     """What the mesh phase runs on a rank, or in one process with both
     meshes None: PreResNet-20 SGHMC x2 chains (one draw after one epoch)
     and its Prediction, sharded and gathered; MLP200MNIST SGHMC x1 chain;
-    HMC on MLP200MNIST; PreResNet-20 SGHMC x2 checkpointed and resumed;
+    HMC on MLP200MNIST; one HMC and one PCA-ESS chain replicated over the
+    chain mesh; PreResNet-20 SGHMC x2 checkpointed and resumed;
     on the ranks, PCA-ESS and the streamed epochs over the data mesh. K1's
     launches are counted."""
     from ursabench_tpu_torch import data, inference, models
@@ -2788,6 +2919,7 @@ def _mesh_work(device, chain_mesh, data_mesh, tmp: str) -> dict:
     m.sample()
     out["mlp"] = m._state.params.cpu()
     out["hmc"] = _mesh_hmc(device, mnist["train"], c, chain_mesh, data_mesh)
+    out["replicated"] = _mesh_replicated(device, mnist["train"], c, chain_mesh)
     if data_mesh is not None:
         out["pca"] = _mesh_pca(device, data_mesh)
         out["stream"] = _mesh_stream(device, data_mesh)
@@ -2828,6 +2960,21 @@ def _mesh_hmc(device, train, c, chain_mesh, data_mesh) -> dict:
     out["two_chains"] = _flat_members(two.sample())
     out["accept"] = (one.accept_rate, two.accept_rate)
     return out
+
+
+def _mesh_replicated(device, train, c, chain_mesh) -> dict:
+    """One HMC chain and one PCA-ESS chain on MLP200MNIST on the chain mesh
+    (or in one process), whose chain axis does not divide them: both ranks
+    hold the whole chain, as the JAX package runs one chain unplaced."""
+    from ursabench_tpu_torch import inference, models
+
+    hmc = inference.HMC(MESH_HMC, model=models.get_model("MLP200MNIST").build(c), train=train,
+                        seed=5, device=device, mesh=chain_mesh)
+    pca = inference.PCASubspaceSampler(MESH_PCA, model=models.get_model("MLP200MNIST").build(c),
+                                       train=train, seed=6, device=device, mesh=chain_mesh)
+    return {"flags": (hmc.replicated, pca.replicated, list(hmc.chain_ids)),
+            "hmc": _flat_members(hmc.sample()), "hmc_accept": hmc.accept_rate,
+            "pca": _flat_members(pca.sample()), "pca_theta": pca.current_theta.cpu()}
 
 
 @torch.no_grad()
@@ -3035,14 +3182,45 @@ def _nccl_world1() -> int:
         dist.destroy_process_group()
 
 
-def _torchrun(args: list) -> str:
-    """``torchrun --standalone --nproc_per_node 1 args``: its stdout, or a
-    failed check."""
+def _gloo_world3() -> int:
+    """Under torchrun, one of MESH_WORLD3 ranks sharing the card: gloo on
+    CUDA tensors (NCCL refuses ranks that share a device; the runner's
+    ``initialize()`` then finds the group made), then ``cli run
+    --mesh chain --chains 2``, which lays (2, 1) over ranks 0-1 and leaves
+    rank 2 idle, each rank saving under its own directory; prints the
+    rank's files and K1 launches."""
+    import os
+
+    import torch.distributed as dist
+
+    from ursabench_tpu_torch import cli, parallel
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    torch.backends.cudnn.allow_tf32 = False  # as in main(): the run it is compared with
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize(backend="gloo")
+    me = dist.get_rank()
+    save = f"{MESH_OUT}/world3_rank{me}"
+    os.makedirs(save)
+    try:
+        code = cli.main(["run", *MESH_RUN3, "--save_path", f"{save}/run"])
+        print(json.dumps({"gloo_world3": {
+            "rank": me, "world": dist.get_world_size(), "backend": dist.get_backend(),
+            "code": code, "files": sorted(os.listdir(save)),
+            "k1": sghmc_update_flat.launches}}), flush=True)
+        return code
+    finally:
+        dist.destroy_process_group()
+
+
+def _torchrun(args: list, nproc: int = 1) -> str:
+    """``torchrun --standalone --nproc_per_node nproc args``: its stdout, or
+    a failed check."""
     import subprocess
 
     out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                          "--nproc_per_node", "1", *args], capture_output=True, text=True,
-                         timeout=MESH_TIMEOUT)
+                          "--nproc_per_node", str(nproc), *args], capture_output=True,
+                         text=True, timeout=MESH_TIMEOUT)
     check(out.returncode == 0, f"torchrun {args} failed: {out.stderr[-3000:]}")
     return out.stdout
 
@@ -3135,19 +3313,79 @@ def _mesh_checks(ranks: list, one: dict) -> dict:
     file_gap = _file_gap(ranks[0]["resume"]["file"], one["resume"]["file"])
     check(file_gap <= MESH_PRR_GAP, f"mesh: the (2, 1) checkpoint {file_gap:.3g} from one "
                                     "process's")
+    # one HMC and one PCA-ESS chain replicated over (2, 1): one process's, bit for bit
+    rep = one["replicated"]
+    for r in ranks:
+        got = r["replicated"]
+        check(got["flags"] == (True, True, [0]) and rep["flags"] == (False, False, [0]),
+              f"mesh: replicated flags {got['flags']} / {rep['flags']}")
+        check(torch.equal(got["hmc"], rep["hmc"]) and got["hmc_accept"] == rep["hmc_accept"],
+              f"mesh: HMC x1 on (2, 1) {_rel_gap(got['hmc'], rep['hmc']):.3g} from one "
+              f"process, accept {got['hmc_accept']} / {rep['hmc_accept']}")
+        check(torch.equal(got["pca"], rep["pca"]) and torch.equal(got["pca_theta"],
+                                                                    rep["pca_theta"]),
+              f"mesh: PCA-ESS x1 on (2, 1) {_rel_gap(got['pca'], rep['pca']):.3g} from one "
+              "process")
     return {"gap": gap, "metrics_max_abs": worst, "hmc_ce_gap": ce_gap,
             "hmc_grad_gap": grad_gap, "hmc_accepts": flags[0],
             "hmc2_gap": hmc2_gap, "pca": {k: pca[k] for k in ("lnpdf", "oracle", "whole",
                                                               "proposals", "seconds")},
             "oracle_gap": oracle_gap, "file_gap": file_gap,
+            "replicated_accept": rep["hmc_accept"],
             "stream": {m: [{k: r["stream"][m][k] for k in ("bytes_per_step", "seconds")}
                            for r in ranks] for m in (1, STREAM_CHUNK)}}
+
+
+def _world3(runs: list) -> dict:
+    """(d) ``_gloo_world3`` under torchrun against ``cli run`` of the same
+    arguments in this process (one process: no mesh)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    for r in range(MESH_WORLD3):
+        shutil.rmtree(f"{MESH_OUT}/world3_rank{r}", ignore_errors=True)
+    stdout = _torchrun([__file__, "--gloo_world3"], MESH_WORLD3)
+    lines = sorted((json.loads(line)["gloo_world3"] for line in stdout.splitlines()
+                    if line.startswith('{"gloo_world3"')), key=lambda g: g["rank"])
+    check([g["rank"] for g in lines] == list(range(MESH_WORLD3))
+          and all(g["code"] == 0 and g["backend"] == "gloo" for g in lines),
+          f"mesh: three ranks under torchrun: {lines}")
+    check(lines[0]["files"] == ["run_tests.npz", "runresults.csv"]
+          and all(g["files"] == [] for g in lines[1:]),
+          f"mesh: files written by the three ranks {[g['files'] for g in lines]}")
+    check(f"rank {MESH_WORLD3 - 1} idles" in stdout, "mesh: rank 2 did not say it idles")
+    steps = 3 * MESH_MLP_TRAIN // BATCH  # 3 epochs, a chain a rank
+    check([g["k1"] for g in lines] == [steps, steps, 0],
+          f"mesh: K1 launches of the three ranks {[g['k1'] for g in lines]}, expected "
+          f"[{steps}, {steps}, 0]")
+    world3_s = time.perf_counter() - t0
+    _, n = _run_cli(MESH_RUN3 + ["--save_path", f"{MESH_OUT}/world3_one"], runs)
+    worst = {}
+    with np.load(f"{MESH_OUT}/world3_rank0/run_tests.npz") as f1, \
+            np.load(f"{MESH_OUT}/world3_one_tests.npz") as f2:
+        check(sorted(f1.files) == sorted(f2.files), "mesh: three ranks' result keys differ")
+        for k in f1.files:
+            d = float(abs(f1[k] - f2[k]))
+            limit = 2e-3 if "model_uncertainty_au" in k else 1e-5 + 2e-4 * abs(float(f2[k]))
+            check(np.isfinite(f1[k]).all() and d <= limit,
+                  f"mesh: three ranks' {k} {float(f1[k])} vs one process {float(f2[k])}")
+            worst[k] = d
+    top = max(worst, key=worst.get)
+    print(f"  (d) {MESH_WORLD3} ranks sharing the card under torchrun --standalone (gloo on "
+          f"CUDA tensors): cli run --mesh chain --chains 2 laid (2, 1) over ranks 0-1, rank 2 "
+          f"idle, writing nothing; rank 0's {len(worst)} results within the runner's limits "
+          f"of one process's (largest difference {worst[top]:.3g}, {top}; "
+          f"{sum(d == 0 for d in worst.values())} equal); K1 "
+          f"{[g['k1'] for g in lines]}; {world3_s:.1f} s for the three ranks", flush=True)
+    return {"seconds": world3_s, "max_diff": worst[top], "launches": n + 2 * steps,
+            "k1": [g["k1"] for g in lines]}
 
 
 def mesh_phase(device, row_len: int) -> dict:
     """The device mesh on the one card: (a) K1 with a global offset; (b) two
     ranks sharing the card as child processes against one process; (c)
-    NCCL at a world size of 1 and the runner under torchrun."""
+    NCCL at a world size of 1 and the runner under torchrun; (d) the runner
+    over a mesh of two of three ranks sharing the card."""
     import glob
     import os
 
@@ -3195,7 +3433,9 @@ def mesh_phase(device, row_len: int) -> dict:
                       f"{MESH_STREAM_TRAIN // BATCH} steps)" for m in st)
           + f", half of a batch's {ranks[0]['stream']['batch_bytes']}; SGHMC x2 on (2, 1) "
           f"killed after 2 epochs and resumed bit-equal, its file {got['file_gap']:.3g} from "
-          f"one process's; K1 {want} launches (ranks, one process)", flush=True)
+          f"one process's; one HMC chain (accept rate {got['replicated_accept']}) and one "
+          f"PCA-ESS chain on MLP200MNIST replicated over (2, 1), bit-equal to one process "
+          f"on both ranks; K1 {want} launches (ranks, one process)", flush=True)
     out["two_ranks"] = {"seconds": two_s, "k1": [r["k1"] for r in ranks] + [one["k1"]],
                         **{k: v for k, v in got.items() if k != "stream"},
                         "stream": got["stream"]}
@@ -3237,6 +3477,8 @@ def mesh_phase(device, row_len: int) -> dict:
           f"(largest differences {diffs}; a world of 1 builds no mesh); with "
           f"--checkpoint_path twice, the second {resumed[0]}; {nccl_s:.1f} s", flush=True)
     out["nccl"] = {"seconds": nccl_s, "keys": len(keys), "max_diff": diffs}
+    out["world3"] = _world3(runs)
+    launches += out["world3"]["launches"]
     out["launches"] = sum(r["k1"] for r in ranks) + one["k1"] + launches
     with open(f"{MESH_OUT}/mesh_phase.json", "w") as f:
         json.dump(out, f, indent=1, default=str)
@@ -3255,6 +3497,12 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    import os
+    import shutil
+
+    cache = os.path.abspath(SYNTH_CACHE)  # child processes inherit it
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["URSA_SYNTH_CACHE"] = cache
 
     from ursabench_tpu_torch import models
     from ursabench_tpu_torch.kernels import build, conv1x1, int8_gemv, sghmc, stream_probe
@@ -3346,9 +3594,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--nccl_world1"]:  # the mesh phase's child under torchrun
+    children = {"--nccl_world1": "_nccl_world1", "--gloo_world3": "_gloo_world3"}
+    if len(sys.argv) == 2 and sys.argv[1] in children:  # the mesh phase's torchrun children
         if not torch.cuda.is_available():
             print("FAILED: torch.cuda.is_available() is False", flush=True)
             sys.exit(1)
-        sys.exit(_nccl_world1())
+        sys.exit(globals()[children[sys.argv[1]]]())
     sys.exit(main())

@@ -5,6 +5,9 @@ flip given the random choices the JAX package drew."""
 
 import os
 import pickle
+import tempfile
+import time
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,7 @@ from ursabench_tpu import data as jdata
 from ursabench_tpu.data import sources as jsources
 from ursabench_tpu.data import transforms as jtransforms
 from ursabench_tpu_torch import data as tdata
+from ursabench_tpu_torch.data import arrays as tarrays
 from ursabench_tpu_torch.data import sources as tsources
 from ursabench_tpu_torch.data import transforms as ttransforms
 
@@ -273,7 +277,7 @@ def _assert_splits_equal(sj, st):
         assert sj[part].dataset_name == st[part].dataset_name
 
 
-@pytest.mark.parametrize("kw", [
+LOADER_OPTIONS = [
     dict(dataset="CIFAR10", split_classes=0),
     dict(dataset="CIFAR10", split_classes=1, use_validation=True),
     dict(dataset="MNIST", imbalance=True),
@@ -283,7 +287,14 @@ def _assert_splits_equal(sj, st):
     dict(dataset="SVHN", use_validation=True, val_size=30),
     dict(dataset="SVHN", use_validation=False),
     dict(dataset="STL10", use_validation=False),
-], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+]
+
+
+def _option_id(kw) -> str:
+    return "-".join(f"{k}={v}" for k, v in kw.items())
+
+
+@pytest.mark.parametrize("kw", LOADER_OPTIONS, ids=_option_id)
 def test_loader_options_identical(kw):
     kw = {"use_validation": False, "batch_size": 32, "seed": 2, "synthetic_n_train": 400,
           "synthetic_n_test": 60, **kw}
@@ -323,3 +334,171 @@ def test_loaders_inc_identical(use_validation):
     assert [b.n for b in st["train"]] == ([60, 60, 60] if use_validation else [77, 77, 76])
     np.testing.assert_array_equal(np.asarray(sj["test"].labels), st["test"].labels)
     np.testing.assert_array_equal(np.asarray(sj["test"].images), st["test"].images)
+
+
+# -- the on-disk synthetic cache --------------------------------------------------------------
+
+CACHED = [("MNIST", True, 70, 0, None), ("CIFAR10", False, 40, 3, {"separation": 2.0})]
+
+
+def _generated(name, train, n, seed, diff, monkeypatch):
+    """The set generated with the cache off."""
+    monkeypatch.setenv("URSA_SYNTH_CACHE", "0")
+    return tsources.synthetic(name, train, n=n, seed=seed, difficulty=diff)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_synthetic_cache_entries_cross_between_the_packages(tmp_path, monkeypatch, writer):
+    """An entry the JAX package wrote is a hit for the port, and the other
+    way round: the same paths (under the default root too), the reader
+    generates nothing, and the bytes equal a generation without the
+    cache."""
+    for name, train, n, seed, diff in CACHED:
+        d = tsources.resolve_difficulty(name, diff)
+        for root in (None, str(tmp_path)):
+            if root is None:  # the default root, with no TMPDIR: the JAX package's /tmp one
+                monkeypatch.delenv("URSA_SYNTH_CACHE", raising=False)
+                for var in ("TMPDIR", "TEMP", "TMP"):
+                    monkeypatch.delenv(var, raising=False)
+                monkeypatch.setattr(tempfile, "tempdir", None)
+            else:
+                monkeypatch.setenv("URSA_SYNTH_CACHE", root)
+            want = jsources._synth_cache_path(name, train, n, seed, d)
+            assert tsources._synth_cache_path(name, train, n, seed, d) == want
+            assert want.startswith((root or "/tmp/ursabench_synth_cache") + os.sep)
+    want = [_generated(*case, monkeypatch) for case in CACHED]
+    monkeypatch.setenv("URSA_SYNTH_CACHE", str(tmp_path))
+    write, read = (jsources, tsources) if writer == "jax" else (tsources, jsources)
+    for name, train, n, seed, diff in CACHED:
+        write.synthetic(name, train, n=n, seed=seed, difficulty=diff)
+    files = sorted(os.listdir(tmp_path))
+    assert len(files) == 2 * len(CACHED) and not any(".tmp." in f for f in files)
+    monkeypatch.setattr(read, "_synth_writable_output",
+                        lambda *a: pytest.fail("a cache hit generated the set again"))
+    for (name, train, n, seed, diff), (x0, y0) in zip(CACHED, want):
+        x, y = read.synthetic(name, train, n=n, seed=seed, difficulty=diff)
+        assert isinstance(x, np.memmap) and not x.flags.writeable
+        assert x.dtype == x0.dtype and x.shape == x0.shape and y.dtype == y0.dtype
+        np.testing.assert_array_equal(x, x0)
+        np.testing.assert_array_equal(y, y0)
+    assert sorted(os.listdir(tmp_path)) == files
+
+
+def test_synthetic_cache_default_root_follows_tmpdir(tmp_path, monkeypatch):
+    """With ``URSA_SYNTH_CACHE`` unset the cache lies in the temporary
+    directory, so a run with a ``TMPDIR`` of its own reads and writes
+    there and nowhere else."""
+    monkeypatch.delenv("URSA_SYNTH_CACHE", raising=False)
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", None)
+    root = tmp_path / "ursabench_synth_cache"
+    d = tsources.resolve_difficulty("MNIST")
+    assert tsources._synth_cache_path("MNIST", True, 20, 0, d).startswith(str(root) + os.sep)
+    x, _ = tsources.synthetic("MNIST", True, n=20)
+    assert isinstance(x, np.memmap) and os.path.dirname(x.filename) == str(root)
+    assert sorted(os.listdir(root)) == sorted(
+        os.path.basename(tsources._synth_cache_path("MNIST", True, 20, 0, d)) + suffix
+        for suffix in (".x.npy", ".y.npy"))
+
+
+@pytest.mark.parametrize("value", ["0", ""])
+def test_synthetic_cache_turns_off(tmp_path, monkeypatch, value):
+    """``URSA_SYNTH_CACHE`` "0" or "": no path, nothing written (not even
+    relative to the working directory), a plain writable array."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("URSA_SYNTH_CACHE", value)
+    d = tsources.resolve_difficulty("MNIST")
+    assert tsources._synth_cache_path("MNIST", True, 20, 0, d) is None
+    x, _ = tsources.synthetic("MNIST", True, n=20)
+    assert type(x) is np.ndarray and x.flags.writeable and os.listdir(tmp_path) == []
+
+
+def test_synthetic_cache_not_aliased(tmp_path, monkeypatch):
+    """A write into the images synthetic() returned, a miss's or a hit's,
+    raises and never reaches the cache; a split's tensors are copies of
+    them, made without torch's warning about read-only arrays, so writing
+    into those leaves the cache whole too."""
+    monkeypatch.setenv("URSA_SYNTH_CACHE", str(tmp_path))
+    miss, _ = tsources.synthetic("MNIST", True, n=64)
+    want = np.array(miss)
+    hit, _ = tsources.synthetic("MNIST", True, n=64)
+    for x in (miss, hit):
+        assert not x.flags.writeable
+        with pytest.raises(ValueError, match="read-only"):
+            x[0] = 0
+        with pytest.raises(ValueError, match="read-only"):
+            np.asarray(x)[0] = 0
+    splits, _ = tdata.loaders("MNIST", None, batch_size=16, use_validation=False,
+                              synthetic_n_train=64, synthetic_n_test=16)
+    assert not splits["train"].images.flags.writeable
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        images, labels = splits["train"].device_tensors("cpu")
+        batch, _ = next(splits["train"].batches("cpu", normalized=False))
+        # another device: the host-to-device copy alone, without a host copy's warning
+        meta = tarrays.device_tensor(hit, "meta")
+    assert meta.is_meta and tuple(meta.shape) == hit.shape and meta.dtype == torch.uint8
+    images.zero_()
+    labels.zero_()
+    batch.zero_()
+    again, _ = tsources.synthetic("MNIST", True, n=64)
+    np.testing.assert_array_equal(again, want)
+    assert int(want.max()) > 0
+
+
+def test_truncated_cache_entry_regenerates(tmp_path, monkeypatch):
+    """An entry cut short fails to load and is generated again, whole; a
+    miss sweeps tmp files older than an hour and leaves a younger one (a
+    live generation of another process) alone."""
+    monkeypatch.setenv("URSA_SYNTH_CACHE", str(tmp_path))
+    d = tsources.resolve_difficulty("CIFAR10")
+    base = tsources._synth_cache_path("CIFAR10", True, 30, 0, d)
+    x0, y0 = _generated("CIFAR10", True, 30, 0, None, monkeypatch)
+    monkeypatch.setenv("URSA_SYNTH_CACHE", str(tmp_path))
+    tsources.synthetic("CIFAR10", True, n=30)
+    with open(base + ".x.npy", "r+b") as f:
+        f.truncate(200)
+    assert tsources._synth_cache_load("CIFAR10", True, 30, 0, d) is None
+    stale, live = base + ".tmp.1.x.npy", base + ".tmp.2.x.npy"
+    for path in (stale, live):
+        open(path, "wb").close()
+    old = time.time() - 7200
+    os.utime(stale, (old, old))
+    x, y = tsources.synthetic("CIFAR10", True, n=30)
+    np.testing.assert_array_equal(x, x0)
+    np.testing.assert_array_equal(y, y0)
+    hit = tsources._synth_cache_load("CIFAR10", True, 30, 0, d)
+    np.testing.assert_array_equal(hit[0], x0)
+    assert not os.path.exists(stale) and os.path.exists(live)
+
+
+@pytest.mark.parametrize("kw", LOADER_OPTIONS, ids=_option_id)
+def test_loaders_equal_with_the_cache_on_and_off(tmp_path, monkeypatch, kw):
+    """Every loader option gives the same bytes without the cache, from a
+    miss and from a hit: no loader writes into the arrays synthetic()
+    returns (imbalance, the class split, the validation permutation,
+    SVHN's slices, STL-10's remap)."""
+    kw = {"use_validation": False, "batch_size": 32, "seed": 2, "synthetic_n_train": 400,
+          "synthetic_n_test": 60, **kw}
+    dataset = kw.pop("dataset")
+    want, c = tdata.loaders(dataset, None, **kw)
+    monkeypatch.setenv("URSA_SYNTH_CACHE", str(tmp_path))
+    for _ in ("miss", "hit"):
+        got, c2 = tdata.loaders(dataset, None, **kw)
+        assert c2 == c
+        for part in ("train", "test"):
+            np.testing.assert_array_equal(got[part].images, want[part].images)
+            np.testing.assert_array_equal(got[part].labels, want[part].labels)
+    assert os.listdir(tmp_path)
+
+
+def test_loaders_inc_equal_with_the_cache_on_and_off(tmp_path, monkeypatch):
+    kw = dict(use_validation=True, val_size=50, seed=3, synthetic_n_train=230,
+              synthetic_n_test=40)
+    want, _ = tdata.loaders_inc("CIFAR10", None, 3, 32, **kw)
+    monkeypatch.setenv("URSA_SYNTH_CACHE", str(tmp_path))
+    for _ in ("miss", "hit"):
+        got, _ = tdata.loaders_inc("CIFAR10", None, 3, 32, **kw)
+        for a, b in zip(got["train"] + [got["test"]], want["train"] + [want["test"]]):
+            np.testing.assert_array_equal(a.images, b.images)
+            np.testing.assert_array_equal(a.labels, b.labels)

@@ -11,7 +11,6 @@ tests/test_mcmc_correctness.py and the float64 oracles of the
 difference-form log ratio."""
 
 import math
-import types
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +23,7 @@ from torch import nn
 from ursabench_tpu import models as jmodels
 from ursabench_tpu.inference import hmc as jhmc
 from ursabench_tpu_torch import models as tmodels
+from ursabench_tpu_torch import parallel
 from ursabench_tpu_torch.inference import hmc
 from ursabench_tpu_torch.nn.init import torch_linear_
 from ursabench_tpu_torch.transfer import params_from_jax
@@ -257,8 +257,22 @@ def test_tf32_is_off_inside_the_potential_and_restored_after():
 def test_refusals():
     _, ts_, c = _splits()
     model = tmodels.get_model("MLP200MNIST").build(c)
-    # a chain axis that does not divide the chains (a mesh's shape, without a world)
-    mesh = types.SimpleNamespace(size=2, shape={"chain": 2, "data": 1})
+    # rank 0 of a (2, 1) mesh, without a world: its chain axis does not divide
+    # one chain, which runs replicated and equals one process (no collective
+    # runs on a mesh without a data axis); three chains raise, as the JAX
+    # package's placement over the chain axis does
+    mesh = object.__new__(parallel.Mesh)  # no groups: its collectives span one rank
+    mesh.shape, mesh.size, mesh.rank, mesh.active = {"chain": 2, "data": 1}, 2, 0, True
+    mesh.chain_idx = mesh.data_idx = 0
+    one = hmc.HMC(HYP, model=tmodels.get_model("MLP200MNIST").build(c), train=ts_["train"],
+                  device="cpu", seed=3)
+    rep = hmc.HMC(HYP, model=tmodels.get_model("MLP200MNIST").build(c), train=ts_["train"],
+                  device="cpu", seed=3, mesh=mesh)
+    assert rep.replicated and list(rep.chain_ids) == [0] and not one.replicated
+    want, got = one.sample(), rep.sample()
+    assert got.replicated and not got.sharded and got.num_members == want.num_members
+    assert all(torch.equal(got.state[k], v) for k, v in want.state.items())
+    assert rep.accept_rate == one.accept_rate
     with pytest.raises(ValueError, match="do not split over a chain axis of 2"):
         hmc.HMC(HYP, model=model, train=ts_["train"], device="cpu", chains=3, mesh=mesh)
     vmapped = hmc.HMC(HYP, model=model, train=ts_["train"], device="cpu", chains=2,

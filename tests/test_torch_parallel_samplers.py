@@ -23,18 +23,30 @@ ranks'. Tolerances:
   resident sharded epoch on the stream's order, replicas bit-equal;
 - the runner within ``test_runner_over_two_ranks``'s limits (2e-3 on the
   ``model_uncertainty`` AUROCs, 2e-4 on the rest).
+
+Chains over a chain axis that does not divide them, as the JAX package runs
+them on conftest's virtual devices (HMC x1, PCA-ESS x1 and x3, the epoch
+samplers x1 on a mesh without a data axis; HMC x3 and the epoch samplers
+on (2, 2) refused): replicated on every chain rank, on (2, 1) bit-equal
+to one process, on (2, 2) within the data mesh's limits above. Their
+reference on (2, 2) is the JAX package's own replicated program
+(``shard_map`` over a (2, 2) mesh of virtual devices): HMC's CE sum at its
+init and PCA-ESS's log density at three points of one subspace, within
+1e-6 relative. The runner over a mesh of 3 of 4 ranks ((3, 1) and (1, 3))
+within the runner's limits, the fourth rank idle.
 """
 
 import contextlib
 import io
 import json
+import os
 import pathlib
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-from test_torch_parallel import _np, _spawn, _state_np
+from test_torch_parallel import _np, _prediction, _spawn, _state_np
 
 from ursabench_tpu_torch import data as tdata
 from ursabench_tpu_torch import experiment
@@ -73,6 +85,26 @@ RUNS = {
                json.dumps({"lr": 0.3, "prior_std": 1.0, "num_samples": 2, "burn_in_epochs": 3})],
     "checkpoint": ["--inference_method", "SGLD", "--chains", "2", "--checkpoint_every", "1",
                    "--hyperparams", json.dumps({**SGHMC_HYP, "num_samples": 2})],
+}
+# the runner over 3 of 4 ranks: --mesh chain lays 3 chains out as (3, 1),
+# --mesh auto one chain at batch 30 as (1, 3) (a chain that learns, error
+# ~0.69, over 3 epochs: the data mesh sums every step's gradient in another
+# order, within 4e-8 of one process after an epoch, and at lr 0.3 more
+# epochs grow that until the test images' entropies reorder)
+PARTIAL_RUNS = {
+    "chain3": ["--inference_method", "SGLD", "--mesh", "chain", "--chains", "3",
+               "--hyperparams", json.dumps({**SGHMC_HYP, "num_samples": 2})],
+    "auto1": ["--inference_method", "SGLD", "--mesh", "auto", "--chains", "1",
+              "--batch_size", "30", "--synthetic_n_train", "256", "--hyperparams",
+              json.dumps({"lr": 0.3, "prior_std": 1.0, "num_samples": 2, "burn_in_epochs": 1})],
+}
+# the replicated samplers of both worlds: (name, constructor of (train, c, mesh))
+REPLICATED = {
+    "hmc1": lambda train, c, mesh: _hmc(train, c, chains=1, seed=3, mesh=mesh),
+    "pca1": lambda train, c, mesh: _pca(train, c, chains=1, mesh=mesh),
+    "pca3": lambda train, c, mesh: _pca(train, c, chains=3, mesh=mesh),
+    "sghmc1": lambda train, c, mesh: _sghmc(train, c, model="MLP200MNIST", chains=1,
+                                            mesh=mesh),
 }
 
 
@@ -169,7 +201,53 @@ def _case_world2(jax_vars, tmp: str) -> dict:
         "stream": _stream_cases(data, chain),
         "checkpoint": _checkpoint_cases(chain, data, tmp),
         "runner": _runner_cases(tmp),
+        "replicated": _replicated_cases(splits, c, chain, tmp),
     }
+
+
+def _replicated_run(sampler, test, c) -> dict:
+    """``sampler.sample()``: the ensemble as held here and gathered, the
+    accept rate, Prediction on the ensemble where it lies."""
+    ens = sampler.sample()
+    return {"replicated": sampler.replicated, "ids": list(sampler.chain_ids),
+            "members": (ens.num_members, ens.local_members, ens.sharded),
+            "state": _state_np(ens.state), "gathered": _gathered(ens),
+            "accept": getattr(sampler, "accept_rate", None),
+            "metrics": _prediction(ens, test, c)}
+
+
+def _refusal(make) -> str | None:
+    try:
+        make()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _replicated_cases(splits, c, mesh, tmp) -> dict:
+    """(2, 1), where the chain axis divides no odd chain count: HMC x1,
+    PCA-ESS x1 and x3 and SGHMC x1 replicated on both ranks; PCA-ESS x3
+    checkpointed every draw, then resumed from draw 1; HMC x3 and SGHMC x3
+    refused; on rank 0 the same in one process."""
+    train, test = splits["train"], splits["test"]
+    out = {name: _replicated_run(make(train, c, mesh), test, c)
+           for name, make in REPLICATED.items()}
+    make = lambda: _pca(train, c, chains=3, mesh=mesh)  # noqa: E731
+    saved, resumed, ok = _checkpointed(make, str(tmp / "pca3_rep.npz"), 1,
+                                       lambda s: s.sample(num_samples=1), lambda s: s.sample())
+    out["checkpoint"] = {"file": saved, "resumed": ok and all(
+        np.array_equal(v, _gathered(resumed)[k]) for k, v in out["pca3"]["gathered"].items())}
+    out["refusals"] = {
+        "hmc3": _refusal(lambda: _hmc(train, c, chains=3, mesh=mesh)),
+        "sghmc3": _refusal(lambda: _sghmc(train, c, model="MLP200MNIST", chains=3, mesh=mesh))}
+    if mesh.rank == 0:
+        out["one"] = {name: _replicated_run(make_one(train, c, None), test, c)
+                      for name, make_one in REPLICATED.items()}
+        one_saved, _, _ = _checkpointed(lambda: _pca(train, c, chains=3),
+                                        str(tmp / "pca3_one.npz"), 1,
+                                        lambda s: s.sample(num_samples=1), lambda s: None)
+        out["one"]["file"] = one_saved
+    return out
 
 
 def _hmc_chain(train, c, mesh, tmp) -> dict:
@@ -421,18 +499,136 @@ def test_hmc_data_mesh_draws_match_one_process(world2):
         assert np.array_equal(r0["state"][k], r1["state"][k]), k
 
 
-def _case_world4() -> dict:
+def _case_world4(jax_ref: dict, tmp: str) -> dict:
     mesh = parallel.Mesh(2, 2)
     splits, c = _mnist()
     h = _hmc(splits["train"], c, chains=2, seed=3, mesh=mesh)
     ens = h.sample()
-    return {"state": _gathered(ens), "accept": h.accept_rate, "ids": list(h.chain_ids),
-            "batches": tuple(h._batches.shape)}
+    out = {"state": _gathered(ens), "accept": h.accept_rate, "ids": list(h.chain_ids),
+           "batches": tuple(h._batches.shape)}
+    out["replicated"] = _replicated_world4(splits, c, mesh, jax_ref)
+    out["partial"] = _partial_world4(splits, c, pathlib.Path(tmp))
+    return out
+
+
+def _replicated_world4(splits, c, mesh, jax_ref) -> dict:
+    """(2, 2): HMC x1, PCA-ESS x1 and x3 replicated over the chain axis,
+    each chain's potential over 'data'; HMC x1's CE sum at the JAX
+    package's init and PCA-ESS x3's log density at its subspace points;
+    HMC x3 and SGHMC x1 refused, as the JAX package refuses them."""
+    train, test = splits["train"], splits["test"]
+    out = {name: _replicated_run(REPLICATED[name](train, c, mesh), test, c)
+           for name in ("hmc1", "pca1", "pca3")}
+    h = _hmc(train, c, mesh=mesh)
+    params_from_jax(h.module, jax_ref["hmc_vars"])
+    out["hmc_ce"] = float(h._ce_sum(h._params.detach().clone(), grad=False))
+    p = _pca(train, c, chains=3, mesh=mesh)
+    p._set_subspace(torch.from_numpy(jax_ref["pca_mean"]), torch.from_numpy(jax_ref["pca_cov"]))
+    out["pca_lnpdf"] = [float(p.lnpdf(torch.from_numpy(t))) for t in jax_ref["pca_thetas"]]
+    out["refusals"] = {
+        "hmc3": _refusal(lambda: _hmc(train, c, chains=3, mesh=mesh)),
+        "sghmc1": _refusal(lambda: _sghmc(train, c, model="MLP200MNIST", chains=1, mesh=mesh))}
+    return out
+
+
+def _partial_world4(splits, c, tmp: pathlib.Path) -> dict:
+    """Meshes of 3 of the 4 ranks: ``chain_mesh(3)`` (3, 1) and
+    ``auto_mesh(1, 30)`` (1, 3), their layout, an all-reduce over 'all' and
+    a barrier on their ranks, a sampler refused on the idle one; the runner
+    over each (``PARTIAL_RUNS``), every rank saving under its own
+    directory; a mesh of 8 ranks refused."""
+    me = torch.distributed.get_rank()
+    out = {}
+    for name, mesh in (("chain3", parallel.chain_mesh(3)), ("auto1", parallel.auto_mesh(1, 30))):
+        got = {"shape": dict(mesh.shape), "active": mesh.active,
+               "idx": (mesh.chain_idx, mesh.data_idx)}
+        if mesh.active:
+            t = torch.ones(1)
+            mesh.all_reduce(t, "all")
+            mesh.barrier()
+            got["sum"] = float(t)
+        else:
+            got["refusal"] = _refusal(lambda: _hmc(splits["train"], c, mesh=mesh))
+        out[name] = got
+        save = tmp / f"{name}_rank{me}"
+        save.mkdir()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            out[f"{name}_run"] = experiment.main(RUN + PARTIAL_RUNS[name] + [
+                "--save_path", str(save / "run")], device="cpu")
+        out[f"{name}_files"] = sorted(os.listdir(save))
+        out[f"{name}_printed"] = printed.getvalue()
+    out["too_large"] = _refusal(lambda: parallel.Mesh(4, 2))
+    return out
 
 
 @pytest.fixture(scope="module")
-def world4(tmp_path_factory):
-    return _spawn(f"{THIS}:_case_world4", 4, tmp_path_factory.mktemp("samplers4"))
+def jax_replicated():
+    """The JAX package's replicated programs on a (2, 2) mesh of conftest's
+    virtual devices: HMC x1's CE sum at its init (and its variables);
+    PCA-ESS x3's log density at three points of one subspace (the JAX
+    init's weights as the mean, a random rank-2 cov_factor), its mean and
+    cov_factor in the port's parameter order. SGHMC x1's one-epoch draw on
+    a (2, 1) mesh and without one; the cases its placement refuses (HMC x3
+    on (2, 1) and (2, 2), SGHMC x3 on (2, 1) and x1 on (2, 2)), by the
+    exception each raises."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from test_torch_samplers import _as_numpy, _splits, flat_permutation
+
+    from ursabench_tpu import models as jmodels
+    from ursabench_tpu.inference import hmc as jhmc
+    from ursabench_tpu.inference import pca_subspace as jpca
+    from ursabench_tpu.inference import sgmcmc as jsg
+    from ursabench_tpu.inference.subspaces import SubspaceModel
+    from ursabench_tpu.util import ravel
+
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("chain", "data"))
+    chain_mesh = Mesh(np.asarray(jax.devices()[:2]).reshape(2, 1), ("chain", "data"))
+    js_, _, c = _splits("MNIST", **LOADER)
+
+    def hmc(chains, on):
+        return jhmc.HMC(HMC_HYP, model=jmodels.get_model("MLP200MNIST").build(c),
+                        train=js_["train"], key=jax.random.PRNGKey(0), chains=chains, mesh=on)
+
+    def sghmc_draw(chains, on):
+        s = jsg.SGHMC(dict(SGHMC_HYP, burn_in_epochs=0),
+                      model=jmodels.get_model("MLP200MNIST").build(c), train=js_["train"],
+                      key=jax.random.PRNGKey(0), chains=chains, mesh=on)
+        return _as_numpy(s.sample(num_samples=1).params)
+
+    sghmc1 = {"chain_mesh": sghmc_draw(1, chain_mesh), "none": sghmc_draw(1, None)}
+    refusals = {}
+    for name, run in (("hmc3_21", lambda: hmc(3, chain_mesh)), ("hmc3_22", lambda: hmc(3, mesh)),
+                      ("sghmc3_21", lambda: sghmc_draw(3, chain_mesh)),
+                      ("sghmc1_22", lambda: sghmc_draw(1, mesh))):
+        with pytest.raises((ValueError, AssertionError)) as raised:
+            run()
+        refusals[name] = raised.type.__name__
+    jh = hmc(1, mesh)
+    variables = _as_numpy({"params": jh._params0, "batch_stats": jh._bstats})
+    ce = float(jh._build_fns()[0](jh._theta0)[0])
+    jp = jpca.PCASubspaceSampler(PCA_HYP, model=jmodels.get_model("MLP200MNIST").build(c),
+                                 train=js_["train"], key=jax.random.PRNGKey(0), chains=3,
+                                 mesh=mesh)
+    rng = np.random.default_rng(0)
+    mean = np.asarray(ravel(jp.swa._state.params))
+    cov = (0.5 * rng.normal(size=(2, mean.size)) * np.abs(mean).mean()).astype(np.float32)
+    jp.subspace = SubspaceModel(jnp.asarray(mean), jnp.asarray(cov))
+    lnpdf = jp._build_lnpdf()[0]
+    thetas = rng.normal(size=(3, 2)).astype(np.float32)
+    perm = flat_permutation(tmodels.get_model("MLP200MNIST").build(c), variables).numpy()
+    return {"hmc_vars": variables, "hmc_ce": ce, "pca_mean": mean[perm],
+            "pca_cov": np.ascontiguousarray(cov[:, perm]), "pca_thetas": thetas,
+            "pca_lnpdf": np.asarray(lnpdf(jnp.asarray(thetas))), "sghmc1": sghmc1,
+            "refusals": refusals}
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory, jax_replicated):
+    tmp = tmp_path_factory.mktemp("samplers4")
+    return _spawn(f"{THIS}:_case_world4", 4, tmp, jax_replicated, str(tmp))
 
 
 def test_hmc_on_a_two_by_two_mesh(world4):
@@ -450,6 +646,157 @@ def test_hmc_on_a_two_by_two_mesh(world4):
             np.testing.assert_allclose(r["state"][k], v, rtol=0, atol=1e-5, err_msg=k)
     for k in want:
         assert np.array_equal(world4[0]["state"][k], world4[1]["state"][k]), k
+
+
+# -- chains replicated over a chain axis that does not divide them ---------------------------
+
+def _close(got: dict, want: dict, **tol) -> None:
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, err_msg=k, **tol)
+
+
+@pytest.mark.parametrize("name", list(REPLICATED))
+def test_replicated_chains_on_a_chain_mesh_are_bit_equal_to_one_process(world2, name):
+    """(2, 1) with one chain (and PCA-ESS's three): every rank holds every
+    chain and its draws, accept rate and Prediction are one process's, bit
+    for bit; the ensemble records its members as replicated, so nothing is
+    summed over the chain ranks."""
+    one = world2[0]["replicated"]["one"][name]
+    chains = 3 if name == "pca3" else 1
+    for r in world2:
+        got = r["replicated"][name]
+        assert got["replicated"] and got["ids"] == list(range(chains))
+        assert got["members"] == (one["members"][0],) * 2 + (False,)
+        for key in ("state", "gathered"):
+            assert sorted(got[key]) == sorted(one["state"])
+            assert all(np.array_equal(got[key][k], v) for k, v in one["state"].items())
+        assert got["accept"] == one["accept"] and got["metrics"] == one["metrics"]
+
+
+def test_replicated_checkpoint_resumes_bit_equal_and_equals_the_one_process_file(world2):
+    """PCA-ESS x3 on (2, 1), checkpointed every draw: rank 0 writes its own
+    three chains (nothing summed over 'chain'), the one-process file; each
+    rank resumes all three from it, bit-equal to the uninterrupted run."""
+    one = world2[0]["replicated"]["one"]["file"]
+    for r in world2:
+        rep = r["replicated"]["checkpoint"]
+        assert rep["resumed"] and _files_equal(rep["file"], one)
+    assert sorted(one["generators"]) == ["ess0", "ess1", "ess2"]
+    assert one["theta"].shape[0] == 3
+
+
+def test_replicated_refusals_follow_the_jax_package(world2, world4, jax_replicated):
+    """Where the JAX package's placement over the chain axis raises (HMC x3
+    on (2, 1) and (2, 2); an epoch sampler x3 on (2, 1), x1 on (2, 2)), the
+    port keeps its ValueError."""
+    assert jax_replicated["refusals"] == {"hmc3_21": "ValueError", "hmc3_22": "ValueError",
+                                          "sghmc3_21": "ValueError",
+                                          "sghmc1_22": "AssertionError"}
+    for r in world2:
+        got = r["replicated"]["refusals"]
+        assert all("do not split over a chain axis of 2" in got[k] for k in ("hmc3", "sghmc3"))
+    for r in world4:
+        got = r["replicated"]["refusals"]
+        assert all("do not split over a chain axis of 2" in got[k] for k in ("hmc3", "sghmc1"))
+
+
+def test_the_jax_package_runs_an_epoch_samplers_one_chain_whole_on_a_chain_mesh(
+        world2, jax_replicated):
+    """JAX's SGHMC x1 on a (2, 1) mesh leaves its one chain unplaced: its
+    one-epoch draw is the one-device draw, bit for bit. The port replicates
+    that chain on both ranks of its (2, 1) mesh, each rank holding it
+    whole."""
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            return {k: v for key in sorted(tree)
+                    for k, v in leaves(tree[key], f"{path}/{key}").items()}
+        return {path: tree}
+
+    got, want = (leaves(jax_replicated["sghmc1"][k]) for k in ("chain_mesh", "none"))
+    assert sorted(got) == sorted(want) and want
+    assert all(np.array_equal(got[k], v) for k, v in want.items())
+    for r in world2:
+        rep = r["replicated"]["sghmc1"]
+        assert rep["replicated"] and rep["ids"] == [0]
+
+
+@pytest.mark.parametrize("name", ["hmc1", "pca1", "pca3"])
+def test_replicated_chains_on_a_two_by_two_mesh_match_one_process(world4, name):
+    """(2, 2): both chain rows run every chain, each with its potential over
+    its two data ranks, so the four ranks are bit-equal; the draws within
+    the data mesh's limits of one process (HMC 1e-5 with the same accept
+    rate, PCA-ESS 1e-4), and Prediction on the replicated ensemble within
+    the runner's limits of one process's and within 1e-6 of the same
+    ensemble gathered (a member counted twice would double the BMA's
+    sums)."""
+    splits, c = _mnist()
+    sampler = REPLICATED[name](splits["train"], c, None)
+    want = _replicated_run(sampler, splits["test"], c)
+    first = world4[0]["replicated"][name]
+    for r in world4:
+        got = r["replicated"][name]
+        assert got["replicated"] and got["members"] == (want["members"][0],) * 2 + (False,)
+        assert all(np.array_equal(got["state"][k], v) for k, v in first["state"].items())
+        _close(got["state"], want["state"], rtol=0, atol=1e-5 if name == "hmc1" else 1e-4)
+        assert got["accept"] == want["accept"]
+        _close(got["metrics"], want["metrics"], rtol=2e-4, atol=1e-5)
+        gathered = _prediction(tinference.Ensemble(sampler.module, {
+            k: torch.from_numpy(v) for k, v in got["gathered"].items()}, got["members"][0]),
+            splits["test"], c)
+        _close(got["metrics"], gathered, rtol=1e-6, atol=1e-7)
+
+
+def test_replicated_potentials_match_the_jax_packages_replicated_programs(world4, jax_replicated):
+    """On (2, 2) the JAX package replicates HMC's chain and PCA-ESS's three
+    chains over 'chain' (``c_ax = None``) and sums each potential over
+    'data': HMC's CE sum at the JAX init and PCA-ESS's log density at three
+    subspace points, on every rank, within 1e-6 relative of JAX's."""
+    for r in world4:
+        got = r["replicated"]
+        assert abs(got["hmc_ce"] - jax_replicated["hmc_ce"]) <= 1e-6 * abs(jax_replicated["hmc_ce"])
+        np.testing.assert_allclose(got["pca_lnpdf"], jax_replicated["pca_lnpdf"], rtol=1e-6)
+    assert np.abs(jax_replicated["pca_lnpdf"]).min() > 0.1
+
+
+# -- a mesh over part of the world -----------------------------------------------------------
+
+def test_partial_meshes_leave_the_last_rank_idle(world4):
+    """``chain_mesh(3)`` and ``auto_mesh(1, 30)`` over four ranks lay out
+    (3, 1) and (1, 3) over ranks 0-2, as the JAX package takes the first
+    three devices: 'all' sums over those three, rank 3 idles and refuses a
+    sampler; a mesh of more ranks than the world still raises."""
+    for name, shape in (("chain3", {"chain": 3, "data": 1}), ("auto1", {"chain": 1, "data": 3})):
+        got = [r["partial"][name] for r in world4]
+        assert all(g["shape"] == shape for g in got)
+        assert [g["active"] for g in got] == [True, True, True, False]
+        assert [g["idx"] for g in got][3] == (None, None)
+        assert [g["sum"] for g in got[:3]] == [3.0] * 3
+        assert "outside the mesh of 3 ranks" in got[3]["refusal"]
+    assert all("needs that many processes" in r["partial"]["too_large"] for r in world4)
+
+
+@pytest.mark.parametrize("name", list(PARTIAL_RUNS))
+def test_runner_over_part_of_the_world(world4, tmp_path, name):
+    """``experiment.main`` on four ranks with ``--mesh chain --chains 3``
+    ((3, 1)) and ``--mesh auto --chains 1 --batch_size 30`` ((1, 3)): rank
+    0 writes the CSV row and the ``.npz``, its results (and ranks 1-2's)
+    within ``test_runner_over_two_ranks``'s limits of one process's; rank 3
+    returns None having written nothing."""
+    argv = RUN + PARTIAL_RUNS[name] + ["--save_path", str(tmp_path / "one")]
+    ref = experiment.main(argv, device="cpu")
+    for rank, r in enumerate(world4):
+        got, files = r["partial"][f"{name}_run"], r["partial"][f"{name}_files"]
+        if rank == 3:
+            assert got is None and files == []
+            assert "rank 3 idles" in r["partial"][f"{name}_printed"]
+            continue
+        assert files == (["run_tests.npz", "runresults.csv"] if rank == 0 else [])
+        assert sorted(got) == sorted(ref)
+        for k, v in ref.items():
+            tol = (dict(rtol=0, atol=2e-3) if "model_uncertainty_au" in k
+                   else dict(rtol=2e-4, atol=1e-5))
+            np.testing.assert_allclose(got[k], v, err_msg=k, **tol)
 
 
 # -- PCA-ESS ----------------------------------------------------------------------------------

@@ -5,8 +5,21 @@ on-disk formats (MNIST idx, CIFAR pickle batches, SVHN .mat, STL-10 bin and
 ImageFolder trees for TIN, LSUN and CelebA), with the synthetic generator
 standing in for what is not on disk. The generator consumes its Philox streams in the same
 order and with the same sha256-derived seeds, so it returns the same bytes
-as the JAX package (tests/test_torch_data.py pins this). The JAX package's
-on-disk synthetic cache is left out: data is generated in memory.
+as the JAX package (tests/test_torch_data.py pins this).
+
+Generated sets are cached on disk as the JAX package caches them: under
+``URSA_SYNTH_CACHE`` (default ``ursabench_synth_cache`` in the temporary
+directory, ``tempfile.gettempdir()``: the JAX package's
+``/tmp/ursabench_synth_cache`` where ``TMPDIR`` is unset; ``""`` or ``"0"``
+turns the cache off), one ``<tag>.x.npy`` and ``<tag>.y.npy`` a set,
+the tag naming the dataset, split, n, seed, difficulty and
+``_SYNTH_GEN_VERSION``. The names, the ``.npy`` format and the version are
+the JAX package's, so an entry written by either package is read by the
+other. A hit is a read-only memmap of the images (a caller's write raises
+and never reaches the file); a miss generates into a memmap at a
+pid-suffixed tmp name, writes the labels, renames labels then images into
+place and hands out a read-only reopen; an entry that fails to load is
+generated again.
 """
 
 from __future__ import annotations
@@ -16,6 +29,8 @@ import hashlib
 import os
 import pickle
 import struct
+import tempfile
+import time
 from typing import Tuple
 
 import numpy as np
@@ -233,6 +248,9 @@ _SYNTH_DIFFICULTY = {
 }
 
 
+_SYNTH_GEN_VERSION = "v6"  # the JAX package's tag: entries are shared between the packages
+
+
 def resolve_difficulty(name: str, difficulty: dict | None = None) -> dict:
     """Per-dataset synthetic difficulty: defaults, dataset overrides, then
     caller overrides. Unknown keys are an error."""
@@ -247,6 +265,87 @@ def resolve_difficulty(name: str, difficulty: dict | None = None) -> dict:
             )
         d.update(difficulty)
     return {k: float(v) for k, v in d.items()}
+
+
+def _synth_cache_path(name: str, train: bool, n: int, seed: int,
+                      diff: dict) -> str | None:
+    """The cache entry's path without its ``.x.npy`` / ``.y.npy`` suffix, or
+    None when ``URSA_SYNTH_CACHE`` turns the cache off."""
+    root = os.environ.get("URSA_SYNTH_CACHE",
+                          os.path.join(tempfile.gettempdir(), "ursabench_synth_cache"))
+    if root in ("", "0"):
+        return None
+    dtag = (f"z{diff['separation']:g}-s{diff['noise']:g}"
+            f"-ln{diff['label_noise']:g}-b{diff['base_shift']:g}"
+            f"-fo{diff['field_overlap']:g}")
+    tag = (f"{name}-{'train' if train else 'test'}-{n}-{seed}-{dtag}"
+           f"-{_SYNTH_GEN_VERSION}")
+    return os.path.join(root, tag)
+
+
+def _synth_cache_load(name, train, n, seed, diff):
+    """A cache hit: the images as a read-only memmap and the labels, or
+    None (no entry, the cache off, or an entry that fails to load)."""
+    base = _synth_cache_path(name, train, n, seed, diff)
+    if base is None or not os.path.exists(base + ".x.npy"):
+        return None
+    try:
+        x = np.load(base + ".x.npy", mmap_mode="r")
+        y = np.load(base + ".y.npy")
+        return x, y
+    except (OSError, ValueError, EOFError):
+        return None  # a corrupt or partial entry: generate again
+
+
+def _sweep_stale_tmp(cache_dir: str, max_age_s: float = 3600.0) -> None:
+    """Remove the tmp files of interrupted generations older than
+    ``max_age_s`` (a live one of another process is younger)."""
+    try:
+        now = time.time()
+        for fn in os.listdir(cache_dir):
+            if ".tmp." not in fn:
+                continue
+            p = os.path.join(cache_dir, fn)
+            try:
+                if now - os.path.getmtime(p) > max_age_s:
+                    os.remove(p)
+            except OSError:
+                pass
+    except OSError:
+        pass
+
+
+def _synth_writable_output(name, train, n, seed, diff, shape):
+    """The uint8 buffer to generate into and ``commit(y)``, which returns
+    the images to hand out. With the cache on: a memmap at
+    ``<tag>.tmp.<pid>.x.npy``, committed by writing y to its own tmp name,
+    renaming it, then renaming x (a reader that finds x.npy finds y.npy)
+    and reopening x read-only, so that a caller's write never reaches the
+    cache. Ranks under ``torchrun`` share one cache directory: each
+    generates into its own pid-suffixed tmp files and the renames are
+    atomic, so a reader sees a whole entry or none. Without the cache (or
+    when its directory cannot be written): memory."""
+    base = _synth_cache_path(name, train, n, seed, diff)
+    if base is not None:
+        try:
+            os.makedirs(os.path.dirname(base), exist_ok=True)
+            _sweep_stale_tmp(os.path.dirname(base))
+            tmp = f"{base}.tmp.{os.getpid()}"
+            x = np.lib.format.open_memmap(f"{tmp}.x.npy", mode="w+", dtype=np.uint8,
+                                          shape=shape)
+
+            def commit(y):
+                x.flush()
+                np.save(f"{tmp}.y.npy", y)
+                os.replace(f"{tmp}.y.npy", base + ".y.npy")
+                os.replace(f"{tmp}.x.npy", base + ".x.npy")
+                return np.load(base + ".x.npy", mmap_mode="r")
+
+            return x, commit
+        except OSError:
+            pass  # the cache directory cannot be written: generate in memory
+    x = np.empty(shape, np.uint8)
+    return x, lambda y: x
 
 
 def _philox_from(text: str) -> np.random.Generator:
@@ -296,11 +395,15 @@ def synthetic(
     (dataset, split, seed): a shared base image plus smooth per-class
     offsets sized by the 'separation' z-score, remapped to the dataset's
     canonical pixel moments, with a 'label_noise' fraction of labels
-    resampled."""
+    resampled. Served from and written to the on-disk cache (module
+    docstring): a cached set's images are a read-only memmap."""
     size, ch, k, n_train, n_test = DATASET_PROFILES[name]
     if n is None:
         n = n_train if train else n_test
     diff = resolve_difficulty(name, difficulty)
+    cached = _synth_cache_load(name, train, n, seed, diff)
+    if cached is not None:
+        return cached
     digest = hashlib.sha256(f"{name}/ursabench-synth/{seed}".encode()).digest()
     root_seed = int.from_bytes(digest[:4], "little") % (2 ** 31)
     rng = np.random.Generator(np.random.Philox(root_seed))
@@ -361,7 +464,7 @@ def synthetic(
         flip = split_rng.random(n) < diff["label_noise"]
         y_out = np.where(flip, split_rng.integers(0, k, size=n), y)
     # chunked generation into one uint8 output with a reused f32 workspace
-    x = np.empty((n, size, size, ch), np.uint8)
+    x, commit = _synth_writable_output(name, train, n, seed, diff, (n, size, size, ch))
     chunk = 2048
     work = np.empty((chunk, size, size, ch), np.float32)
     tbuf = np.empty((chunk, size, size, ch), np.float32)
@@ -374,7 +477,8 @@ def synthetic(
         w += t
         np.clip(w, 0, 255, out=w)
         x[lo:hi] = w
-    return x, y_out.astype(np.int64)
+    y_out = y_out.astype(np.int64)
+    return commit(y_out), y_out
 
 
 def load_raw(

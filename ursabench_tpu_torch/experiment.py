@@ -20,12 +20,18 @@ rank runs on ``cuda:LOCAL_RANK``). ``--mesh`` then lays the samplers out
 over the N ranks as the JAX runner lays them over its devices: ``auto`` a
 ('chain', 'data') mesh (``parallel.auto_mesh``'s layout), ``chain`` chains
 only (``chain_mesh``'s), ``none`` no mesh; with one process every choice
-means no mesh and the run is unchanged. The mesh is built once a run and
-serves every trial's sampler, every method's included (HMC and the PCA
-subspace sampler shard their full-data passes over 'data'). Every rank
-computes every metric; only rank 0 writes the CSV row, the ``.npz`` and
-the checkpoints. ``--stream`` over a mesh streams each data rank's rows of
-every batch (a mesh with a chain axis above 1 refuses it).
+means no mesh and the run is unchanged. The layout may use fewer ranks
+than N (``--mesh chain --chains 3`` on 4 ranks: (3, 1); ``--mesh auto
+--chains 1 --batch_size 30``: (1, 3)): it takes ranks 0 .. chain * data - 1,
+as the JAX runner takes the first devices, and each rank past it builds
+the mesh's process groups with the others and leaves ``main`` at once
+(returning None): it runs no sampler and no task and writes nothing. The
+mesh is built once a run and serves every trial's sampler, every method's
+included (HMC and the PCA subspace sampler shard their full-data passes
+over 'data'). Every rank of the mesh computes every metric; only rank 0,
+always in the mesh, writes the CSV row, the ``.npz`` and the checkpoints.
+``--stream`` over a mesh streams each data rank's rows of every batch (a
+mesh with a chain axis above 1 refuses it).
 
 ``--stream`` keeps the train split on the host and streams it to the
 device (``data.native.HostStreamingSplit``, seeded with ``--seed``, M =
@@ -168,9 +174,9 @@ def _mesh_layout(args, n: int):
 
 
 def _build_mesh(args):
-    """The run's ``Mesh`` over the process group's ranks (its process groups
-    are made here, once a run), or None; a layout that does not span every
-    rank raises ValueError."""
+    """The run's ``Mesh`` over the first chain * data ranks of the process
+    group (its process groups are made here, once a run, on every rank), or
+    None."""
     layout = _mesh_layout(args, world_size())
     return None if layout is None else Mesh(*layout)
 
@@ -287,6 +293,10 @@ def main(argv=None, device=None):
     args = build_parser().parse_args(argv)
     initialize()  # several ranks under torchrun; nothing in one process
     mesh = _build_mesh(args)
+    if mesh is not None and not mesh.active:
+        print(f"rank {mesh.rank} idles: the {mesh.shape['chain']} x {mesh.shape['data']} "
+              "mesh spans fewer ranks")
+        return None
     if device is None:
         device = (f"cuda:{args.device_num}" if world_size() == 1
                   else f"cuda:{torch.cuda.current_device()}")

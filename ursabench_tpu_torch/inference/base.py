@@ -16,7 +16,15 @@ global identity: its initial weights, batch plans, crops, flips and dropout
 seeds are those chain c draws in one process, and K1 draws its block of the
 noise (``TrainState.row_offset``). The rank's block advances by the
 one-device ``chain_strategy`` rule for its own chain count (the JAX
-package's local decision). A mesh of one rank is no mesh.
+package's local decision). A mesh of one rank is no mesh; a rank outside
+the mesh (``mesh.active`` False) runs no sampler (ValueError).
+
+Where the chain axis does not divide the chains, a sampler replicates them
+where the JAX package runs them unplaced or replicated (``_replicates``),
+and raises otherwise: every chain rank then holds every chain
+(``replicated``), each drawing what one process draws. The epoch samplers
+replicate one chain on a mesh whose data axis is 1; HMC replicates one
+chain on any mesh, and the PCA subspace sampler any number of chains.
 
 Mid-chain checkpoints (``enable_auto_checkpoint``): an epoch sampler saves
 its chain state every N epochs (``utils_checkpoint.save_sampler_state``)
@@ -111,13 +119,18 @@ def resolve_chain_strategy(strategy: str, module, spec_shape, chains: int = 2) -
     return "vmap" if limit and image_flops(module, spec_shape) <= limit else "scan"
 
 
-def check_mesh(mesh, chains: int, batch_size: Optional[int]):
+def check_mesh(mesh, chains: int, batch_size: Optional[int], replicate: bool = False):
     """``mesh`` for a sampler of ``chains`` chains, or None for no mesh (or
-    one of a single rank). Raises where its chain axis does not divide
-    ``chains`` or its data axis does not divide the batch."""
+    one of a single rank). Raises on a rank outside the mesh, where its
+    chain axis does not divide ``chains`` (unless the sampler
+    ``replicate``s them) or where its data axis does not divide the
+    batch."""
+    if mesh is not None and not mesh.active:
+        raise ValueError(f"rank {mesh.rank} lies outside the mesh of {mesh.size} ranks: "
+                         "it runs no sampler")
     if mesh is None or mesh.size == 1:
         return None
-    if chains % mesh.shape["chain"]:
+    if chains % mesh.shape["chain"] and not replicate:
         raise ValueError(f"{chains} chains do not split over a chain axis of "
                          f"{mesh.shape['chain']}")
     if batch_size is not None and batch_size % mesh.shape["data"]:
@@ -144,9 +157,14 @@ class _Inference:
         if int(chains) < 1:
             raise ValueError(f"chains must be >= 1, got {chains}")
         self.chains = int(chains)
-        self.mesh = check_mesh(mesh, self.chains, getattr(train, "batch_size", None))
-        # this rank's chains, as global indices (all of them without a mesh)
-        self.chain_ids = (range(self.chains) if self.mesh is None
+        # every chain rank holds every chain: the chain axis does not divide them
+        self.replicated = (mesh is not None and mesh.size > 1
+                           and self.chains % mesh.shape["chain"] != 0 and self._replicates(mesh))
+        self.mesh = check_mesh(mesh, self.chains, getattr(train, "batch_size", None),
+                               self.replicated)
+        # this rank's chains, as global indices (all of them without a mesh
+        # or replicated over it)
+        self.chain_ids = (range(self.chains) if self.mesh is None or self.replicated
                           else self.mesh.chain_block(self.chains))
         self.chain_strategy = chain_strategy
         self.device = resolve_device(device)
@@ -164,6 +182,13 @@ class _Inference:
         self._draws = 0
         self._ckpt_path: Optional[str] = None
         self._ckpt_every = 1
+
+    def _replicates(self, mesh) -> bool:
+        """Whether the sampler holds all its chains on every chain rank of
+        ``mesh``, whose chain axis does not divide them, where it would
+        otherwise raise: one chain on a mesh without a data axis, which the
+        JAX package's epoch samplers leave unplaced and run whole."""
+        return self.chains == 1 and mesh.shape["data"] == 1
 
     # -- protocol ------------------------------------------------------------
 
@@ -218,7 +243,7 @@ class _Inference:
         if self.chains > 1:
             state = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in state.items()}
         return Ensemble(self.module, state, len(draws) * self.chains, mesh=self.mesh,
-                        chains=self.chains)
+                        chains=self.chains, replicated=self.replicated)
 
     # -- mid-chain checkpoints ---------------------------------------------------
 

@@ -16,8 +16,10 @@ the mesh. When its chains are sharded over the mesh's 'chain' axis
 (``sharded``), ``state`` holds this rank's members only: the chains of its
 block, draw-major, as the JAX package orders them; ``num_members`` counts
 the members of every rank, and ``gather()`` returns the whole ensemble on
-every rank. The tasks evaluate it where it lies (``tasks.base.
-accumulate_split``).
+every rank. When the sampler replicated its chains over the chain axis
+(``replicated``: the axis does not divide them), every rank holds every
+member and nothing is summed over 'chain'. The tasks evaluate it where it
+lies (``tasks.base.accumulate_split``).
 """
 
 from __future__ import annotations
@@ -41,11 +43,13 @@ class Ensemble:
     dropout_seed: Optional[int] = None
     mesh: Any = None  # the parallel.Mesh the members were made on, or None
     chains: int = 1  # members a draw, over every rank
+    replicated: bool = False  # every chain rank holds every chain
 
     @property
     def sharded(self) -> bool:
         """Whether the members are split over the mesh's chain ranks."""
-        return self.mesh is not None and self.mesh.shape["chain"] > 1 and self.chains > 1
+        return (self.mesh is not None and self.mesh.shape["chain"] > 1 and self.chains > 1
+                and not self.replicated)
 
     @property
     def local_members(self) -> int:

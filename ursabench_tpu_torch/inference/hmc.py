@@ -47,12 +47,16 @@ entropy and backpropagates it into its own gradient buffer; one
 all-reduce over 'data' of the CE sums and the gradient buffer then gives
 every data rank the full-batch sum and gradient (the all-reduce of local
 gradients, never a gradient through a collective). The chains block over
-'chain' (``mesh.chain_block``: the chain count must divide, as for the
-epoch samplers). Every rank draws every chain's momentum and uniform from
-the one generator in chain order and keeps its block's, so a chain mesh
-draws what one process draws, and the data ranks of a row draw the same
-values and take the same Metropolis-Hastings decisions.
-``accept_rate`` covers every chain.
+'chain' (``mesh.chain_block``) where the chain axis divides them; one
+chain is replicated over a chain axis above 1, every chain row running it
+whole with its own data-parallel potential, as the JAX package leaves it
+unplaced (and replicated over 'chain' in its ``shard_map``); more chains
+than one that the axis does not divide raise ValueError, as the JAX
+package's placement does. Every rank draws every chain's momentum and
+uniform from the one generator in chain order and keeps its block's (all
+of them, replicated), so a chain mesh draws what one process draws, and
+the data ranks of a row draw the same values and take the same
+Metropolis-Hastings decisions. ``accept_rate`` covers every chain.
 """
 
 from __future__ import annotations
@@ -115,6 +119,9 @@ class HMC(_Inference):
         self._has_dropout = bool(dropout_layers(self.module))
         self._resume_state = None
         self._setup(hyperparameters)
+
+    def _replicates(self, mesh) -> bool:
+        return self.chains == 1
 
     def _setup(self, hyp):
         self.hyperparameters = hyp
@@ -347,7 +354,7 @@ class HMC(_Inference):
             self.draws_done = done
             self._save_chain(theta, ll, trajectory, accepts, done)
         accepted = torch.stack(accepts).float()  # (draws, C')
-        if self.mesh is not None:
+        if self.mesh is not None and not self.replicated:
             accepted = self.mesh.chain_rows(accepted, dim=1)
         self.accept_rate = float(accepted.mean())
         if debug:
@@ -362,4 +369,4 @@ class HMC(_Inference):
         for name, b in self._buffers.items():
             state[name] = b.expand((S,) + tuple(b.shape))
         return Ensemble(self.module, state, kept.shape[0] * self.chains, mesh=self.mesh,
-                        chains=self.chains)
+                        chains=self.chains, replicated=self.replicated)

@@ -34,11 +34,14 @@ reprojects the draws it already has.
 On a device mesh (``mesh``), as in the JAX package: the SWA phase gets the
 mesh when its chain axis is 1 (a data-parallel SWA) and otherwise runs
 whole on every rank; the ESS chains block over 'chain' (``mesh.
-chain_block``), each with its generator ``ess<c>`` of its global chain id;
-the log density is data-parallel, each data rank taking its columns of
-every batch (the batch rounded down to a multiple of the data axis) and one
-all-reduce over 'data' summing the cross entropy. ESS has no gradient, so
-that value is the whole of the reduction. The batch statistics are then
+chain_block``) where the chain axis divides them and are otherwise
+replicated, every chain row running all of them (the JAX package's
+``c_ax = None``), each chain with its generator ``ess<c>`` of its global
+chain id; the log density is data-parallel, each data rank taking its
+columns of every batch (the batch rounded down to a multiple of the data
+axis) and one all-reduce over 'data' summing the cross entropy. ESS has no
+gradient, so that value is the whole of the reduction. The batch
+statistics are then
 each data rank's own, as under JAX's ``shard_map``: on a BatchNorm net a
 data mesh evaluates another (local-statistics) density than one process.
 """
@@ -74,6 +77,9 @@ class PCASubspaceSampler(_Inference):
             hyperparameters = dict(self._DEFAULT_HYP)
         self._resume_state = None
         self._setup(hyperparameters)
+
+    def _replicates(self, mesh) -> bool:
+        return True
 
     def _setup(self, hyp):
         self.hyperparameters = hyp

@@ -166,9 +166,10 @@ class MCdropout(_EpochSampler):
         ``_dropout`` twin from the registry with the base module's class
         count, in the registry's default compute dtype (float32) whatever
         the base's, as the JAX package builds it; or pass the twin itself
-        (built in any dtype). ``mesh`` may be a data mesh only: the members
-        share chain 0's weights."""
-        if mesh is not None and mesh.shape["chain"] > 1:
+        (built in any dtype). ``mesh`` may be a data mesh, or a chain-only
+        one over which the one chain is replicated, as in the JAX package:
+        the members share chain 0's weights."""
+        if mesh is not None and mesh.shape["chain"] > 1 and mesh.shape["data"] > 1:
             raise ValueError("MCdropout's members share one chain's weights: use a mesh "
                              f"with chain=1 (data parallelism), got {mesh.shape}")
         if model_name is not None:
@@ -217,4 +218,4 @@ class MCdropout(_EpochSampler):
         shared = self._single_member()
         state = {k: v.expand((num_samples,) + tuple(v.shape)) for k, v in shared.items()}
         return Ensemble(self.module, state, num_samples, dropout_seed=self.next_seed(),
-                        mesh=self.mesh)
+                        mesh=self.mesh, replicated=self.replicated)

@@ -9,10 +9,13 @@ world size where JAX counts ``jax.devices()``.
 
 ``auto_layout``, ``chain_layout`` and ``make_layout`` are pure functions of
 (chains, batch size, n) that need no process group; ``auto_mesh``,
-``chain_mesh`` and ``mesh.make_mesh`` turn their result into a ``Mesh``,
-which spans the whole world (so ``n_devices``, where given, is its size).
-As ``auto_mesh`` returns None on one device in the JAX package, every layout
-function returns None where nothing is sharded, and nothing changes.
+``chain_mesh`` and ``mesh.make_mesh`` turn their result into a ``Mesh``
+over the first chain * data ranks, as the JAX package lays its mesh over
+``devices[:chain * data]``: the layout may use fewer ranks than there
+are (3 chains over 4 ranks: (3, 1)), and the ranks past it idle
+(``Mesh.active``). As ``auto_mesh`` returns None on one device in the JAX
+package, every layout function returns None where nothing is sharded, and
+nothing changes.
 
 Launch several processes with ``torchrun --nproc_per_node N ...``: it sets
 RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT, which
@@ -118,7 +121,8 @@ def make_layout(n: int, chain_devices: Optional[int] = None) -> Tuple[int, int]:
 def auto_mesh(chains: int, batch_size: Optional[int] = None,
               n_devices: Optional[int] = None):
     """``auto_layout`` over ``n_devices`` (default: the world size) as a
-    ``Mesh``, or None where nothing is sharded."""
+    ``Mesh`` over its first chain * data ranks, or None where nothing is
+    sharded."""
     from .mesh import Mesh
 
     layout = auto_layout(chains, batch_size, world_size() if n_devices is None else n_devices)
@@ -126,8 +130,9 @@ def auto_mesh(chains: int, batch_size: Optional[int] = None,
 
 
 def chain_mesh(chains: int, n_devices: Optional[int] = None):
-    """A chain-only ``Mesh`` of ``chain_layout`` ranks (data axis 1): pass it
-    to a sampler's ``mesh=`` with ``chains`` a multiple of its size."""
+    """A chain-only ``Mesh`` over the first ``chain_layout`` ranks (data axis
+    1): pass it to a sampler's ``mesh=`` with ``chains`` a multiple of its
+    size."""
     from .mesh import Mesh
 
     return Mesh(chain_layout(chains, world_size() if n_devices is None else n_devices), 1)

@@ -22,8 +22,14 @@ rank writing its own block. ``gather_rows`` assembles a checkpoint's
 one element; both move host tensors (generator states) to the backend's
 device and back, since NCCL reduces CUDA tensors only.
 
-A ``Mesh`` spans the whole process group: one of another size raises
-(the pure layout rules of ``distributed`` give a shape without one).
+A ``Mesh`` of ``chain * data`` ranks spans ranks 0 .. chain * data - 1 of
+the process group, as the JAX package lays its mesh over the first
+``chain * data`` devices; one larger than the group raises. The ranks past
+it idle (``active`` False): they build every process group with the rest,
+since making a group is a collective over the whole world, and then hold
+no chains and run no sampler. The mesh's own collectives ('all' included)
+run in its own groups, so an idle rank never joins them. Rank 0 is always
+in the mesh.
 """
 
 from __future__ import annotations
@@ -41,26 +47,32 @@ StateDict = Dict[str, torch.Tensor]
 
 
 class Mesh:
-    """``shape`` {'chain': chain, 'data': data}, this rank's ``chain_idx``
-    and ``data_idx``, and the process groups of its data row (the ranks
-    that share its chains) and of its chain column (the ranks that share
-    its data slice). Creating a group is a collective, so every rank builds
-    every group, in the same order: construct a Mesh on every rank at the
-    same point, once a run. Its size is the world's: ValueError otherwise."""
+    """``shape`` {'chain': chain, 'data': data} over the first chain * data
+    ranks, this rank's ``chain_idx`` and ``data_idx`` (None on an idle
+    rank, whose ``active`` is False), and the process groups of its data
+    row (the ranks that share its chains), of its chain column (the ranks
+    that share its data slice) and, on a mesh smaller than the world, of
+    the whole mesh. Creating a group is a collective over the world, so
+    every rank, idle or not, builds every group in the same order:
+    construct a Mesh on every rank at the same point, once a run. A mesh
+    of more ranks than the world raises ValueError."""
 
     def __init__(self, chain: int = 1, data: int = 1):
         if chain < 1 or data < 1:
             raise ValueError(f"mesh axes must be >= 1, got chain={chain} data={data}")
         self.shape = {"chain": int(chain), "data": int(data)}
         self.size = self.shape["chain"] * self.shape["data"]
-        if self.size != world_size():
+        world = world_size()
+        if self.size > world:
             raise ValueError(f"a mesh of {chain} x {data} ranks needs that many processes, "
-                             f"not {world_size()}: start them and call "
+                             f"not {world}: start them and call "
                              "parallel.initialize() before building it")
         self.rank = rank()
-        self.chain_idx, self.data_idx = divmod(self.rank, self.shape["data"])
-        self._data_group = self._chain_group = None
-        if self.size > 1:
+        self.active = self.rank < self.size
+        self.chain_idx, self.data_idx = (divmod(self.rank, self.shape["data"]) if self.active
+                                         else (None, None))
+        self._data_group = self._chain_group = self._all_group = None
+        if world > 1:
             for c in range(chain):  # the data rows
                 group = dist.new_group([c * data + d for d in range(data)]) if data > 1 else None
                 if c == self.chain_idx:
@@ -69,10 +81,12 @@ class Mesh:
                 group = dist.new_group([c * data + d for c in range(chain)]) if chain > 1 else None
                 if d == self.data_idx:
                     self._chain_group = group
+            if 1 < self.size < world:  # 'all' is the mesh's ranks, not the world's
+                self._all_group = dist.new_group(list(range(self.size)))
 
     def __repr__(self) -> str:
-        return (f"Mesh(chain={self.shape['chain']}, data={self.shape['data']}, "
-                f"rank={self.rank})")
+        where = f"rank={self.rank}" if self.active else f"rank={self.rank}, idle"
+        return f"Mesh(chain={self.shape['chain']}, data={self.shape['data']}, {where})"
 
     # -- this rank's blocks -----------------------------------------------------
 
@@ -94,8 +108,8 @@ class Mesh:
     # -- collectives ------------------------------------------------------------
 
     def _group(self, axis: str):
-        if axis == "all":
-            return None  # the default group: the whole world
+        if axis == "all":  # the mesh's group, or the default one when it is the world
+            return self._all_group
         return self._data_group if axis == "data" else self._chain_group
 
     def _span(self, axis: str) -> int:
@@ -168,9 +182,9 @@ class Mesh:
         return out if self.rank == 0 else None
 
     def barrier(self) -> None:
-        """Wait for every rank (an all-reduce of one element over 'all')."""
-        if self.size > 1:
-            dist.all_reduce(torch.zeros(1, device=_collective_device()))
+        """Wait for every rank of the mesh (an all-reduce of one element
+        over 'all')."""
+        self.all_reduce(torch.zeros(1, device=_collective_device()), "all")
 
 
 def _collective_device() -> torch.device:
@@ -182,9 +196,9 @@ def _collective_device() -> torch.device:
 
 
 def make_mesh(n_devices: Optional[int] = None, chain_devices: Optional[int] = None) -> Mesh:
-    """A ('chain', 'data') ``Mesh`` over ``n_devices`` ranks (default, and
-    the one size a Mesh may have: the world), the chain axis
-    ``make_layout``'s square-ish power of two."""
+    """A ('chain', 'data') ``Mesh`` over the first ``n_devices`` ranks
+    (default: the world), the chain axis ``make_layout``'s square-ish power
+    of two."""
     return Mesh(*make_layout(world_size() if n_devices is None else n_devices, chain_devices))
 
 

@@ -17,7 +17,10 @@ A sampler on a device mesh writes the file of one process: rank 0 gathers
 every chain rank's block of each chain-indexed array and every chain's
 generators (``save_chain_state``: one all-reduce over 'chain' a dtype),
 writes, and every rank waits for the write before it goes on; on a resume
-each rank reads its own block (``chain_block``) and generators. Generators
+each rank reads its own block (``chain_block``) and generators. A sampler
+whose chains are replicated over the chain axis (``sampler.replicated``)
+gathers nothing: rank 0 holds every chain and writes them, and each rank
+restores all of them. Generators
 are named by global chain id (``data0``, ``data1``, ...), so a checkpoint
 moves between layouts of the same chain count.
 
@@ -139,16 +142,19 @@ def save_chain_state(path: str, sampler, tree: dict, chain_dims: Dict[str, int])
     """Write ``tree`` and every generator of ``sampler`` (as ``generators``)
     to ``path`` in the one-process layout. The entries named in
     ``chain_dims`` are tensors of this rank's chains along that axis; on a mesh they
-    are assembled on rank 0, which writes, and every rank waits for the
-    file (collectives: every rank calls it)."""
+    are assembled on rank 0 (which holds them all when the chains are
+    replicated), which writes, and every rank waits for the file
+    (collectives: every rank calls it)."""
     mesh = sampler.mesh
     chain = sampler._chain_generators()
     prefixes = sorted(chain)
     names = sorted(chain_dims)
     blocks = ([torch.stack([g.get_state() for g in chain[p]]) for p in prefixes]
               + [tree[k].movedim(chain_dims[k], 0) for k in names])
-    if mesh is not None:
+    if mesh is not None and not sampler.replicated:
         blocks = mesh.gather_rows(blocks)
+    elif mesh is not None and mesh.rank:
+        blocks = None
     if blocks is not None:
         out = dict(tree)
         gens = {n: g.get_state() for n, g in sampler._shared_generators().items()}
