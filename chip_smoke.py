@@ -11,11 +11,23 @@ Phases, each ending with its seconds:
 2. kernel K1 (csrc/sghmc_update.cu) against its plain PyTorch version on
    the card: exact agreement with the noise off, the statistics of its
    in-kernel Langevin noise, and both device times at PreResNet-20's flat
-   size beside the bound its bytes allow;
+   size beside the bound its bytes allow; its entry that reads the seed
+   from device memory (the graphed epoch's) bit-equal to the by-value
+   launch at offsets 0 and 2 mod 4, with one and two rows of scalars, and
+   its time;
 3. the slice: SGHMC on PreResNet-20 / synthetic CIFAR-10 (50,000 train and
    10,000 test images, batch 128, crop + flip), 2 draws after 1 burn-in
    epoch (3 epochs, 1,173 steps), then the BMA Prediction task with all 11
-   metrics over the test split; K1 must have run once per step;
+   metrics over the test split; K1 must have run once per step (the
+   graph's replays count); step_program "graph", one capture;
+   then "graph vs eager": from one state and one set of draws an epoch
+   graphed and two eager (train_steps): steps/s, host us a step, the
+   largest differences (graphed vs eager, eager vs eager) in the default
+   cuDNN mode; under cudnn.deterministic a program captured in that mode,
+   kept with its one capture across a second sample() and update_hyp to
+   other values, its graphed epoch after them bit-equal to the eager one;
+   the device's busy share of a graphed and an eager epoch of 16 steps
+   under torch.profiler;
 4. the int8 kernels K2/K4b/K4d (csrc/int8_gemv.cu, variants mma, mma_row,
    dp4a) and K4a/K4c (csrc/stream_probe.cu, outputs (G, 1) and (G, 128))
    against their plain versions, bit for bit, at 512x256, 3072x3072,
@@ -26,7 +38,8 @@ Phases, each ending with its seconds:
    light and the share of it; each new kernel must have been launched there;
 6. the latency path (profiling/latency.profile_config): PreResNet-20 /
    CIFAR-10, fp32, bf16 and int8 engines, S=6, batch 1 and 128, per-call
-   and CUDA-graph device times, both member strategies for bf16; a graph
+   and CUDA-graph device times, both member strategies for bf16 (the one
+   the 'auto' rule does not pick: its device time only); a graph
    replay must equal the eager forward, bf16 and int8 must stay within 0.03
    of fp32 on a fresh ensemble (and are printed for the slice's trained
    one), and make_latex_table must render every row;
@@ -67,7 +80,9 @@ Phases, each ending with its seconds:
    per-member modules within 1e-2, MCdropout's logits equal under one seed
    and different between members; K1 launched exactly once a step by
    cSGHMC (both chains in one launch) and cSGLD, 128 in all, and never by
-   the others; bn_refresh equal to a plain recomputation from forward hooks
+   the others; step_program "graph" with one capture for every sampler but
+   MCdropout ("eager": dropout), SGD's kept across update_hyp and a second
+   sample(); bn_refresh equal to a plain recomputation from forward hooks
    within 1e-4 of each layer's largest statistic; K1 at the two stacked
    chains (73,093,960 floats) equal to its plain version with the noise
    off, its noise statistics, and both device times from CUDA graphs
@@ -167,9 +182,12 @@ Phases, each ending with its seconds:
    MLP200MNIST and LeNet5MNIST (10,240 MNIST images) and PreResNet-20 fp32
    (2,048 CIFAR-10 images) at C = 1, 2, 4 and 8, and WideResNet-28x10 bf16
    (2,048 CIFAR-100 images) at C = 1, 2 and 4 (a C whose vmap run would not
-   fit is skipped and printed): a warm-up epoch of each strategy (its peak
-   memory), then one epoch of each timed with CUDA events, scan then vmap:
-   aggregate and per-chain step-forwards/s and vmap/scan; K1
+   fit is skipped and printed): for each strategy a graphed warm-up epoch
+   (its first steps eager, the capture; its peak memory and the graph's
+   pool), then one graphed and one eager epoch of each timed with CUDA
+   events (the eager one's peak memory too), scan then vmap: aggregate and
+   per-chain
+   step-forwards/s, vmap/scan and graphed/eager; K1
    once a step in every epoch; each model's vmap against scan from one seed
    over one batch, the first step's gradients and, after 4 noisy steps,
    parameters, momenta, BatchNorm statistics and losses: ||vmap - scan|| /
@@ -217,8 +235,11 @@ resumes); (d) three ranks sharing the card under ``torchrun --standalone``
 ranks 0-1 and rank 2 idles and writes nothing; rank 0's results within the
 runner's limits (rtol 2e-4, atol 1e-5; 2e-3 on the model-uncertainty
 AUROCs) of one process's; its JSON under smoke_out/mesh/.
+Every epoch sampler these phases run reports step_program by the rule
+(inference/base.py): "eager" for dropout models, streamed splits and
+meshes, else "graph".
 Then a JSON line describing each kernel (its launches on the main path,
-K1's summed over the slice, the ImageNet slice, the samplers, the
+K1's summed over the slice, graph vs eager, the ImageNet slice, the samplers, the
 experiment, the hypopt, the hmc_ess, the stream, the chains and the mesh
 phases, the mesh phase's child ranks included; its
 error against its plain version, its time, the plain version's, its
@@ -243,6 +264,7 @@ import torch
 
 HYP = {"lr": 0.05, "prior_std": 1.0, "num_samples": 2, "alpha": 0.1,
        "burn_in_epochs": 1}
+HYP_UPDATE = {**HYP, "lr": 0.02, "alpha": 0.2}  # the graph-vs-eager phase's update_hyp
 BATCH = 128
 STEPS = 3 * 391  # burn_in + num_samples epochs of ceil(50000 / 128) steps
 TIMED_LAUNCHES = 2000
@@ -543,18 +565,61 @@ def kernel_phase(device, n_slice: int) -> dict:
     def plain_call():
         sghmc_update_flat_reference(p, v, g, s, torch.randn(n_slice, device=device))
 
+    seed_t = torch.tensor([1], dtype=torch.int64, device=device)
+
+    def dseed_call():
+        sghmc_update_flat(p, v, g, s, seed=seed_t)
+
     ms, plain_ms = graph_ms([kernel_call], TIMED_LAUNCHES), graph_ms([plain_call], TIMED_LAUNCHES)
+    dseed_ms = graph_ms([dseed_call], TIMED_LAUNCHES)
     call_ms = event_ms(kernel_call, TIMED_LAUNCHES, 20)
     bound_ms, bound_by = bound(SGHMC_BYTES * n_slice, SGHMC_FLOPS * n_slice, "f32")
+    seeds = k1_device_seed_check(device, n_slice)
     print(f"kernel K1 sghmc_update: {cases} noise-off cases equal to the plain "
           f"version (max abs err {max_err:.3g}); noise std/expected "
           f"{std / expected:.4f}, KS {ks:.4f}; n={n_slice}: device {ms * 1e3:.2f} us "
+          f"(its seed read from device memory: {dseed_ms * 1e3:.2f} us) "
           f"vs plain {plain_ms * 1e3:.2f} us (graphs of {TIMED_LAUNCHES} calls), "
           f"{call_ms * 1e3:.2f} us a call from Python; bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}), {bound(SGHMC_BYTES * TV_FLAT, 0, 'f32')[0] * 1e3:.1f}"
-          f" us at TVResNet-50's {TV_FLAT}", flush=True)
+          f" us at TVResNet-50's {TV_FLAT}; the device-seed entry bit-equal to the by-value "
+          f"launch in {seeds} cases (offsets 0 and 2 mod 4, table of 1 and 2 rows)", flush=True)
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "dseed_ms": dseed_ms}
+
+
+def k1_device_seed_check(device, n: int) -> int:
+    """K1 with its seed in device memory (a one-element int64 CUDA tensor,
+    the graphed epoch's launch) against the by-value seed, the noise on, at
+    offsets 0 and 2 (2 mod 4: a local group of four spans two global ones),
+    with one row of scalars and with two; p and v must be bit-equal.
+    Returns the cases checked."""
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+    from ursabench_tpu_torch.ops.sgmcmc import sghmc_scalars
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    rows = 2 * (n // 2)
+    p, v, g = (torch.randn(rows, generator=gen, device=device) for _ in range(3))
+    cases = 0
+    for seed in (12345, 2 ** 63 - 25):
+        for offset in (0, 2, 2 * rows + 6):
+            for table_rows in (1, 2):
+                s = sghmc_scalars(lr=torch.tensor([0.05, 0.02][:table_rows], device=device),
+                                  momentum=0.9, wd_over_n=1e-5, n_train=50000.0,
+                                  noise_on=1.0, is_first_step=torch.tensor(False, device=device),
+                                  device=device).reshape(table_rows, 5).squeeze(0)
+                out = []
+                for sd in (seed, torch.tensor([seed], dtype=torch.int64, device=device)):
+                    pk, vk = p.clone(), v.clone()
+                    sghmc_update_flat(pk, vk, g, s, seed=sd, offset=offset)
+                    out.append((pk, vk))
+                torch.cuda.synchronize()
+                check(torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1]),
+                      f"K1 with its seed in device memory != the by-value seed at offset "
+                      f"{offset}, {table_rows} row(s)")
+                check(not torch.equal(out[0][1], v), "K1 left the momentum unchanged")
+                cases += 1
+    return cases
 
 
 def reference_probs(module_factory, ens, x):
@@ -631,13 +696,230 @@ def slice_phase(device):
     check(abs(err_np - err) < 1e-6 and abs(nll_np - metrics["nll"]) < 1e-4,
           f"metrics disagree with numpy: {err_np} {nll_np}")
 
-    print(f"slice SGHMC PreResNet-20 CIFAR-10 bs{BATCH}: {launches} K1 launches, "
-          f"epoch losses {[round(v, 4) for v in losses]}, "
+    prog = sampler._program
+    check(sampler.step_program == "graph" and prog is not None and prog.captures == 1,
+          f"slice: step_program {sampler.step_program}, captures "
+          f"{None if prog is None else prog.captures}")
+    print(f"slice SGHMC PreResNet-20 CIFAR-10 bs{BATCH}: step_program {sampler.step_program} "
+          f"(captures {prog.captures}, the capture {prog.capture_ms:.1f} ms), {launches} K1 "
+          f"launches, epoch losses {[round(v, 4) for v in losses]}, "
           f"{STEPS / sample_s:.1f} steps/s over sample() ({sample_s:.2f} s, "
           f"3 epochs incl. the first), BMA {test.n / bma_s:.0f} img/s "
           f"({ens.num_members} members, {bma_s:.2f} s); data {data_s:.1f} s; "
           f"metrics {json.dumps(metrics)}", flush=True)
-    return launches, splits, ens
+    return launches, splits, ens, sampler
+
+
+def _eager_epoch(sampler):
+    """One epoch of ``sampler`` on the step-by-step path (``train_steps``),
+    its epoch program hidden for the call: what the sampler ran before the
+    program, from the same draws."""
+    sampler.epoch_program = lambda: None
+    try:
+        return sampler._run_epoch()
+    finally:
+        del sampler.epoch_program
+
+
+def _snapshot(sampler):
+    st = sampler._state
+    return ([st.params.clone(), st.momentum.clone()],
+            [b.clone() for m in sampler.modules for b in m.buffers()],
+            st.step, sampler.epochs_run,
+            {n: g.get_state() for n, g in sampler._generators().items()})
+
+
+def _restore(sampler, snap) -> None:
+    st = sampler._state
+    (params, momentum), buffers, step, epochs, gens = snap
+    with torch.no_grad():
+        st.params.copy_(params)
+        st.momentum.copy_(momentum)
+        for b, saved in zip([b for m in sampler.modules for b in m.buffers()], buffers):
+            b.copy_(saved)
+    st.step, sampler.epochs_run = step, epochs
+    for n, g in sampler._generators().items():
+        g.set_state(gens[n])
+
+
+class _TimedGraph:
+    """A CUDA graph whose ``replay`` notes the host clock first: the
+    intervals between replays are the host's time a graphed step."""
+
+    def __init__(self, graph):
+        self.graph, self.stamps = graph, []
+
+    def replay(self):
+        self.stamps.append(time.perf_counter())
+        self.graph.replay()
+
+
+def _path_epoch(sampler, path: str) -> dict:
+    """One epoch of ``sampler``, graphed or eager: the state after it, the
+    host seconds until the call returned and until the card finished, and
+    for the graph the shortest and the median interval between replays."""
+    prog = sampler._program
+    timed = path == "graph" and prog is not None and prog.graph is not None
+    if timed:
+        prog.graph = _TimedGraph(prog.graph)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        sampler._run_epoch() if path == "graph" else _eager_epoch(sampler)
+    finally:
+        host_s = time.perf_counter() - t0
+        if timed:
+            stamps, prog.graph = prog.graph.stamps, prog.graph.graph
+    torch.cuda.synchronize()
+    out = {"host_s": host_s, "wall_s": time.perf_counter() - t0}
+    if timed:
+        gaps = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+        out["replay_gap_us"] = (gaps[0] * 1e6, gaps[len(gaps) // 2] * 1e6)
+    st = sampler._state
+    out["state"] = [st.params.clone(), st.momentum.clone()] + [
+        b.clone() for m in sampler.modules for b in m.buffers()]
+    return out
+
+
+def _max_diff(a: list, b: list) -> float:
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+
+def _busy(prof) -> tuple:
+    """(the kernels' summed device ms, the share of the window from the
+    first kernel's start to the last one's end in which a kernel ran, the
+    window's ms) of a torch.profiler trace."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return 0.0, float("nan"), 0.0
+    total = sum(b - a for a, b in spans)
+    union, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            union, lo, hi = union + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    union += hi - lo
+    window = max(b for _, b in spans) - spans[0][0]
+    return total / 1e3, union / window * 100, window / 1e3
+
+
+def _busy_shares(device) -> dict:
+    """PreResNet-20 SGHMC over 2,048 CIFAR-10 images (16 steps of the
+    slice's batch): after a warm-up epoch (the capture), one graphed and one
+    eager epoch under torch.profiler: the kernels' ms a step and the
+    device's busy share of the traced window."""
+    split, c = _ch_split("PreResNet20", "CIFAR10", 2048)
+    s = _ch_sampler(device, "PreResNet20", split, c, "fp32", 1, "scan")
+    from ursabench_tpu_torch.profiling.hw import event_ms
+
+    s._run_epoch()
+    out, steps = {}, split.num_batches
+    for path in ("graph", "eager"):
+        run = s._run_epoch if path == "graph" else (lambda: _eager_epoch(s))
+        untraced = min(event_ms(run, 1) for _ in range(3))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernel_ms, busy, window_ms = _busy(prof)
+        out[path] = {"kernel_ms_per_step": kernel_ms / steps, "busy_pct": busy,
+                     "window_ms_per_step": window_ms / steps,
+                     "untraced_ms_per_step": untraced / steps,
+                     "kernel_pct_of_untraced": kernel_ms / untraced * 100}
+    out["steps_run"] = (1 + 2 * 4) * steps  # the warm-up, then 3 untraced and 1 traced a path
+    return out
+
+
+def program_phase(device, sampler) -> dict:
+    """The slice's sampler after its sample(): from one state and one set of
+    draws an epoch graphed and two eager (``train_steps``) in the default
+    cuDNN mode (graphed against eager and eager against eager: the largest
+    difference; steps/s, host us a step); then, with ``cudnn.deterministic``,
+    a program captured in that mode by one epoch, which a second sample() of
+    one draw and ``update_hyp`` to other values (HYP_UPDATE: new weights,
+    step 0, other rates and momentum, all written in place) must leave as
+    the same program with its one capture, and its graphed epoch after them
+    bit-equal to the eager one from the same state and draws (a replay that
+    read a stale input would differ); then the device's busy share of a
+    graphed and an eager step (``_busy_shares``). K1 once a step
+    throughout: the replays count as launches."""
+    from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
+
+    steps = sampler.train.num_batches
+    prog = sampler._program
+    sghmc_update_flat.launches = 0
+    snap = _snapshot(sampler)
+    runs = {}
+    for path in ("graph", "eager", "eager2"):
+        _restore(sampler, snap)
+        runs[path] = _path_epoch(sampler, path.rstrip("2"))
+    check(sampler._program is prog and prog.captures == 1,
+          f"program: {prog.captures} captures after the timed epochs")
+    default_diff = _max_diff(runs["graph"]["state"], runs["eager"]["state"])
+    eager_diff = _max_diff(runs["eager2"]["state"], runs["eager"]["state"])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sampler._program = None  # a program captured under deterministic cuDNN
+        sampler._run_epoch()
+        det_prog = sampler._program
+        sampler.sample(1)
+        sampler.update_hyp(HYP_UPDATE)
+        check(sampler._program is det_prog and det_prog.captures == 1,
+              f"program: a second sample() or update_hyp rebuilt the program or captured "
+              f"again ({det_prog.captures} captures)")
+        snap = _snapshot(sampler)
+        det = {}
+        for path in ("graph", "eager"):
+            _restore(sampler, snap)
+            det[path] = _path_epoch(sampler, path)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    det_diff = _max_diff(det["graph"]["state"], det["eager"]["state"])
+    check(det_prog is not prog and det_prog.captures == 1 and det_diff == 0.0,
+          f"program: the graphed epoch differs from the eager one by {det_diff:.3g} under "
+          "deterministic cuDNN")
+    launches = sghmc_update_flat.launches
+    epochs = len(runs) + 1 + 1 + len(det)  # the capture's epoch, then sample(1)'s
+    check(launches == epochs * steps,
+          f"program: K1 launched {launches} times in {epochs} epochs of {steps} steps")
+    busy = _busy_shares(device)
+    launches = sghmc_update_flat.launches
+    check(launches == epochs * steps + busy["steps_run"],
+          f"program: K1 launched {launches} times, not once a step")
+    out = {"capture_ms": prog.capture_ms, "captures": det_prog.captures,
+           "pool_gb": prog.pool_bytes / 1e9, "default_max_abs_diff": default_diff,
+           "eager_vs_eager_max_abs_diff": eager_diff, "deterministic_max_abs_diff": det_diff,
+           "launches": launches, "busy": busy}
+    for path in ("graph", "eager"):
+        r = runs[path]
+        out[path] = {"steps_per_s": steps / r["wall_s"],
+                     "call_us_per_step": r["host_s"] / steps * 1e6}
+    out["graph"]["replay_gap_us"] = runs["graph"]["replay_gap_us"]
+    g, e = out["graph"], out["eager"]
+    print(f"  step_program graph: one capture ({prog.capture_ms:.1f} ms, a pool of "
+          f"{out['pool_gb']:.3f} GB); one epoch of {steps} "
+          f"steps from one state and draws: graphed {g['steps_per_s']:.1f} steps/s, eager "
+          f"{e['steps_per_s']:.1f} ({g['steps_per_s'] / e['steps_per_s']:.2f}x); host us a "
+          f"step: eager {e['call_us_per_step']:.1f}, graphed {g['replay_gap_us'][0]:.1f} "
+          f"(shortest interval between replays; median {g['replay_gap_us'][1]:.1f}, the call "
+          f"{g['call_us_per_step']:.1f} a step with its waits for the card); 16-step epochs "
+          f"(graphed / eager): {busy['graph']['untraced_ms_per_step']:.3f} / "
+          f"{busy['eager']['untraced_ms_per_step']:.3f} ms a step untraced, the kernels "
+          f"{busy['graph']['kernel_ms_per_step']:.3f} / {busy['eager']['kernel_ms_per_step']:.3f}"
+          f" ms a step under torch.profiler ({busy['graph']['kernel_pct_of_untraced']:.1f}% / "
+          f"{busy['eager']['kernel_pct_of_untraced']:.1f}% of the untraced step), busy "
+          f"{busy['graph']['busy_pct']:.1f}% / {busy['eager']['busy_pct']:.1f}% of the traced "
+          f"window ({busy['graph']['window_ms_per_step']:.3f} / "
+          f"{busy['eager']['window_ms_per_step']:.3f} ms a step); largest difference graphed vs eager "
+          f"{default_diff:.3g}, eager vs eager {eager_diff:.3g} (default cuDNN), graphed vs "
+          f"eager {det_diff:.3g} (deterministic cuDNN: a program captured in that mode, its "
+          f"{det_prog.captures} capture kept across a second sample() and update_hyp); K1 "
+          f"{launches} launches, one a step of {epochs} epochs of {steps} and "
+          f"{busy['steps_run']} steps of 16-step epochs", flush=True)
+    return out
 
 
 def int8_kernel_phase(device) -> dict:
@@ -768,8 +1050,9 @@ def latency_phase(device, ens, test) -> list:
             auto = resolve_member_strategy("auto", LATENCY_S, b, (3, 32, 32), prec,
                                            *member_cost("PreResNet20", 10, (3, 32, 32)))
             for strategy in (("scan", "vmap") if prec == "bf16" else (auto,)):
+                # the strategy the rule does not pick: its device time only
                 r = profile_config(cfg, amortize_k=AMORTIZE_K, member_strategy=strategy,
-                                   device=device)
+                                   device=device, per_call=strategy == auto)
                 results.append((strategy == auto, r))
                 if strategy == auto:
                     cache[cfg.key()] = r
@@ -786,7 +1069,7 @@ def latency_phase(device, ens, test) -> list:
             by = {}
             for strategy in (("scan", "vmap") if prec == "bf16" else (auto,)):
                 r = profile_config(cfg, amortize_k=TV_AMORTIZE_K, member_strategy=strategy,
-                                   device=device)
+                                   device=device, per_call=strategy == auto)
                 results.append((strategy == auto, r))
                 by[strategy] = r["amortized_latency_s"]
                 if strategy == auto:
@@ -798,10 +1081,13 @@ def latency_phase(device, ens, test) -> list:
         check(r["graph_max_abs_diff"] == 0.0,
               f"graph replay != eager for {r}")
         check(all(math.isfinite(r[k]) and r[k] > 0 for k in
-                  ("latency_mean_s", "amortized_latency_s")), f"latency {r}")
+                  (("latency_mean_s",) if is_auto else ()) + ("amortized_latency_s",)),
+              f"latency {r}")
+        per_call = (f"{r['latency_mean_s'] * 1e3:.3f} ms" if "latency_mean_s" in r
+                    else "not timed")
         print(f"  latency {r['precision']} S={r['ensemble_size']} bs{r['batch_size']} "
               f"{r['amortized_member_strategy']}{' (auto)' if is_auto else ''}: "
-              f"per call {r['latency_mean_s'] * 1e3:.3f} ms, device "
+              f"per call {per_call}, device "
               f"{r['amortized_latency_s'] * 1e3:.4f} ms, "
               f"{r.get('mfu_pct_of_bf16_peak')}% of bf16 peak, "
               f"{r.get('hbm_bytes_accessed')} B counted", flush=True)
@@ -1216,12 +1502,28 @@ def samplers_phase(device) -> dict:
             a, b = ens.logits_all(x, 0), ens.logits_all(x, 0)
             check(torch.equal(a, b), "MCdropout: one seed gave different logits")
             check(not torch.allclose(a[0], a[1]), "MCdropout: two members agree")
+        # the step program by the rule: eager for the dropout twin, else one
+        # capture, kept across update_hyp and a second sample() (SGD's)
+        prog = sampler._program
+        want = "eager" if name == "MCdropout" else "graph"
+        check(sampler.step_program == want and (prog is None) == (want == "eager"),
+              f"{name}: step_program {sampler.step_program}, expected {want}")
+        if name == "SGD":
+            sampler.update_hyp(SGD_HYP)
+            sampler.sample(**sample_kw)
+            check(sampler._program is prog and sampler.epochs_run == epochs,
+                  "SGD: update_hyp and a second sample() rebuilt the program")
+        captures = None if prog is None else prog.captures
+        check(captures in (None, 1), f"{name}: {captures} captures")
         steps = epochs * WRN_STEPS
         rows[name] = {"members": members, "epochs": epochs, "chains": chains, "steps": steps,
                       "sample_s": sample_s, "step_forwards_per_s": steps * chains / sample_s,
                       "bma_s": bma_s, "bma_img_per_s": test.n / bma_s, "error_rate": err,
-                      "epoch_losses": losses.tolist()}
-        print(f"  {name}: {members} members, {epochs} epochs x {chains} chain(s) of "
+                      "epoch_losses": losses.tolist(), "step_program": sampler.step_program,
+                      "captures": captures}
+        print(f"  {name}: step_program {sampler.step_program} (captures {captures}"
+              f"{', across update_hyp and a second sample()' if name == 'SGD' else ''}); "
+              f"{members} members, {epochs} epochs x {chains} chain(s) of "
               f"{WRN_STEPS} steps in {sample_s:.2f} s, {steps * chains / sample_s:.2f} "
               f"step-forwards/s over sample(); BMA {test.n / bma_s:.0f} img/s ({bma_s:.2f} s); "
               f"error rate {err:.4f}; K1 launches so far {k1_after[name]}", flush=True)
@@ -1255,6 +1557,7 @@ def _run_cli(argv, runs):
             ens = sample()
             runs.append({"epochs": sampler.epochs_run, "chains": sampler.chains,
                          "batches": train.num_batches, "ensemble": ens,
+                         "step_program": sampler.step_program,
                          "losses": torch.stack([torch.as_tensor(v).float().reshape(-1)
                                                 for v in sampler.epoch_losses]).cpu()})
             return ens
@@ -1274,9 +1577,11 @@ def _run_cli(argv, runs):
 
 
 def _check_launches(name, launches, runs) -> int:
+    """K1 once a step over ``runs``' samplers; prints their step programs."""
     steps = sum(r["epochs"] * r["batches"] for r in runs)
     check(launches == steps, f"{name}: K1 launched {launches} times for {steps} steps "
           f"(all chains of a step in one launch)")
+    print(f"  {name}: step_program {', '.join(r['step_program'] for r in runs)}", flush=True)
     return steps
 
 
@@ -1647,12 +1952,15 @@ def config5_run(device) -> dict:
     solo.sample()
     torch.cuda.synchronize()
     solo_s = time.perf_counter() - t0
+    check(solo.step_program == "graph" and solo._program.captures == 1,
+          f"config 5: the solo run's step_program {solo.step_program}")
     solo_rate = epochs * train.num_batches / solo_s
     rates = [forwards / r["sample"] for r in rounds]
     print(f"  config 5 (PreResNet-20 / CIFAR-10 {train.n} train, {test.n} test; batched BO "
           f"{HP_BO}): {bo_s:.1f} s, K1 {launches} launches = {steps} sweep steps (4 configs "
           f"a launch); sweep step-forwards/s {', '.join(f'{x:.1f}' for x in rates)} vs one "
-          f"config solo {solo_rate:.1f} steps/s ({solo_s:.2f} s with set-up); best ll "
+          f"config solo {solo_rate:.1f} steps/s ({solo_s:.2f} s with set-up; step_program "
+          f"{solo.step_program}); best ll "
           f"{best_obj:.4f} at {json.dumps(best_hyp)}; all ll "
           f"{[round(o, 4) for o in objs]}; data {data_s:.1f} s", flush=True)
     for i, r in enumerate(rounds):
@@ -1687,6 +1995,8 @@ def sweep_equals_solo(device) -> float:
         # in turn, as each solo run: equal to it, not within vmap's rounding
         sweep = inference.MethodSweep(hyps, model=build(), train=splits["train"], seed=3,
                                       method=method, device=device, chain_strategy="scan")
+        check(sweep.sampler.step_program == "graph",
+              f"sweep {method}: step_program {sweep.sampler.step_program}")
         if method == "SGD":
             got = [e.state for e in sweep.sample()]
         else:
@@ -1792,6 +2102,8 @@ def config2_run(device) -> dict:
         sample_s = time.perf_counter() - t0
         launches = sghmc_update_flat.launches - before
         steps = sampler.epochs_run * splits["train"].num_batches
+        check(sampler.step_program == "graph" and sampler._program.captures == 1,
+              f"{name} {method}: step_program {sampler.step_program}")
         check(ens.num_members == members, f"{name} {method}: {ens.num_members} members")
         check(launches == (steps if method == "SGHMC" else 0),
               f"{name} {method}: K1 launched {launches} times for {steps} steps")
@@ -1806,7 +2118,8 @@ def config2_run(device) -> dict:
         out[f"{name}_{method}"] = {"sample_s": sample_s, "launches": launches, "steps": steps,
                                    "members": members, "chains": sampler.chains,
                                    "metrics": metrics, "losses": losses.tolist()}
-        print(f"  {name} / {dataset} {method} x{sampler.chains} chain(s): {members} members, "
+        print(f"  {name} / {dataset} {method} x{sampler.chains} chain(s), step_program "
+              f"{sampler.step_program}: {members} members, "
               f"{sampler.epochs_run} epochs of {splits['train'].num_batches} steps in "
               f"{sample_s:.2f} s, K1 {launches}; epoch losses "
               f"{[[round(x, 4) for x in row] for row in losses.tolist()]}; "
@@ -1827,7 +2140,8 @@ def hypopt_phase(device, row_len: int) -> dict:
     sghmc_update_flat.launches = 0
     res = {"k1_table": table, "config5": config5_run(device)}
     res["sweep_vs_solo"] = sweep_equals_solo(device)
-    print(f"  sweep vs solo (MLP200MNIST, SGD and noise-off SGHMC, 2 configs): largest "
+    print(f"  sweep vs solo (MLP200MNIST, SGD and noise-off SGHMC, 2 configs; step_program "
+          f"graph): largest "
           f"difference {res['sweep_vs_solo']:.3g} of the largest weight", flush=True)
     os.makedirs(HP_OUT, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=HP_OUT) as tmp:
@@ -2275,6 +2589,8 @@ def _stream_sampler(device, train, model, chunk):
           f"streamed batches (M={chunk}): {bad} mismatched bytes over {checked.checked} "
           f"transfers")
     sampler.train = stream
+    check(sampler.step_program == "eager", f"a streamed sampler's step_program "
+                                           f"{sampler.step_program}")
     return sampler, stream, checked.checked
 
 
@@ -2554,17 +2870,19 @@ def _ch_sampler(device, name, split, classes, dtype, chains, strategy):
                         chain_strategy="scan" if chains == 1 else strategy)
     if chains == 1:
         s._resolved_chain_strategy = strategy
+    check(s.step_program == "graph", f"chains: step_program {s.step_program}")
     return s
 
 
-def _ch_epoch(sampler, launches: list) -> float:
-    """ms of one epoch of ``sampler`` (CUDA events), K1's launches in it
-    appended to ``launches`` and checked against its steps."""
+def _ch_epoch(sampler, launches: list, eager: bool = False) -> float:
+    """ms of one epoch of ``sampler`` (CUDA events), graphed or, with
+    ``eager``, step by step; K1's launches in it appended to ``launches``
+    and checked against its steps."""
     from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
     from ursabench_tpu_torch.profiling.hw import event_ms
 
     sghmc_update_flat.launches = 0
-    ms = event_ms(sampler._run_epoch, 1)
+    ms = event_ms((lambda: _eager_epoch(sampler)) if eager else sampler._run_epoch, 1)
     steps = sampler.train.num_batches
     check(sghmc_update_flat.launches == steps,
           f"chains: K1 launched {sghmc_update_flat.launches} times in an epoch of {steps} "
@@ -2573,15 +2891,16 @@ def _ch_epoch(sampler, launches: list) -> float:
     return ms
 
 
-def _ch_peak(sampler, launches: list):
-    """A warm-up epoch of ``sampler``: (peak GB allocated during it, GB it
-    added over what was allocated before it)."""
+def _ch_peak(sampler, launches: list, eager: bool = False):
+    """An epoch of ``sampler`` (``_ch_epoch``), graphed or eager: (peak GB
+    allocated during it, GB it added over what was allocated before it,
+    its ms)."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    _ch_epoch(sampler, launches)
+    ms = _ch_epoch(sampler, launches, eager)
     peak = torch.cuda.max_memory_allocated()
-    return peak / 1e9, (peak - base) / 1e9
+    return peak / 1e9, (peak - base) / 1e9, ms
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2634,8 +2953,9 @@ def _ch_agree(device, name, dataset, dtype, launches: list) -> dict:
 
 
 def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
-    """The timed rows of one model: at each C, a warm-up epoch of each
-    strategy (its peak memory), then timed epochs in the turns CH_ORDER; a C
+    """The timed rows of one model: at each C, a graphed warm-up epoch of
+    each strategy (its peak memory), then a graphed and an eager epoch
+    timed in the turns CH_ORDER (the eager one's peak memory too); a C
     whose vmap run would not fit beside what is allocated (C times the
     one-chain vmap epoch's working memory) is skipped."""
     import gc
@@ -2649,13 +2969,17 @@ def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
                   f"{free:.1f} GB free", flush=True)
             rows.append({"model": name, "chains": chains, "skipped": True})
             continue
-        samplers, peak, ms = {}, {}, {"scan": [], "vmap": []}
+        samplers, peak, peak_eager = {}, {}, {}
+        ms, ms_eager = {"scan": [], "vmap": []}, {"scan": [], "vmap": []}
         try:
             for strategy in ("scan", "vmap"):
                 samplers[strategy] = _ch_sampler(device, name, split, c, dtype, chains, strategy)
-                peak[strategy] = _ch_peak(samplers[strategy], launches)
+                peak[strategy] = _ch_peak(samplers[strategy], launches)[:2]
             for strategy in CH_ORDER:
                 ms[strategy].append(_ch_epoch(samplers[strategy], launches))
+                peak_eager[strategy], _, eager_ms = _ch_peak(samplers[strategy], launches,
+                                                             eager=True)
+                ms_eager[strategy].append(eager_ms)
         except torch.cuda.OutOfMemoryError:
             print(f"  {name} C={chains}: skipped, out of memory", flush=True)
             rows.append({"model": name, "chains": chains, "skipped": True})
@@ -2670,13 +2994,20 @@ def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
                 check(bool(torch.isfinite(loss).all()), f"chains: {name} {strategy} loss {loss}")
         steps = split.num_batches
         sf = {k: [chains * steps * 1e3 / v for v in ms[k]] for k in ms}
+        sf_eager = {k: [chains * steps * 1e3 / v for v in ms_eager[k]] for k in ms_eager}
         mean = {k: sum(v) / len(v) for k, v in sf.items()}
+        mean_eager = {k: sum(v) / len(v) for k, v in sf_eager.items()}
         rows.append({"model": name, "dtype": dtype, "chains": chains, "steps": steps,
                      "images": n, "ms": ms, "step_forwards_per_s": sf,
                      "per_chain": {k: v / chains for k, v in mean.items()},
                      "vmap_over_scan": mean["vmap"] / mean["scan"],
                      "peak_gb": {k: v[0] for k, v in peak.items()},
-                     "epoch_gb": {k: v[1] for k, v in peak.items()}})
+                     "epoch_gb": {k: v[1] for k, v in peak.items()},
+                     "ms_eager": ms_eager, "step_forwards_per_s_eager": sf_eager,
+                     "vmap_over_scan_eager": mean_eager["vmap"] / mean_eager["scan"],
+                     "graph_over_eager": {k: mean[k] / mean_eager[k] for k in mean},
+                     "peak_gb_eager": peak_eager,
+                     "pool_gb": {k: v._program.pool_bytes / 1e9 for k, v in samplers.items()}})
         del samplers
         gc.collect()
         torch.cuda.empty_cache()
@@ -2797,18 +3128,24 @@ def chains_phase(device) -> dict:
             if key in agree:
                 print(f"    {name} {dtype} {key}: " + ", ".join(
                     f"{k} {v:.2e}" for k, v in agree[key].items()), flush=True)
-    print(f"  chains table (SGHMC, batch 128, one epoch a run, turns {' '.join(CH_ORDER)}; "
-          "step-forwards/s aggregate, per chain, vmap/scan, peak GB allocated):", flush=True)
+    print(f"  chains table (SGHMC, batch 128, step_program graph, one graphed and one eager "
+          f"epoch a run, turns {' '.join(CH_ORDER)}; step-forwards/s aggregate, per chain, "
+          "vmap/scan, graphed/eager, peak GB allocated, the graph's pool):", flush=True)
     for r in out["rows"]:
         if r.get("skipped"):
             continue
-        sf = r["step_forwards_per_s"]
+        sf, se, ge = r["step_forwards_per_s"], r["step_forwards_per_s_eager"], r["graph_over_eager"]
         print(f"    {r['model']} {r['dtype']} C={r['chains']} ({r['steps']} steps of "
-              f"{r['images']} images): scan {fmt(sf['scan'])}, vmap {fmt(sf['vmap'])}; per "
-              f"chain {r['per_chain']['scan']:.1f} / {r['per_chain']['vmap']:.1f}; vmap/scan "
-              f"{r['vmap_over_scan']:.3f}; peak {r['peak_gb']['scan']:.2f} / "
-              f"{r['peak_gb']['vmap']:.2f} GB (the epoch's own {r['epoch_gb']['scan']:.2f} / "
-              f"{r['epoch_gb']['vmap']:.2f})", flush=True)
+              f"{r['images']} images): graphed scan {fmt(sf['scan'])}, vmap {fmt(sf['vmap'])}; "
+              f"eager scan {fmt(se['scan'])}, vmap {fmt(se['vmap'])}; per chain (graphed) "
+              f"{r['per_chain']['scan']:.1f} / {r['per_chain']['vmap']:.1f}; vmap/scan "
+              f"{r['vmap_over_scan']:.3f} graphed, {r['vmap_over_scan_eager']:.3f} eager; "
+              f"graphed/eager scan {ge['scan']:.3f}, vmap {ge['vmap']:.3f}; peak "
+              f"{r['peak_gb']['scan']:.2f} / {r['peak_gb']['vmap']:.2f} GB graphed (the epoch's "
+              f"own {r['epoch_gb']['scan']:.2f} / {r['epoch_gb']['vmap']:.2f}), "
+              f"{r['peak_gb_eager']['scan']:.2f} / {r['peak_gb_eager']['vmap']:.2f} eager; the "
+              f"graph's pool {r['pool_gb']['scan']:.2f} / {r['pool_gb']['vmap']:.2f} GB",
+              flush=True)
     h, p, w = out["hmc"], out["pca"], out["sweep"]
     print(f"    HMC MLP200MNIST x{CH_ROWS} chains, 10,240 images, L {CH_HMC['L']}: gradients/s "
           f"scan {fmt(h['grads_per_s']['scan'])}, vmap {fmt(h['grads_per_s']['vmap'])}; s a "
@@ -3531,7 +3868,9 @@ def main() -> int:
 
     n_slice = sum(p.numel() for p in models.get_model("PreResNet20").build(10).parameters())
     kernel = phase("K1", kernel_phase, device, n_slice)
-    launches, splits, ens = phase("slice", slice_phase, device)
+    launches, splits, ens, slice_sampler = phase("slice", slice_phase, device)
+    program = phase("graph vs eager", program_phase, device, slice_sampler)
+    del slice_sampler
     int8_err = phase("int8 kernels", int8_kernel_phase, device)
     bench = phase("microbench", microbench_phase, device)
     phase("latency", latency_phase, device, ens, splits["test"])
@@ -3551,12 +3890,15 @@ def main() -> int:
         "name": "sghmc_update", "route": "cuda",
         "source": "ursabench_tpu_torch/csrc/sghmc_update.cu",
         "replaces": "benchmarks/pallas_sgmcmc.py:75",
-        "launches": (launches + imagenet["k1_launches"] + samplers["launches"]
+        "launches": (launches + program["launches"] + imagenet["k1_launches"]
+                     + samplers["launches"]
                      + experiment["launches"] + hypopt["launches"] + hmc_ess["launches"]
                      + stream["launches"] + chains["launches"] + mesh["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], samplers["k1"]["max_abs_err"]),
-        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"], "library_ms": None,
+        # the graphed epochs, most of these launches, run the entry that reads
+        # its seed from device memory; the eager paths the by-value one
+        "ms": kernel["dseed_ms"], "by_value_ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"], "library_ms": None,
     }]
     v = bench["variants"]
     d = MICROBENCH_D

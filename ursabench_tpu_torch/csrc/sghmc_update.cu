@@ -32,6 +32,13 @@
 // costs two Philox calls; offset 0 draws as before, bit for bit. The loads
 // stay aligned, since they are indexed by the local buffer.
 //
+// The seed comes by value (sghmc_update_f32) or from device memory
+// (sghmc_update_f32_dseed: one unsigned 64-bit word that every thread reads),
+// so a step captured once in a CUDA graph can be replayed with a new seed
+// written into that word between replays. Both entries launch one kernel
+// template, which differs only in where the seed comes from, and give the
+// same bits for the same seed.
+//
 // The scalars (lr, momentum, wd_over_n, noise_scale, is_first) are read from a
 // device float32 table of R rows of 5, so changing a hyperparameter changes
 // data, not code. The n elements are R rows of n / R (the (R, P) buffer of R
@@ -130,11 +137,17 @@ __device__ __forceinline__ void update_one(float& p, float& v, float g, float z,
   p = __fadd_rn(p, v_new);
 }
 
+// kDeviceSeed: the seed is read from seed_ptr (one load a thread, with no
+// branch before it, so that it can be issued beside the scalar row's loads);
+// otherwise it is the by-value `seed` and seed_ptr is unused.
+template <bool kDeviceSeed>
 __global__ void __launch_bounds__(kThreads)
 sghmc_update_kernel(float* __restrict__ p, float* __restrict__ v,
                     const float* __restrict__ g, const float* __restrict__ scalars,
                     long long n, long long rows, unsigned long long seed,
+                    const unsigned long long* __restrict__ seed_ptr,
                     unsigned long long offset, int vectorized) {
+  if (kDeviceSeed) seed = __ldg(seed_ptr);
   const long long row_len = n / rows;
   const long long groups = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -186,15 +199,12 @@ sghmc_update_kernel(float* __restrict__ p, float* __restrict__ v,
   }
 }
 
-}  // namespace
-
 // Launch on `stream`; allocates nothing and does not synchronise. Returns the
-// launch's cudaError_t (0 on success).
-// `scalars` is a float32 table of `rows` rows of 5; `rows` must divide n.
-// `offset` is the global index of element 0 (0 for a whole buffer).
-extern "C" int sghmc_update_f32(void* p, void* v, const void* g, const void* scalars,
-                                long long n, long long rows, unsigned long long seed,
-                                unsigned long long offset, void* stream) {
+// launch's cudaError_t (0 on success). `seed_ptr`, when not null, points at
+// the seed in device memory and `seed` is ignored.
+int launch(void* p, void* v, const void* g, const void* scalars, long long n,
+           long long rows, unsigned long long seed, const unsigned long long* seed_ptr,
+           unsigned long long offset, void* stream) {
   if (rows <= 0 || n % rows != 0) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   const int vectorized =
@@ -217,8 +227,36 @@ extern "C" int sghmc_update_f32(void* p, void* v, const void* g, const void* sca
   long long blocks = (groups + kThreads - 1) / kThreads;
   const long long max_blocks = (long long)sms * 8;
   if (blocks > max_blocks) blocks = max_blocks;
-  sghmc_update_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<float*>(p), static_cast<float*>(v), static_cast<const float*>(g),
-      static_cast<const float*>(scalars), n, rows, seed, offset, vectorized);
+  float* const pf = static_cast<float*>(p);
+  float* const vf = static_cast<float*>(v);
+  const float* const gf = static_cast<const float*>(g);
+  const float* const sf = static_cast<const float*>(scalars);
+  if (seed_ptr != nullptr)
+    sghmc_update_kernel<true><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        pf, vf, gf, sf, n, rows, 0ull, seed_ptr, offset, vectorized);
+  else
+    sghmc_update_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        pf, vf, gf, sf, n, rows, seed, nullptr, offset, vectorized);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// `scalars` is a float32 table of `rows` rows of 5; `rows` must divide n.
+// `offset` is the global index of element 0 (0 for a whole buffer).
+extern "C" int sghmc_update_f32(void* p, void* v, const void* g, const void* scalars,
+                                long long n, long long rows, unsigned long long seed,
+                                unsigned long long offset, void* stream) {
+  return launch(p, v, g, scalars, n, rows, seed, nullptr, offset, stream);
+}
+
+// As sghmc_update_f32, with the seed read by the kernel from `seed` in device
+// memory (8 bytes, aligned), not from the host.
+extern "C" int sghmc_update_f32_dseed(void* p, void* v, const void* g, const void* scalars,
+                                      long long n, long long rows, const void* seed,
+                                      unsigned long long offset, void* stream) {
+  if (seed == nullptr || (reinterpret_cast<uintptr_t>(seed) & 7u) != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch(p, v, g, scalars, n, rows, 0ull,
+                static_cast<const unsigned long long*>(seed), offset, stream);
 }

@@ -46,7 +46,7 @@ from ..data.transforms import draw_augment
 from ..models.common import dropout_layers
 from ..util import StateDict, derive_seed, make_generator, stack_state_dicts
 from .engine import (TrainState, epoch_indices, eval_loss, flatten_chains,
-                     init_variables, stream_steps, train_steps)
+                     init_variables, make_epoch_fn, stream_steps, train_steps)
 from .ensemble import Ensemble
 
 
@@ -306,7 +306,18 @@ class _EpochSampler(_Inference):
 
     On a mesh ``self.modules`` are this rank's chains (``chain_ids``) and
     ``self.chains`` counts every rank's; the epoch is ``engine.
-    train_steps``'s sharded one."""
+    train_steps``'s sharded one.
+
+    ``step_program`` says how a resident epoch runs: ``"graph"``, through
+    ``engine.make_epoch_fn``'s program (its step captured once as a CUDA
+    graph on the card and replayed, run eagerly on the CPU), or ``"eager"``,
+    through ``train_steps`` or ``stream_steps``, a step at a time from
+    Python: by a fixed rule, for a streamed split, on a mesh (its
+    collectives are not captured) and for a model with dropout (a fresh
+    generator a step). The program is built at the first epoch and again
+    only when ``_state`` or ``_hyp`` is a new object (a sweep's); update_hyp,
+    the noise gate, a second ``sample()`` and a checkpoint restore write in
+    place and keep it."""
 
     _HYP_KEYS: tuple = ()
     _LR_FN = None  # (hyp, epoch, batch_idx, step) -> lr
@@ -340,6 +351,7 @@ class _EpochSampler(_Inference):
                      for k in self._HYP_KEYS}
         self._noise_gate = torch.ones((), dtype=torch.float32, device=self.device)
         self._has_dropout = bool(dropout_layers(self.module))
+        self._program = None  # engine.make_epoch_fn's program, built at the first epoch
         self.epoch_losses: list = []  # mean training loss per epoch, on the device
 
     def _fill_hyp(self, values: dict) -> None:
@@ -372,6 +384,29 @@ class _EpochSampler(_Inference):
         """The host generator of the steps' noise seeds of run ``run``."""
         return torch.Generator().manual_seed(derive_seed(run, "noise"))
 
+    @property
+    def step_program(self) -> str:
+        """``"graph"`` or ``"eager"``: how the next epoch runs (class
+        docstring)."""
+        if self._streamed or self.mesh is not None or self._has_dropout:
+            return "eager"
+        return "graph"
+
+    def epoch_program(self):
+        """The ``engine.make_epoch_fn`` program of the resident epochs (None
+        when ``step_program`` is ``"eager"``), built on first use and
+        rebuilt when ``_state``, ``_hyp`` or the chain strategy is a new one."""
+        if self.step_program != "graph":
+            return None
+        prog, split = self._program, self.train
+        if (prog is None or prog.state is not self._state or prog.hyp is not self._hyp
+                or prog.chain_strategy != self._resolved_chain_strategy):
+            self._program = make_epoch_fn(
+                self._state, split, self._images, self._labels, hyp=self._hyp,
+                noise_on=self._noise_gate, lr_fn=self._LR_FN, update_fn=self._UPDATE_FN,
+                chain_strategy=self._resolved_chain_strategy)
+        return self._program
+
     def _run_epoch(self, noise_on: Optional[bool] = None) -> torch.Tensor:
         """One epoch on every chain; ``noise_on`` sets the noise gate first
         (None keeps it)."""
@@ -389,20 +424,23 @@ class _EpochSampler(_Inference):
             draws = [draw_augment(g, shape[1:], split.spec) for g in self._data_gens]
             aug = tuple(None if draws[0][j] is None else torch.stack([d[j] for d in draws])
                         for j in range(3))
-        seeds = torch.randint(0, 2 ** 63 - 1, (shape[1],),
-                              generator=self._noise_gen).tolist()
+        seeds = torch.randint(0, 2 ** 63 - 1, (shape[1],), generator=self._noise_gen)
         dropout_seeds = ([s for gen, rows in self._dropout_gens
                           for s in torch.randint(0, 2 ** 63 - 1, (rows,), generator=gen).tolist()
                           ][self._dropout_rows] if self._has_dropout else None)
-        kw = dict(epoch=self.epochs_run, noise_on=self._noise_gate, hyp=self._hyp,
-                  lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds, aug=aug,
-                  dropout_seeds=dropout_seeds)
-        if self._streamed:
-            loss = stream_steps(self._state, split, mesh=self.mesh, **kw)
+        program = self.epoch_program()
+        if program is not None:
+            loss = program(idx, epoch=self.epochs_run, seeds=seeds, aug=aug)
         else:
-            loss = train_steps(self._state, self._images, self._labels, idx, spec=split.spec,
-                               chain_strategy=self._resolved_chain_strategy, mesh=self.mesh,
-                               **kw)
+            kw = dict(epoch=self.epochs_run, noise_on=self._noise_gate, hyp=self._hyp,
+                      lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds.tolist(),
+                      aug=aug, dropout_seeds=dropout_seeds, mesh=self.mesh)
+            if self._streamed:
+                loss = stream_steps(self._state, split, **kw)
+            else:
+                loss = train_steps(self._state, self._images, self._labels, idx,
+                                   spec=split.spec,
+                                   chain_strategy=self._resolved_chain_strategy, **kw)
         self.epochs_run += 1
         self.epoch_losses.append(loss)
         return loss

@@ -1,14 +1,20 @@
 """Training machinery for the epoch-driven samplers.
 
 Counterpart of ``ursabench_tpu/inference/engine.py:54-313`` and ``:733-857``.
-The JAX package compiles one epoch into a ``lax.scan``; here an epoch is two
-pieces: ``epoch_indices`` draws the shuffled batch plan and ``train_steps``
-runs it, step by step, eagerly: gather -> normalize -> augment -> forward,
-cross entropy, backward -> learning rate -> parameter update. That step,
-from normalize on, is ``train_step``; ``stream_steps`` runs it over the
-batches a ``data.native.HostStreamingSplit`` streams from the host (the
-JAX package's ``run_streaming_epoch`` and its chunked epoch), where the
-stream's permutation takes the place of the batch plan.
+The JAX package compiles one epoch into a ``lax.scan``. Here
+``epoch_indices`` draws the shuffled batch plan and ``make_epoch_fn``
+builds the counterpart of that compiled epoch (an epoch program): the
+plan, the crops and flips, the noise seeds and the epoch go into static
+device buffers once an epoch, and one step, which reads them by a device
+counter, is captured once as a CUDA graph and replayed a batch at a time
+(on the CPU the same step runs eagerly). The step is gather -> normalize ->
+augment -> forward, cross entropy, backward -> learning rate -> parameter
+update. ``train_steps`` runs the same epoch step by step from Python
+(``train_step``, the step from normalize on): the path of models with
+active dropout and of device meshes; ``stream_steps`` runs ``train_step``
+over the batches a ``data.native.HostStreamingSplit`` streams from the
+host (the JAX package's ``run_streaming_epoch`` and its chunked epoch),
+where the stream's permutation takes the place of the batch plan.
 
 C chains each have their own module (and so their own BatchNorm buffers),
 batch plan, crops, flips and dropout streams. Their parameters, momenta and
@@ -59,6 +65,7 @@ eval mode.
 
 from __future__ import annotations
 
+import time
 import warnings
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence
@@ -69,6 +76,7 @@ from torch import nn
 from torch.func import functional_call, vmap
 
 from ..data.transforms import ImageSpec, augment_normalized, normalize
+from ..kernels import launches
 from ..models.common import (BatchNorm2d, batch_stats_out, dropout_calls, dropout_generator,
                              dropout_layers, dropout_masks)
 from ..util import StateDict, make_generator
@@ -334,6 +342,62 @@ def _batch_loss(logits: torch.Tensor, y: torch.Tensor, shards: int) -> torch.Ten
     return F.cross_entropy(logits, y, reduction="sum") / (y.shape[0] * shards)
 
 
+def _chains_loss_backward(state: TrainState, batches: Sequence[tuple], *, spec: ImageSpec,
+                          batch_idx, aug, dropout_seeds, mesh) -> torch.Tensor:
+    """Each chain's forward, cross entropy and backward in turn (the
+    gradients added into ``state.grads``); returns the (C,) losses."""
+    shards = _data_shards(mesh)
+    losses = []
+    for c, module in enumerate(state.modules):
+        x, y = batches[c]
+        if not x.is_floating_point():
+            x = normalize(x, spec)
+        if aug is not None:
+            x = augment_normalized(x, spec, *aug[c])
+        x = x.permute(0, 3, 1, 2).contiguous()
+        gen = (None if dropout_seeds is None
+               else _dropout_gen(x.device, dropout_seeds[c], batch_idx, mesh))
+        with dropout_generator(module, gen):
+            loss = _batch_loss(module(x), y, shards)
+        loss.backward()
+        losses.append(loss.detach())
+    return torch.stack(losses)
+
+
+def _vmap_loss_backward(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+                        idx: torch.Tensor, *, spec: ImageSpec, batch_idx, aug, dropout_seeds,
+                        mesh) -> torch.Tensor:
+    """Every chain's forward, cross entropy and backward as one batched
+    pass (``ChainForward``), the BatchNorm statistics folded after it;
+    returns the (C,) losses."""
+    chains, bsz = idx.shape
+    fwd, leaves, bns = state.batched()
+    flat = idx.reshape(-1)
+    x, y = images.index_select(0, flat), labels.index_select(0, flat)
+    if not x.is_floating_point():
+        x = normalize(x, spec)
+    if aug is not None:
+        x = augment_normalized(x, spec, *(None if a is None else a.reshape(-1) for a in aug))
+    x = x.permute(0, 3, 1, 2).contiguous()
+    x = x.view((chains, bsz) + tuple(x.shape[1:]))
+    layers, masks = (), ()
+    if dropout_layers(fwd.module):
+        if dropout_seeds is None:
+            raise RuntimeError("active Dropout without a generator: a model with dropout "
+                               "needs dropout_seeds")
+        layers, masks = fwd.masks(x[0], [_dropout_gen(x.device, s, batch_idx, mesh)
+                                         for s in dropout_seeds])
+    logits, stats = fwd(leaves, x, x_batched=True, layers=layers, masks=masks,
+                        masks_batched=chains > 1)
+    ce = F.cross_entropy(logits.reshape(chains * bsz, -1), y, reduction="none").view(chains, bsz)
+    shards = _data_shards(mesh)
+    losses = ce.mean(1) if shards == 1 else ce.sum(1) / (bsz * shards)
+    backward_into_views(losses.sum())
+    if stats:
+        fold_batch_stats(bns, stats)
+    return losses.detach()
+
+
 def train_step(
     state: TrainState,
     batches: Sequence[tuple],
@@ -363,23 +427,9 @@ def train_step(
     batch_idx)`` (a model with dropout raises without ``dropout_seeds``);
     ``seed`` keys the step's Langevin noise (one update over all
     chains)."""
-    shards = _data_shards(mesh)
     state.grads.zero_()
-    losses = []
-    for c, module in enumerate(state.modules):
-        x, y = batches[c]
-        if not x.is_floating_point():
-            x = normalize(x, spec)
-        if aug is not None:
-            x = augment_normalized(x, spec, *aug[c])
-        x = x.permute(0, 3, 1, 2).contiguous()
-        gen = (None if dropout_seeds is None
-               else _dropout_gen(x.device, dropout_seeds[c], batch_idx, mesh))
-        with dropout_generator(module, gen):
-            loss = _batch_loss(module(x), y, shards)
-        loss.backward()
-        losses.append(loss.detach())
-    losses = torch.stack(losses)
+    losses = _chains_loss_backward(state, batches, spec=spec, batch_idx=batch_idx, aug=aug,
+                                   dropout_seeds=dropout_seeds, mesh=mesh)
     _reduce_over_data(state, losses, mesh)
     lr = lr_fn(hyp, epoch, batch_idx, state.step)
     update_fn(state, hyp, lr=lr, noise_on=noise_on, is_first_step=state.step == 0, seed=seed)
@@ -413,33 +463,9 @@ def train_step_vmap(
     dropout_seeds[c], batch_idx)``, drawn as ``train_step`` draws them.
     Returns the (C,) losses on the device. On a data mesh ``idx`` and
     ``aug`` are this rank's columns."""
-    chains, bsz = idx.shape
-    fwd, leaves, bns = state.batched()
     state.grads.zero_()
-    flat = idx.reshape(-1)
-    x, y = images.index_select(0, flat), labels.index_select(0, flat)
-    if not x.is_floating_point():
-        x = normalize(x, spec)
-    if aug is not None:
-        x = augment_normalized(x, spec, *(None if a is None else a.reshape(-1) for a in aug))
-    x = x.permute(0, 3, 1, 2).contiguous()
-    x = x.view((chains, bsz) + tuple(x.shape[1:]))
-    layers, masks = (), ()
-    if dropout_layers(fwd.module):
-        if dropout_seeds is None:
-            raise RuntimeError("active Dropout without a generator: a model with dropout "
-                               "needs dropout_seeds")
-        layers, masks = fwd.masks(x[0], [_dropout_gen(x.device, s, batch_idx, mesh)
-                                         for s in dropout_seeds])
-    logits, stats = fwd(leaves, x, x_batched=True, layers=layers, masks=masks,
-                        masks_batched=chains > 1)
-    ce = F.cross_entropy(logits.reshape(chains * bsz, -1), y, reduction="none").view(chains, bsz)
-    shards = _data_shards(mesh)
-    losses = ce.mean(1) if shards == 1 else ce.sum(1) / (bsz * shards)
-    backward_into_views(losses.sum())
-    if stats:
-        fold_batch_stats(bns, stats)
-    losses = losses.detach()
+    losses = _vmap_loss_backward(state, images, labels, idx, spec=spec, batch_idx=batch_idx,
+                                 aug=aug, dropout_seeds=dropout_seeds, mesh=mesh)
     _reduce_over_data(state, losses, mesh)
     lr = lr_fn(hyp, epoch, batch_idx, state.step)
     update_fn(state, hyp, lr=lr, noise_on=noise_on, is_first_step=state.step == 0, seed=seed)
@@ -518,6 +544,191 @@ def _aug_at(aug: Optional[tuple], chains: int, bi: int) -> Optional[list]:
     if aug is None:
         return None
     return [tuple(None if a is None else a[c, bi] for a in aug) for c in range(chains)]
+
+
+# eager steps a program runs before it captures its step on the card: cuDNN,
+# cuBLAS and autograd make their handles and workspaces there, the
+# normalization constants and K1's library are built, and the capture then
+# sees only the step's own work
+WARMUP_STEPS = 3
+
+
+class _EpochProgram:
+    """One sampler's resident epoch as one program (``make_epoch_fn``'s):
+    built once for a ``TrainState``, its hyperparameter
+    tensors and its noise gate, which it reads in place, and called once an
+    epoch with that epoch's draws.
+
+    A call copies the batch plan (C, num_batches, batch), the crops and
+    flips shaped like it, the steps' noise seeds and the epoch into static
+    buffers, resets the in-epoch batch counter and sets the global step
+    counter from ``state.step``; then it runs the step once a batch. The step
+    reads row i of the plan and of the crops and flips by the device
+    counter, gathers, normalizes, augments and permutes to NCHW, runs the
+    forward, cross entropy and backward (each chain in turn, or every chain
+    as one batched pass under ``"vmap"``), computes the learning rate from
+    the epoch, batch and step counters and sets the first-step flag from the
+    global one on the device, launches the update (K1 reads its seed,
+    ``seeds[i]``, from device memory), writes the losses into row i of a
+    (num_batches, C) buffer and advances both counters. Nothing in it reads
+    the host or copies from it.
+
+    On the card the first ``WARMUP_STEPS`` steps the program runs are run
+    eagerly on a side stream (real steps, counted as such); the step is then
+    captured once as a CUDA graph, and every later step, of this epoch and
+    of every later one, is a replay. A capture that fails raises: nothing
+    falls back to the eager step. The kernels' launch counts take each
+    replay's launches (``kernels.launches``). On the CPU the same step runs
+    eagerly every time: the program's plain version.
+
+    The hyperparameters, the noise gate and ``state``'s buffers are read
+    where they are, so ``update_hyp``, the gate and an in-place checkpoint
+    restore change what the next replay computes without a new capture;
+    a new ``TrainState`` or hyperparameter dict needs a new program.
+    ``captures`` counts the captures, ``capture_ms`` the last one's time on
+    the host clock, ``pool_bytes`` what the allocator reserved for the
+    graph's private pool (its activations)."""
+
+    def __init__(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor, *,
+                 spec: ImageSpec, num_batches: int, batch_size: int, hyp: dict,
+                 noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn,
+                 chain_strategy: Optional[str] = None):
+        device = state.params.device
+        chains = len(state.modules)
+        shape = (chains, num_batches, batch_size)
+        self.state, self.hyp, self.noise_on = state, hyp, noise_on
+        self.images, self.labels, self.spec = images, labels, spec
+        self.lr_fn, self.update_fn, self.chain_strategy = lr_fn, update_fn, chain_strategy
+        self.device = device
+        self.plan = torch.zeros(shape, dtype=torch.int64, device=device)
+        # (ox, oy, flip) buffers, None where the spec does not draw one
+        crop = spec.random_crop_pad > 0
+        self.aug = (tuple(torch.zeros(shape, dtype=dt, device=device) if on else None
+                          for on, dt in ((crop, torch.int64), (crop, torch.int64),
+                                         (spec.random_flip, torch.bool)))
+                    if spec.augments else None)
+        self.seeds = torch.zeros(num_batches, dtype=torch.int64, device=device)
+        self.epoch = torch.zeros((), dtype=torch.float32, device=device)
+        self.batch = torch.zeros((), dtype=torch.int64, device=device)  # in the epoch
+        self.step = torch.zeros((), dtype=torch.int64, device=device)  # global
+        self.losses = torch.zeros((num_batches, chains), dtype=state.params.dtype, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captures = 0
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+        self.steps_run = 0
+        self._captured_launches: list = []
+        self._side = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def __call__(self, idx: torch.Tensor, *, epoch: int, seeds, aug: Optional[tuple] = None
+                 ) -> torch.Tensor:
+        """One epoch of every chain, in place, from this epoch's draws (as
+        ``train_steps`` takes them: ``idx`` (C, num_batches, batch) or, for
+        one chain, (num_batches, batch); ``aug`` shaped like it; ``seeds``
+        the (num_batches,) int64 noise seeds, a tensor or a list). Returns the
+        mean training loss, a 0-dim tensor for one chain and (C,) for C, on
+        the device; advances ``state.step`` by the epoch's steps."""
+        state = self.state
+        chains, num_batches, _ = self.plan.shape
+        self.plan.copy_(idx.reshape(self.plan.shape))
+        if self.aug is not None:
+            for buf, a in zip(self.aug, aug):
+                if buf is not None:
+                    buf.copy_(a.reshape(buf.shape))
+        seeds = torch.as_tensor(seeds, dtype=torch.int64)
+        if self._side is not None:  # no wait for the card: a pinned, asynchronous copy
+            seeds = seeds.pin_memory()
+        self.seeds.copy_(seeds, non_blocking=True)
+        self.epoch.fill_(float(epoch))
+        self.batch.zero_()
+        self.step.fill_(state.step)
+        for m in state.modules:
+            m.train()
+        for _ in range(num_batches):
+            if self.graph is None and (self._side is None or self.steps_run < WARMUP_STEPS):
+                self._eager()
+                continue
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            launches.replayed(self._captured_launches)
+            self.steps_run += 1
+        state.step += num_batches
+        mean = self.losses.mean(0)
+        return mean[0] if chains == 1 else mean
+
+    def _step(self) -> None:
+        """The step that the graph captures; every input is read from the
+        device."""
+        state = self.state
+        state.grads.zero_()
+        i = self.batch.view(1)
+        rows = self.plan.index_select(1, i).squeeze(1)  # (C, batch)
+        aug = (None if self.aug is None else
+               tuple(None if a is None else a.index_select(1, i).squeeze(1) for a in self.aug))
+        kw = dict(spec=self.spec, batch_idx=None, dropout_seeds=None, mesh=None)
+        if self.chain_strategy == "vmap":
+            losses = _vmap_loss_backward(state, self.images, self.labels, rows, aug=aug, **kw)
+        else:
+            batches = [(self.images.index_select(0, r), self.labels.index_select(0, r))
+                       for r in rows]
+            per_chain = (None if aug is None else
+                         [tuple(None if a is None else a[c] for a in aug)
+                          for c in range(len(batches))])
+            losses = _chains_loss_backward(state, batches, aug=per_chain, **kw)
+        lr = self.lr_fn(self.hyp, self.epoch, self.batch, self.step)
+        self.update_fn(state, self.hyp, lr=lr, noise_on=self.noise_on,
+                       is_first_step=self.step == 0, seed=self.seeds.index_select(0, i))
+        self.losses.index_copy_(0, i, losses.to(self.losses.dtype)[None])
+        self.batch.add_(1)
+        self.step.add_(1)
+
+    def _eager(self) -> None:
+        if self._side is None:
+            self._step()
+        else:  # a warm-up step, on a side stream as a capture wants
+            current = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(current)
+            with torch.cuda.stream(self._side):
+                self._step()
+            current.wait_stream(self._side)
+        self.steps_run += 1
+
+    def _capture(self) -> None:
+        # capture_begin on the side stream, not torch.cuda.graph, which first
+        # empties the allocator's cache: every later eager allocation of the
+        # process would pay for that
+        torch.cuda.synchronize(self.device)
+        reserved = torch.cuda.memory_reserved(self.device)  # the pool maps segments of its own
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with launches.record() as captured, torch.cuda.stream(self._side):
+            graph.capture_begin()
+            try:
+                self._step()
+            finally:
+                graph.capture_end()
+        self._captured_launches = captured
+        torch.cuda.synchronize(self.device)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph = graph
+        self.captures += 1
+
+
+def make_epoch_fn(state: TrainState, split, images: torch.Tensor, labels: torch.Tensor, *,
+                  hyp: dict, noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn,
+                  chain_strategy: Optional[str] = None) -> _EpochProgram:
+    """The epoch program (the JAX package's ``make_epoch_fn``) of
+    ``state``'s chains over a resident ``split`` whose ``images`` and
+    ``labels`` lie on their device: one chain, or C chains in turn or, with
+    ``chain_strategy`` ``"vmap"``, batched, in the split's batches and with
+    the crops and flips its spec draws. Models with active dropout and
+    device meshes take ``train_steps`` instead."""
+    return _EpochProgram(state, images, labels, spec=split.spec,
+                         num_batches=split.num_batches, batch_size=split.batch_size, hyp=hyp,
+                         noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn,
+                         chain_strategy=chain_strategy)
 
 
 def stream_steps(

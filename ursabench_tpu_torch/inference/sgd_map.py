@@ -25,6 +25,7 @@ import torch
 
 from ..models.common import dropout_twin
 from ..ops.sgmcmc import sgd_momentum_update
+from ..util import as_f32
 from .base import _EpochSampler
 from .engine import TrainState, update_buffers
 from .ensemble import Ensemble
@@ -47,7 +48,7 @@ def _one_cycle_hyp_lr(hyp, epoch, batch_idx, step):
     (max_lr, initial_lr, min_lr, total_steps, up_steps, down_steps) from
     ``hyp``; float32, in the JAX package's order of operations."""
     del epoch, batch_idx
-    s = torch.clamp(hyp["total_steps"], max=float(step))  # min(step, total_steps)
+    s = torch.minimum(as_f32(step, hyp["total_steps"].device), hyp["total_steps"])
     t_up = torch.clamp(s / hyp["up_steps"], 0.0, 1.0)
     lr_up = hyp["initial_lr"] + (hyp["max_lr"] - hyp["initial_lr"]) * 0.5 * (
         1.0 - torch.cos(math.pi * t_up)

@@ -25,6 +25,10 @@ batch over its data ranks (``inference/engine.py``).
 The hyperparameters live in 0-dim device tensors that ``update_hyp`` fills
 in place, so changing them never rebuilds anything; the learning rate is
 computed on the device in float32 from them, as the JAX package traces it.
+The schedules take the epoch, the batch index and the global step as 0-dim
+device tensors (the epoch program's counters) or as Python ints, which
+they turn into the same float32 tensors first (``util.as_f32``): the
+two give the same bits.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Optional
 import torch
 
 from ..ops.sgmcmc import sghmc_update
+from ..util import as_f32
 from .base import _EpochSampler
 from .engine import TrainState, update_buffers
 from .ensemble import Ensemble
@@ -42,10 +47,12 @@ from .ensemble import Ensemble
 
 def _cosine_hyp_lr(hyp, epoch, batch_idx, step):
     """torch CosineAnnealingLR by epoch, reading (lr0, eta_min, t_max) from
-    the device tensors in ``hyp``."""
+    the device tensors in ``hyp``; float32, in the JAX package's order of
+    operations."""
     del batch_idx, step
+    epoch = as_f32(epoch, hyp["t_max"].device)
     return hyp["eta_min"] + (hyp["lr0"] - hyp["eta_min"]) * 0.5 * (
-        1.0 + torch.cos(math.pi * float(epoch) / hyp["t_max"])
+        1.0 + torch.cos(math.pi * epoch / hyp["t_max"])
     )
 
 
@@ -54,7 +61,8 @@ def _cyclic_hyp_lr(hyp, epoch, batch_idx, step):
     cycle_iters) from ``hyp``; float32 throughout, in the JAX package's
     order of operations."""
     del step
-    rcounter = hyp["num_batch"] * float(epoch) + float(batch_idx)
+    nb = hyp["num_batch"]
+    rcounter = as_f32(epoch, nb.device) * nb + as_f32(batch_idx, nb.device)
     cos_inner = math.pi * torch.remainder(rcounter, hyp["cycle_iters"]) / hyp["cycle_iters"]
     return 0.5 * (torch.cos(cos_inner) + 1.0) * hyp["lr0"]
 

@@ -28,7 +28,7 @@ import copy
 
 import torch
 
-from ..util import StateDict
+from ..util import StateDict, as_f32
 from .base import _EpochSampler
 from .engine import bn_refresh, flatten_parameters
 from .ensemble import Ensemble
@@ -40,7 +40,7 @@ def _swa_schedule_hyp_lr(hyp, epoch, batch_idx, step):
     """The reference's ``_schedule``: lr_init up to half of burn_in, a
     linear decay to swag_lr up to 0.9 of it, then swag_lr."""
     del batch_idx, step
-    t = float(epoch) / hyp["burn_in_epochs"]
+    t = as_f32(epoch, hyp["burn_in_epochs"].device) / hyp["burn_in_epochs"]
     lr_ratio = hyp["swag_lr"] / hyp["lr_init"]
     factor = torch.where(
         t <= 0.5, torch.ones_like(t),

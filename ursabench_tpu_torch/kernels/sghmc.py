@@ -15,6 +15,13 @@ rank of a device mesh holds): ``offset`` is the global index of its first
 element, and element i then draws the normal of global element offset + i,
 as the whole buffer's launch would.
 
+The seed is a Python int, or a one-element int64 CUDA tensor that the
+kernel reads from device memory when it runs (a second C entry of the same
+kernel): a CUDA graph that captured the launch then takes each replay's
+seed from that tensor. The two give the same bits for the same seed.
+``sghmc_update_flat.launches`` counts launches that ran: a captured one at
+each replay of its graph (``kernels/launches.py``).
+
 The library is built and loaded by ``kernels/build.py`` at first use.
 """
 
@@ -25,6 +32,7 @@ import functools
 
 import torch
 
+from . import launches
 from .build import BUILD_DIR, CSRC, NVCC_FLAGS, Library, load
 
 SOURCE = CSRC / "sghmc_update.cu"
@@ -40,6 +48,11 @@ def load_library() -> Library:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = library.lib.sghmc_update_f32_dseed
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return library
 
@@ -73,8 +86,16 @@ def _check(p, v, g, scalars):
     return rows
 
 
+def _check_seed(seed: torch.Tensor, p: torch.Tensor) -> None:
+    if not seed.is_cuda or seed.device != p.device:
+        raise ValueError(f"a seed tensor must be a CUDA tensor on {p.device}, got {seed.device}")
+    if seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError(f"a seed tensor must hold one int64, got {seed.numel()} "
+                         f"{seed.dtype}")
+
+
 def sghmc_update_flat(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-                      scalars: torch.Tensor, seed: int, offset: int = 0):
+                      scalars: torch.Tensor, seed, offset: int = 0):
     """One SGHMC/SGLD step in place on contiguous float32 CUDA buffers.
 
     ``scalars`` is a device float32[5], (lr, momentum, wd_over_n,
@@ -83,22 +104,30 @@ def sghmc_update_flat(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     stream (element i of the flat buffer draws from (seed, offset + i)) and
     must differ between steps; ``offset`` is the global index of element 0
     when the buffer is a block of a larger one. Launches on the current
-    stream, without synchronising. Returns ``(p, v)``."""
+    stream, without synchronising. Returns ``(p, v)``.
+
+    ``seed`` may be a one-element int64 tensor on ``p``'s device: the
+    kernel then reads it when it runs (its bits as an unsigned 64-bit
+    integer), which is what a captured launch needs."""
     rows = _check(p, v, g, scalars)
     if offset < 0:
         raise ValueError(f"offset must be >= 0, got {offset}")
-    fn = load_library().lib.sghmc_update_f32
+    lib = load_library().lib
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(p.data_ptr(), v.data_ptr(), g.data_ptr(), scalars.data_ptr(),
-                 p.numel(), rows, int(seed) & (2 ** 64 - 1), int(offset), stream)
+        args = (p.data_ptr(), v.data_ptr(), g.data_ptr(), scalars.data_ptr(), p.numel(), rows)
+        if isinstance(seed, torch.Tensor):
+            _check_seed(seed, p)
+            err = lib.sghmc_update_f32_dseed(*args, seed.data_ptr(), int(offset), stream)
+        else:
+            err = lib.sghmc_update_f32(*args, int(seed) & (2 ** 64 - 1), int(offset), stream)
     if err != 0:
         raise RuntimeError(f"sghmc_update_f32 launch failed with CUDA error {err}")
-    sghmc_update_flat.launches += 1
+    launches.count(sghmc_update_flat)
     return p, v
 
 
-sghmc_update_flat.launches = 0  # kernel launches since the last reset
+sghmc_update_flat.launches = 0  # kernel launches since the last reset (kernels.launches)
 
 
 def sghmc_update_flat_reference(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor,

@@ -19,6 +19,13 @@ tensors it is the plain version, with normals from a generator seeded by
 device mesh) passes its first element's global index ``offset`` and the
 larger buffer's size ``total``: it then draws the normals the whole buffer
 would draw there, on either path.
+
+Every input may be a device tensor, and nothing is then read back or
+copied from the host: the first-step flag, the noise gate and the seed (a
+one-element int64 tensor, which K1 reads from device memory) included, as
+a captured step needs. A Python number becomes a tensor by a fill on the
+device, never by a host-to-device copy. The plain path reads a seed tensor
+on the host.
 """
 
 from __future__ import annotations
@@ -26,10 +33,15 @@ from __future__ import annotations
 import torch
 
 from ..kernels.sghmc import sghmc_update_flat, sghmc_update_flat_reference
+from ..util import as_f32
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+def _flag(x, device) -> torch.Tensor:
+    """A bool flag on ``device``: a tensor as it is (nonzero is true), a
+    Python value filled in on the device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device) != 0
+    return torch.full((), bool(x), dtype=torch.bool, device=device)
 
 
 def sghmc_scalars(*, lr, momentum, wd_over_n, n_train, noise_on,
@@ -37,14 +49,14 @@ def sghmc_scalars(*, lr, momentum, wd_over_n, n_train, noise_on,
     """The kernel's scalars on ``device``: (lr, momentum, wd_over_n,
     noise_scale, is_first), noise_scale = sqrt(2(1-m)lr)/n_train*noise_on;
     a float32[5] from 0-dim values, an (K, 5) table, one row a config, when
-    any of them is a (K,) tensor. Tensor inputs stay on the device; nothing
-    is read back."""
-    lr, momentum = _f32(lr, device), _f32(momentum, device)
-    noise_scale = torch.sqrt(2.0 * (1.0 - momentum) * lr) / _f32(n_train, device)
-    noise_scale = noise_scale * _f32(noise_on, device)
-    first = torch.full((), float(bool(is_first_step)), dtype=torch.float32,
-                       device=device)
-    columns = torch.broadcast_tensors(lr, momentum, _f32(wd_over_n, device),
+    any of them is a (K,) tensor. Tensor inputs stay on the device, and
+    ``is_first_step`` may be one (a device flag, nonzero for the first
+    step); nothing is read back."""
+    lr, momentum = as_f32(lr, device), as_f32(momentum, device)
+    noise_scale = torch.sqrt(2.0 * (1.0 - momentum) * lr) / as_f32(n_train, device)
+    noise_scale = noise_scale * as_f32(noise_on, device)
+    first = _flag(is_first_step, device).to(torch.float32)
+    columns = torch.broadcast_tensors(lr, momentum, as_f32(wd_over_n, device),
                                       noise_scale, first)
     return torch.stack(columns, dim=-1)
 
@@ -59,8 +71,8 @@ def sghmc_update(
     wd_over_n,
     n_train,
     noise_on,
-    is_first_step: bool,
-    seed: int,
+    is_first_step,
+    seed,
     noise: torch.Tensor | None = None,
     offset: int = 0,
     total: int | None = None,
@@ -68,6 +80,8 @@ def sghmc_update(
     """One SGHMC/SGLD step over flat buffers, in place. Returns
     ``(params, momentum_buf)``. With (K,) hyperparameters the buffers are
     (K, P) and row k takes config k's (one launch, K1's per-row table).
+    ``seed`` is an int or a one-element int64 tensor on the buffers' device
+    (``is_first_step`` a bool or a device flag).
 
     ``noise`` (CPU only) supplies the standard normals, so a test can hand
     in the JAX package's draw. ``offset`` and ``total`` (default: the
@@ -101,13 +115,14 @@ def sgd_momentum_update(
     lr,
     momentum,
     weight_decay,
-    is_first_step: bool,
+    is_first_step,
 ):
     """``torch.optim.SGD(momentum=m, weight_decay=wd)`` on flat buffers, in
     place: d = g + wd*p; buf = d on the first step, else m*buf + d;
-    p -= lr*buf."""
+    p -= lr*buf. ``is_first_step`` is a bool or a device flag, chosen by
+    ``torch.where`` on the device either way."""
     d = grads + weight_decay * params
-    v_new = d if is_first_step else momentum * momentum_buf + d
+    v_new = torch.where(_flag(is_first_step, params.device), d, momentum * momentum_buf + d)
     momentum_buf.copy_(v_new)
     params.sub_(lr * v_new)
     return params, momentum_buf

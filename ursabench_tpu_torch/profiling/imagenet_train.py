@@ -8,7 +8,8 @@ batch 128, compute dtype bfloat16 (float32 parameters, flat float32
 buffers, the SGHMC update K1), on 2,048 synthetic train and 512 test images
 that live on the device as uint8 (308 MB):
 
-1. one untimed warm-up epoch (cuDNN picks its algorithms there), then
+1. one untimed warm-up epoch (cuDNN picks its algorithms and the epoch
+   program captures its step there), then
    ``EPOCHS`` timed epochs of 16 steps: steps/s, img/s, achieved TFLOP/s
    (one training step's FLOPs counted by ``FlopCounterMode``) and the share
    of the card's bf16 peak;

@@ -4,9 +4,10 @@
 
 The samplers phase's model and data: WideResNet-28x10 in bf16 (float32
 parameters) at 100 classes, SGD over 2,048 synthetic CIFAR-100 images at
-batch 128 with crop and flip. One untimed epoch (cuDNN picks its
-algorithms there), then one epoch under ``torch.profiler`` and one timed
-between CUDA events. Reports ms a step, the kernels a step, the device's
+batch 128 with crop and flip, through the sampler's epoch program (its
+step a CUDA graph replay). One untimed epoch (cuDNN picks its algorithms
+and the step is captured there), then one epoch under ``torch.profiler``
+and one timed between CUDA events. Reports ms a step, the kernels a step, the device's
 busy share (kernel time over the timed epoch's), the achieved TFLOP/s
 (one step's FLOPs counted by ``hw.train_step_flops``) against the bf16
 peak, and the device time by

@@ -41,6 +41,15 @@ def make_generator(device, seed: int, *tags) -> torch.Generator:
     return gen
 
 
+def as_f32(x, device) -> torch.Tensor:
+    """``x`` as a float32 tensor on ``device``: a tensor cast (a no-op for a
+    float32 one there), a Python number filled in on the device, never
+    copied from the host (what a captured CUDA graph needs)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
 def ravel(module: nn.Module) -> torch.Tensor:
     """``module``'s parameters as one flat vector, in ``parameters()``
     order: a view of the flat buffer after ``engine.flatten_parameters``, a
