@@ -28,6 +28,23 @@ Phases, each ending with its seconds:
    other values, its graphed epoch after them bit-equal to the eager one;
    the device's busy share of a graphed and an eager epoch of 16 steps
    under torch.profiler;
+   then "eval graph vs eager" (the evaluation programs, inference/ensemble.py
+   EVAL_PROGRAMS): (a) the slice's BMA program (one capture over every
+   pass of the phase) graphed against its eager steps: img/s (medians of
+   3 passes), host us a replay, the busy share under torch.profiler, within
+   1e-6 in the default cuDNN mode and bit-equal under cudnn.deterministic
+   (a program captured in that mode); (b) 5 PreResNet-20 members, both
+   member layouts graphed beside the one the rule picks and its eager pass;
+   (c) an MC-dropout ensemble (MLP200MNIST's twin, 4 members, masks drawn
+   into static buffers) graphed bit-equal to eager; (d) SWAG on PreResNet-20
+   over the 50,000 train images: its refresh program captured once across
+   two draws, against the eager bn_refresh of the same weights within 1e-4
+   of each layer's largest statistic, seconds each; (e) the validation-loss
+   program against eval_loss within 1e-6, one capture over two calls.
+   Every BMA pass of the process (the slice's, the samplers', the
+   runner's, ...) must have run its program as a captured graph: the
+   slice and samplers phases print the program (layout, capture), and the
+   script checks at its end that no pass ran eagerly;
 4. the int8 kernels K2/K4b/K4d (csrc/int8_gemv.cu, variants mma, mma_row,
    dp4a) and K4a/K4c (csrc/stream_probe.cu, outputs (G, 1) and (G, 128))
    against their plain versions, bit for bit, at 512x256, 3072x3072,
@@ -74,7 +91,9 @@ Phases, each ending with its seconds:
    with 2 chains (4 epochs, 4 members), cSGLD (2 members), SGD (3 epochs, 1
    member), DeepEnsemble (3 members, 2 epochs), MCdropout on the twin (5
    epochs, 4 members), SWA and SWAG (full_cov, max_rank 3, pca_rank 2; 5
-   epochs, 3 members each), each followed by Prediction("ALL"): member and
+   epochs, 3 members each; their BatchNorm refresh one program, captured
+   once across the draws), each followed by Prediction("ALL"), its BMA
+   program graphed (DeepEnsemble's also timed against its eager steps): member and
    epoch counts, finite losses, ensembles and metrics, SGD's and
    DeepEnsemble's loss falling, DeepEnsemble's BMA equal to plain
    per-member modules within 1e-2, MCdropout's logits equal under one seed
@@ -173,9 +192,10 @@ Phases, each ending with its seconds:
    resident rate, an epoch under torch.profiler for the device's busy share
    and the copies' rate, finite losses; (c) `cli run --stream
    --stream_chunk 4`, SGLD on MLP200MNIST / MNIST, 2 trials: the result
-   keys, K1 once a step; (d) PreResNet-20, S=6, batch 128, exported (fp32
-   and bf16), saved and loaded: within 1e-5 (fp32) and 1e-2 (bf16) of the
-   eager engine, one loaded call's ms; (e) profile_config with a trace_dir
+   keys, K1 once a step; (d) PreResNet-20, S=6, batch 128, exported in
+   fp32, saved and loaded: within 1e-5 of the eager engine, one loaded
+   call's ms (bf16's export is checked on the CPU, by
+   tests/test_torch_export.py); (e) profile_config with a trace_dir
    (MLP200MNIST, S=1, batch 1): the trace names CUDA kernels.
 16. how C chains advance (chains): SGHMC at batch 128, one epoch a run,
    under "scan" (in turn) and "vmap" (one batched forward and backward), on
@@ -283,9 +303,9 @@ INT8_KERNELS = {
                           "stream_g128"),
 }
 MICROBENCH_D = 6144
-AMORTIZE_K = 100
+AMORTIZE_K = 50  # graph replays a device timing: enough for milliseconds, within the budget
 LATENCY_S = 6
-TV_AMORTIZE_K = 20  # TVResNet-50 forwards take milliseconds: fewer replays
+TV_AMORTIZE_K = 10  # TVResNet-50 forwards take milliseconds: fewer replays
 TV_LATENCY = (2, (1, 32))  # S, batch sizes: benchmarks/rn50_latency.py:45-51
 TV_FLAT = 25557032  # TVResNet-50's parameters: K1's flat size in the ImageNet slice
 # every 1x1 conv of torchvision's ResNet-50 at 224^2 (benchmarks/
@@ -660,12 +680,14 @@ def slice_phase(device):
     sample_s = time.perf_counter() - t0
     task = tasks.Prediction({"in_distribution_test": test}, num_classes,
                             metric_list="ALL")
+    passes = dict(tasks.accumulate_split.passes)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     task.update_statistics(ens, output_performance=False)
     torch.cuda.synchronize()
     bma_s = time.perf_counter() - t0
     launches = sghmc_update_flat.launches
+    bma = _bma_ran(ens, test, False, passes, 1)
 
     check(launches == STEPS, f"K1 launched {launches} times, expected {STEPS}")
     check(ens.num_members == 2, f"{ens.num_members} members")
@@ -705,7 +727,8 @@ def slice_phase(device):
           f"launches, epoch losses {[round(v, 4) for v in losses]}, "
           f"{STEPS / sample_s:.1f} steps/s over sample() ({sample_s:.2f} s, "
           f"3 epochs incl. the first), BMA {test.n / bma_s:.0f} img/s "
-          f"({ens.num_members} members, {bma_s:.2f} s); data {data_s:.1f} s; "
+          f"({ens.num_members} members, {bma_s:.2f} s, its first pass: warm-up and capture; "
+          f"{bma}); data {data_s:.1f} s; "
           f"metrics {json.dumps(metrics)}", flush=True)
     return launches, splits, ens, sampler
 
@@ -922,6 +945,218 @@ def program_phase(device, sampler) -> dict:
     return out
 
 
+def _bma_ran(ens, split, smooth, passes_before: dict, passes: int) -> str:
+    """Checks that the last ``passes`` BMA passes of ``ens`` over ``split``
+    ran its program as a captured graph (one capture), none eagerly;
+    returns a description of the program."""
+    from ursabench_tpu_torch.inference.ensemble import EVAL_PROGRAMS
+    from ursabench_tpu_torch.tasks.base import accumulate_split, bma_program
+
+    prog = bma_program(ens, split, smooth)
+    ran = {k: accumulate_split.passes[k] - v for k, v in passes_before.items()}
+    check(prog.path == EVAL_PROGRAMS["bma"] == "graph" and prog.captures == 1
+          and ran == {"graph": passes, "eager": 0},
+          f"BMA: program {prog.path} with {prog.captures} captures, passes {ran}")
+    return (f"BMA program graph ({prog.strategy} layout, {prog.captures} capture "
+            f"{prog.capture_ms:.1f} ms, {passes} pass(es))")
+
+
+def _pass_times(prog, eager: bool, reps: int = 3) -> dict:
+    """``reps`` passes of a BMA program, graphed or eager: the median
+    seconds (host clock, to the host copy of the sums), the sums of the
+    last, and for the graph the median host interval between replays."""
+    seconds, gaps, out = [], [], None
+    for _ in range(reps):
+        timed = not eager and prog.graph is not None
+        if timed:
+            prog.graph = _TimedGraph(prog.graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = prog(eager=eager)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+            if timed:
+                stamps, prog.graph = prog.graph.stamps, prog.graph.graph
+                gaps += [b - a for a, b in zip(stamps, stamps[1:])]
+    r = {"s": sorted(seconds)[len(seconds) // 2], "out": out}
+    if gaps:
+        r["replay_gap_us"] = sorted(gaps)[len(gaps) // 2] * 1e6
+    return r
+
+
+def _pass_busy(prog, eager: bool) -> float:
+    """The device's busy share of one pass under torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prog(eager=eager)
+        torch.cuda.synchronize()
+    return _busy(prof)[1]
+
+
+def _sums_diff(a, b) -> float:
+    return max(float(np.abs(x.astype(np.float64) - y).max()) for x, y in zip(a, b))
+
+
+def eval_program_phase(device, splits, ens) -> dict:
+    """The evaluation programs against their eager steps: (a) the slice's
+    ensemble (PreResNet-20, 2 members) over the 10,000 test images: one
+    capture over two passes, graphed against eager (median of 3 passes
+    each, host us a replay, the busy share), within 1e-6 in the default
+    cuDNN mode and bit-equal under deterministic cuDNN (a program captured
+    in that mode); (b) 5 PreResNet-20 members, the layout the rule picks
+    beside both layouts under the graph and the eager pass; (c) an
+    MC-dropout ensemble (MLP200MNIST's twin, 4 members, 10,000 MNIST test
+    images), graphed against eager, bit-equal; (d) SWAG on PreResNet-20 over
+    the 50,000 train images: one refresh program captured once across two
+    draws, against the eager bn_refresh of the same weights, seconds each;
+    (e) the validation-loss program against eval_loss."""
+    import copy
+
+    from ursabench_tpu_torch import data, inference, models
+    from ursabench_tpu_torch.inference.engine import bn_refresh, eval_loss
+    from ursabench_tpu_torch.inference.ensemble import EVAL_PROGRAMS, Ensemble
+    from ursabench_tpu_torch.models.common import BatchNorm2d
+    from ursabench_tpu_torch.profiling.latency import random_ensemble
+    from ursabench_tpu_torch.tasks.base import bma_program
+    from ursabench_tpu_torch.util import make_generator
+
+    test, train = splits["test"], splits["train"]
+    out = {}
+    # (a) the slice's ensemble: its program from the slice's Prediction
+    prog = bma_program(ens, test, False)
+    check(prog.captures == 1, f"eval (a): {prog.captures} captures after the slice's pass")
+    graph, eager = _pass_times(prog, False), _pass_times(prog, True)
+    check(prog.captures == 1, f"eval (a): {prog.captures} captures over 4 graphed passes")
+    default_diff = _sums_diff(graph["out"], eager["out"])
+    check(default_diff <= 1e-6, f"eval (a): graphed and eager passes differ by {default_diff}")
+    busy = {"graph": _pass_busy(prog, False), "eager": _pass_busy(prog, True)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det_ens = Ensemble(ens.module, ens.state, ens.num_members)  # a program of this mode
+        det = bma_program(det_ens, test, False)
+        det()
+        det_graph, det_eager = det(), det(eager=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    det_diff = _sums_diff(det_graph, det_eager)
+    check(det.captures == 1 and det_diff == 0.0,
+          f"eval (a): the graphed pass differs from the eager one by {det_diff} under "
+          "deterministic cuDNN")
+    out["slice"] = {"members": ens.num_members, "strategy": prog.strategy,
+                    "graph_img_per_s": test.n / graph["s"], "eager_img_per_s": test.n / eager["s"],
+                    "replay_gap_us": graph["replay_gap_us"], "busy_pct": busy,
+                    "captures": prog.captures, "capture_ms": prog.capture_ms,
+                    "pool_bytes": prog.pool_bytes, "default_max_abs_diff": default_diff,
+                    "deterministic_max_abs_diff": det_diff}
+    a = out["slice"]
+    print(f"  (a) PreResNet-20 x{ens.num_members} ({prog.strategy}), {test.n} images: graphed "
+          f"{a['graph_img_per_s']:.0f} img/s, eager {a['eager_img_per_s']:.0f} "
+          f"({a['graph_img_per_s'] / a['eager_img_per_s']:.2f}x; medians of 3 passes); "
+          f"host {a['replay_gap_us']:.1f} us a replay (median interval); busy "
+          f"{busy['graph']:.1f}% / {busy['eager']:.1f}% (graphed / eager); {prog.captures} "
+          f"capture over {prog.steps_run // test.num_batches} passes ({prog.capture_ms:.1f} ms, "
+          f"a pool of {prog.pool_bytes / 1e6:.1f} MB); largest difference graphed vs eager "
+          f"{default_diff:.3g} (default cuDNN), {det_diff:.3g} (deterministic cuDNN)",
+          flush=True)
+
+    # (b) 5 members under both layouts
+    five = random_ensemble("PreResNet20", 10, 5, device)
+    picked = five.strategy(test.batch_size, (3, 32, 32))
+    rows = {}
+    for strategy in (picked, "scan", "vmap"):
+        if strategy in rows:
+            continue
+        five.member_strategy = strategy
+        p = bma_program(five, test, False)
+        p()  # the warm-up and the capture
+        reps = 3 if strategy == picked else 1  # the other layout: one timed pass
+        rows[strategy] = {"graph_img_per_s": test.n / _pass_times(p, False, reps)["s"]}
+        if strategy == picked:
+            rows[strategy]["eager_img_per_s"] = test.n / _pass_times(p, True)["s"]
+        check(p.captures == 1 and p.strategy == strategy, f"eval (b): {strategy}")
+    out["five"] = {"picked": picked, "rows": rows}
+    print(f"  (b) PreResNet-20 x5, {test.n} images, graphed img/s (the picked layout's the "
+          f"median of 3 passes, the other's one pass): "
+          + ", ".join(f"{k} {v['graph_img_per_s']:.0f}" for k, v in rows.items())
+          + f"; the rule picks {picked}, eager {rows[picked]['eager_img_per_s']:.0f} "
+          f"({rows[picked]['graph_img_per_s'] / rows[picked]['eager_img_per_s']:.2f}x)",
+          flush=True)
+
+    # (c) MC dropout, bit-equal under deterministic cuDNN
+    mnist, c = data.loaders("MNIST", None, batch_size=BATCH, use_validation=False,
+                            synthetic_n_train=BATCH)
+    twin = models.get_model("MLP200MNIST_dropout").build(c).to(device)
+    twin.init_parameters(make_generator("cpu", 0, "twin"))
+    state = {k: v.detach().clone().expand((4,) + tuple(v.shape))
+             for k, v in twin.state_dict().items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        mc = Ensemble(twin, state, 4, dropout_seed=11)
+        p = bma_program(mc, mnist["test"], False)
+        p()
+        mc_graph, mc_eager = p(), p(eager=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    mc_diff = _sums_diff(mc_graph, mc_eager)
+    check(p.captures == 1 and mc_diff == 0.0 and np.isfinite(mc_graph[1]).all(),
+          f"eval (c): MC dropout graphed vs eager {mc_diff}")
+    out["mc_dropout"] = {"strategy": p.strategy, "max_abs_diff": mc_diff, "layers": len(p.calls)}
+    print(f"  (c) MC dropout MLP200 x4 ({p.strategy}, {len(p.calls)} dropout layers, masks "
+          f"drawn into static buffers), {mnist['test'].n} images: graphed vs eager "
+          f"{mc_diff:.3g}", flush=True)
+
+    # (d) SWAG's refresh over the 50,000 train images, (e) the loss program
+    swag = inference.SWAG({"swag_lr": 0.01, "swag_wd": 5e-4, "lr_init": 0.05, "momentum": 0.9,
+                           "burn_in_epochs": 0, "num_iterates": 1, "num_samples": 2},
+                          model=models.get_model("PreResNet20").build(10), train=train,
+                          device=device, max_rank=2, pca_rank=2)
+    swag.sample(2)
+    refresh = swag._bn_refresh
+    check(refresh.path == EVAL_PROGRAMS["bn_refresh"] and refresh.captures == 1
+          and refresh.steps_run == 2 * train.num_batches,
+          f"eval (d): the refresh program ran {refresh.path}, {refresh.captures} captures, "
+          f"{refresh.steps_run} steps over two draws")
+    plain = copy.deepcopy(swag._eval_module)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refresh()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    bn_refresh(plain, train, images=swag._images)
+    torch.cuda.synchronize()
+    graph_s, eager_s = t1 - t0, time.perf_counter() - t1
+    worst = 0.0
+    for m, q in zip(swag._eval_module.modules(), plain.modules()):
+        if isinstance(m, BatchNorm2d):
+            for a_, b_ in ((m.running_mean, q.running_mean), (m.running_var, q.running_var)):
+                worst = max(worst, float((a_ - b_).abs().max() / b_.abs().max()))
+    check(worst < 1e-4, f"eval (d): the refresh program differs from bn_refresh by {worst}")
+    out["refresh"] = {"graph_s": graph_s, "eager_s": eager_s, "max_rel_diff": worst,
+                      "captures": refresh.captures, "capture_ms": refresh.capture_ms}
+    print(f"  (d) SWAG PreResNet-20 refresh over {train.n} images: one capture over "
+          f"{refresh.steps_run // train.num_batches} calls ({refresh.capture_ms:.1f} ms); "
+          f"program {graph_s:.3f} s, eager bn_refresh {eager_s:.3f} s "
+          f"({eager_s / graph_s:.2f}x); largest difference {worst:.3g} of a layer's largest "
+          f"statistic", flush=True)
+    want = float(eval_loss(swag.module, test, state=swag._single_member()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [swag.compute_val_loss(test) for _ in range(2)]
+    torch.cuda.synchronize()
+    loss_s = (time.perf_counter() - t0) / 2
+    loss = swag._val_loss_programs[id(test)][1]
+    rel = abs(got[1] - want) / abs(want)
+    check(loss.path == EVAL_PROGRAMS["val_loss"] and loss.captures == 1 and got[0] == got[1]
+          and rel <= 1e-6, f"eval (e): loss program {got} against eval_loss {want}")
+    out["val_loss"] = {"program": got[1], "eager": want, "rel_diff": rel, "s": loss_s}
+    print(f"  (e) the loss program over {test.n} images: {got[1]:.6f} against eval_loss "
+          f"{want:.6f} (relative {rel:.3g}), {loss.captures} capture over two calls, "
+          f"{loss_s:.3f} s a call", flush=True)
+    return out
+
+
 def int8_kernel_phase(device) -> dict:
     """Every GEMV variant and both stream layouts against their plain
     versions on the card; returns the largest |kernel - plain| per kernel."""
@@ -1106,8 +1341,14 @@ def prediction_phase(device, splits) -> dict:
     from ursabench_tpu_torch.profiling.latency import (ProfileConfig, profile_prediction,
                                                        random_ensemble)
 
+    from ursabench_tpu_torch.inference.ensemble import EVAL_PROGRAMS
+
     cfg = ProfileConfig("PreResNet20", "CIFAR10", "fp32", 2, BATCH)
+    passes = dict(tasks.accumulate_split.passes)
     res = profile_prediction(cfg, splits, 10, device=device)
+    # the latency mode times each eager call (logits_all), by rule: no BMA program
+    check(EVAL_PROGRAMS["latency"] == "eager" and tasks.accumulate_split.passes == passes,
+          f"latency mode: BMA passes {passes} -> {tasks.accumulate_split.passes}")
     want_batches = -(-splits["test"].n // BATCH)
     check(res["num_batches"] == want_batches == 79,
           f"{res['num_batches']} latencies, expected {want_batches}")
@@ -1124,7 +1365,8 @@ def prediction_phase(device, splits) -> dict:
         check(both_nan or abs(v - got[k]) < tol, f"{k}: latency mode {got[k]} vs {v}")
     print(f"profile_prediction S=2 over {splits['test'].n} images: {res['num_batches']} "
           f"batches, {res['latency_mean_s'] * 1e3:.3f} +- {res['latency_std_s'] * 1e3:.3f} "
-          f"ms per batch after burn-in; metrics equal to the plain Prediction's",
+          f"ms per batch after burn-in (eager calls, by rule); metrics equal to the plain "
+          f"Prediction's (its BMA program)",
           flush=True)
     return res
 
@@ -1484,11 +1726,19 @@ def samplers_phase(device) -> dict:
                   f"{name}: the training loss did not fall: {losses.tolist()}")
 
         task = tasks.Prediction({"in_distribution_test": test}, num_classes, metric_list="ALL")
+        passes = dict(tasks.accumulate_split.passes)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         task.update_statistics(ens, output_performance=False)
         torch.cuda.synchronize()
         bma_s = time.perf_counter() - t0
+        bma = _bma_ran(ens, test, False, passes, 1)
+        refresh = getattr(sampler, "_bn_refresh", None)
+        if refresh is not None:  # SWA and SWAG: one refresh program, one capture
+            check(refresh.path == "graph" and refresh.captures == 1,
+                  f"{name}: the refresh program ran {refresh.path} with {refresh.captures} "
+                  "captures")
+            bma += f"; refresh program graph, {refresh.captures} capture over its draws"
         metrics = task.get_performance_metrics()
         err = metrics["error_rate"]
         for k, val in metrics.items():
@@ -1498,6 +1748,10 @@ def samplers_phase(device) -> dict:
             want = reference_probs(lambda: build().to(device), ens, x).cpu().numpy()
             diff = float(np.abs(task.ensemble_proba[:BATCH] - want).max())
             check(diff < 1e-2, f"DeepEnsemble BMA differs from plain modules by {diff}")
+            # a device-bound pass, graphed against its eager steps (medians of 3)
+            bprog = tasks.base.bma_program(ens, test, False)
+            g, e = (test.n / _pass_times(bprog, eager)["s"] for eager in (False, True))
+            bma += f"; graphed {g:.0f} img/s against eager {e:.0f} ({g / e:.3f}x, medians of 3)"
         if name == "MCdropout":
             a, b = ens.logits_all(x, 0), ens.logits_all(x, 0)
             check(torch.equal(a, b), "MCdropout: one seed gave different logits")
@@ -1525,7 +1779,8 @@ def samplers_phase(device) -> dict:
               f"{', across update_hyp and a second sample()' if name == 'SGD' else ''}); "
               f"{members} members, {epochs} epochs x {chains} chain(s) of "
               f"{WRN_STEPS} steps in {sample_s:.2f} s, {steps * chains / sample_s:.2f} "
-              f"step-forwards/s over sample(); BMA {test.n / bma_s:.0f} img/s ({bma_s:.2f} s); "
+              f"step-forwards/s over sample(); BMA {test.n / bma_s:.0f} img/s ({bma_s:.2f} s; "
+              f"{bma}); "
               f"error rate {err:.4f}; K1 launches so far {k1_after[name]}", flush=True)
         del sampler, ens, task
 
@@ -2785,15 +3040,16 @@ def stream_cli(device) -> dict:
 
 
 def stream_export(device) -> dict:
-    """(d) PreResNet-20, S=6, batch 128: the BMA engine exported, saved,
-    loaded and held against the eager engine, fp32 and bf16."""
+    """(d) PreResNet-20, S=6, batch 128: the fp32 BMA engine exported,
+    saved, loaded and held against the eager engine (bf16's export is
+    checked on the CPU, by tests/test_torch_export.py)."""
     from ursabench_tpu_torch.profiling import export as E
     from ursabench_tpu_torch.profiling import latency as L
     from ursabench_tpu_torch.profiling.hw import event_ms
 
     ens = L.random_ensemble("PreResNet20", 10, LATENCY_S, device)
     out = {}
-    for prec, tol in (("fp32", 1e-5), ("bf16", 1e-2)):
+    for prec, tol in (("fp32", 1e-5),):
         t0 = time.perf_counter()
         ep = E.export_bma_engine(ens.module, ens.state, BATCH, (3, 32, 32), prec)
         path = f"{ST_OUT}/preresnet20_s{LATENCY_S}_{prec}.pt2"
@@ -3871,6 +4127,7 @@ def main() -> int:
     launches, splits, ens, slice_sampler = phase("slice", slice_phase, device)
     program = phase("graph vs eager", program_phase, device, slice_sampler)
     del slice_sampler
+    phase("eval graph vs eager", eval_program_phase, device, splits, ens)
     int8_err = phase("int8 kernels", int8_kernel_phase, device)
     bench = phase("microbench", microbench_phase, device)
     phase("latency", latency_phase, device, ens, splits["test"])
@@ -3886,6 +4143,12 @@ def main() -> int:
     chains = phase("chains", chains_phase, device)
     mesh = phase("mesh", mesh_phase, device, n_slice)
 
+    # every BMA pass of this process ran its program as a captured graph
+    from ursabench_tpu_torch.tasks.base import accumulate_split
+
+    passes = accumulate_split.passes
+    check(passes["eager"] == 0 and passes["graph"] > 0, f"BMA passes by path: {passes}")
+    print(f"BMA passes in this process by program path: {json.dumps(passes)}", flush=True)
     kernels = [{
         "name": "sghmc_update", "route": "cuda",
         "source": "ursabench_tpu_torch/csrc/sghmc_update.cu",

@@ -45,9 +45,9 @@ import torch
 from ..data.transforms import draw_augment
 from ..models.common import dropout_layers
 from ..util import StateDict, derive_seed, make_generator, stack_state_dicts
-from .engine import (TrainState, epoch_indices, eval_loss, flatten_chains,
-                     init_variables, make_epoch_fn, stream_steps, train_steps)
-from .ensemble import Ensemble
+from .engine import (TrainState, epoch_indices, flatten_chains, init_variables,
+                     make_epoch_fn, make_eval_loss_fn, stream_steps, train_steps)
+from .ensemble import Ensemble, image_flops
 
 
 def resolve_device(device) -> torch.device:
@@ -70,31 +70,6 @@ def resolve_device(device) -> torch.device:
 # PreResNet-20 fp32 (82 MFLOP) 0.58 / 0.77 / 1.06 / 1.64, WideResNet-28x10
 # bf16 (11.9 GFLOP) 0.69 / 0.56 / 0.66 at C = 1 / 2 / 4.
 VMAP_IMAGE_FLOPS = {2: 2e6, 8: 2e8}
-
-
-def image_flops(module, spec_shape) -> float:
-    """FLOPs of ``module``'s forward on one image of ``spec_shape`` (H, W,
-    channels), counted on the meta device from the shapes (eval mode,
-    dropout as the identity): nothing is computed or written."""
-    from torch.func import functional_call
-    from torch.utils.flop_counter import FlopCounterMode
-
-    state = {k: torch.empty_like(v, device="meta") for k, v in
-             list(module.named_parameters()) + list(module.named_buffers())}
-    h, w, c = spec_shape
-    x = torch.empty((1, c, h, w), device="meta")
-    was_training, layers = module.training, dropout_layers(module)
-    module.eval()
-    for m in layers:
-        m.calls = []  # a shape probe: the identity
-    try:
-        with torch.no_grad(), FlopCounterMode(display=False) as counter:
-            functional_call(module, state, (x,))
-    finally:
-        for m in layers:
-            m.calls = None
-        module.train(was_training)
-    return float(counter.get_total_flops())
 
 
 def resolve_chain_strategy(strategy: str, module, spec_shape, chains: int = 2) -> str:
@@ -182,6 +157,7 @@ class _Inference:
         self._draws = 0
         self._ckpt_path: Optional[str] = None
         self._ckpt_every = 1
+        self._val_loss_programs: dict = {}  # id(split) -> (split, make_eval_loss_fn's program)
 
     def _replicates(self, mesh) -> bool:
         """Whether the sampler holds all its chains on every chain rank of
@@ -227,10 +203,15 @@ class _Inference:
 
     def compute_val_loss(self, val_split, state: Optional[StateDict] = None) -> float:
         """Mean cross entropy over ``val_split`` in eval mode, of ``state``
-        or, by default, of chain 0's current weights."""
+        or, by default, of chain 0's current weights, through one
+        ``make_eval_loss_fn`` program a split, kept with the split."""
         if state is None:
             state = self._single_member()
-        return float(eval_loss(self.module, val_split, state=state))
+        entry = self._val_loss_programs.get(id(val_split))
+        if entry is None or entry[0] is not val_split:
+            entry = self._val_loss_programs[id(val_split)] = (
+                val_split, make_eval_loss_fn(self.module, val_split))
+        return float(entry[1](state))
 
     def _single_member(self) -> StateDict:
         raise NotImplementedError

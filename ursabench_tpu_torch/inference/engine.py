@@ -60,11 +60,17 @@ same distribution through another stream).
 
 ``bn_refresh`` recomputes BatchNorm's running statistics with one exact
 pass over a split; ``eval_loss`` is the mean cross entropy over a split in
-eval mode.
+eval mode. ``make_bn_refresh_fn`` and ``make_eval_loss_fn`` are the two as
+programs (the JAX package's compiled passes), built once and called for
+every set of weights; ``bn_refresh`` and ``eval_loss`` stay as their plain
+versions. Every program here and the tasks' BMA pass share ``_Captured``:
+a step read from device buffers, captured once as a CUDA graph on the card
+and replayed, run eagerly on the CPU.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -553,7 +559,96 @@ def _aug_at(aug: Optional[tuple], chains: int, bi: int) -> Optional[list]:
 WARMUP_STEPS = 3
 
 
-class _EpochProgram:
+class _Captured:
+    """A program's step, run once a call for each of its batches: on the
+    card the first ``WARMUP_STEPS`` steps run eagerly on a side stream (real
+    steps, counted as such), then the step is captured once as a CUDA graph
+    and every later step is a replay; on the CPU the step runs eagerly every
+    time, the program's plain version. A capture that fails raises: nothing
+    falls back to the eager step. The kernels' launch counts take each
+    replay's launches (``kernels.launches``).
+
+    ``_step`` reads every input from the device (static buffers and device
+    counters that it advances), so a replay computes what an eager step
+    would from the buffers' current values. ``pool`` returns, when the step
+    is captured, the memory pool of a live graph of other programs that
+    never run at the same time (``CUDAGraph.pool()``), to share it, or None
+    for a private pool. ``captures``
+    counts the captures, ``capture_ms`` is the last one's time on the host
+    clock, ``pool_bytes`` what the allocator reserved for the graph's pool
+    in it (its intermediates), ``steps_run`` the steps run."""
+
+    def __init__(self, device: torch.device, pool: Callable[[], object] = lambda: None):
+        self.device = device
+        self.pool = pool
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captures = 0
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+        self.steps_run = 0
+        self._warmed = 0
+        self._captured_launches: list = []
+        self._side = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    @property
+    def path(self) -> str:
+        """``"graph"`` on the card, ``"eager"`` on the CPU."""
+        return "eager" if self._side is None else "graph"
+
+    def _step(self) -> None:
+        raise NotImplementedError
+
+    def _advance(self, eager: bool = False) -> None:
+        """One step: a replay, or a warm-up step and the capture first; with
+        ``eager`` (and on the CPU) the step itself on the current stream."""
+        if eager or self._side is None:
+            self._step()
+        elif self.graph is None and self._warmed < WARMUP_STEPS:
+            current = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(current)  # a warm-up step, on a side stream as a capture wants
+            with torch.cuda.stream(self._side):
+                self._step()
+            current.wait_stream(self._side)
+            self._warmed += 1
+        else:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            launches.replayed(self._captured_launches)
+        self.steps_run += 1
+
+    def _capture(self) -> None:
+        # capture_begin on the side stream, not torch.cuda.graph, which first
+        # empties the allocator's cache: every later eager allocation of the
+        # process would pay for that. As torch.cuda.graph does, garbage is
+        # collected first, and no collection runs during the capture: one
+        # that freed another graph there would invalidate the capture
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        reserved = torch.cuda.memory_reserved(self.device)  # the pool maps segments of its own
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with launches.record() as captured, torch.cuda.stream(self._side):
+                graph.capture_begin(pool=self.pool())
+                try:
+                    self._step()
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        self._captured_launches = captured
+        torch.cuda.synchronize(self.device)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph = graph
+        self.captures += 1
+
+
+class _EpochProgram(_Captured):
     """One sampler's resident epoch as one program (``make_epoch_fn``'s):
     built once for a ``TrainState``, its hyperparameter
     tensors and its noise gate, which it reads in place, and called once an
@@ -562,7 +657,8 @@ class _EpochProgram:
     A call copies the batch plan (C, num_batches, batch), the crops and
     flips shaped like it, the steps' noise seeds and the epoch into static
     buffers, resets the in-epoch batch counter and sets the global step
-    counter from ``state.step``; then it runs the step once a batch. The step
+    counter from ``state.step``; then it runs the step once a batch
+    (``_Captured``: replays of one capture on the card). The step
     reads row i of the plan and of the crops and flips by the device
     counter, gathers, normalizes, augments and permutes to NCHW, runs the
     forward, cross entropy and backward (each chain in turn, or every chain
@@ -573,33 +669,22 @@ class _EpochProgram:
     (num_batches, C) buffer and advances both counters. Nothing in it reads
     the host or copies from it.
 
-    On the card the first ``WARMUP_STEPS`` steps the program runs are run
-    eagerly on a side stream (real steps, counted as such); the step is then
-    captured once as a CUDA graph, and every later step, of this epoch and
-    of every later one, is a replay. A capture that fails raises: nothing
-    falls back to the eager step. The kernels' launch counts take each
-    replay's launches (``kernels.launches``). On the CPU the same step runs
-    eagerly every time: the program's plain version.
-
     The hyperparameters, the noise gate and ``state``'s buffers are read
     where they are, so ``update_hyp``, the gate and an in-place checkpoint
     restore change what the next replay computes without a new capture;
-    a new ``TrainState`` or hyperparameter dict needs a new program.
-    ``captures`` counts the captures, ``capture_ms`` the last one's time on
-    the host clock, ``pool_bytes`` what the allocator reserved for the
-    graph's private pool (its activations)."""
+    a new ``TrainState`` or hyperparameter dict needs a new program."""
 
     def __init__(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor, *,
                  spec: ImageSpec, num_batches: int, batch_size: int, hyp: dict,
                  noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn,
                  chain_strategy: Optional[str] = None):
         device = state.params.device
+        super().__init__(device)
         chains = len(state.modules)
         shape = (chains, num_batches, batch_size)
         self.state, self.hyp, self.noise_on = state, hyp, noise_on
         self.images, self.labels, self.spec = images, labels, spec
         self.lr_fn, self.update_fn, self.chain_strategy = lr_fn, update_fn, chain_strategy
-        self.device = device
         self.plan = torch.zeros(shape, dtype=torch.int64, device=device)
         # (ox, oy, flip) buffers, None where the spec does not draw one
         crop = spec.random_crop_pad > 0
@@ -612,13 +697,6 @@ class _EpochProgram:
         self.batch = torch.zeros((), dtype=torch.int64, device=device)  # in the epoch
         self.step = torch.zeros((), dtype=torch.int64, device=device)  # global
         self.losses = torch.zeros((num_batches, chains), dtype=state.params.dtype, device=device)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.captures = 0
-        self.capture_ms: Optional[float] = None
-        self.pool_bytes: Optional[int] = None
-        self.steps_run = 0
-        self._captured_launches: list = []
-        self._side = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def __call__(self, idx: torch.Tensor, *, epoch: int, seeds, aug: Optional[tuple] = None
                  ) -> torch.Tensor:
@@ -645,14 +723,7 @@ class _EpochProgram:
         for m in state.modules:
             m.train()
         for _ in range(num_batches):
-            if self.graph is None and (self._side is None or self.steps_run < WARMUP_STEPS):
-                self._eager()
-                continue
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            launches.replayed(self._captured_launches)
-            self.steps_run += 1
+            self._advance()
         state.step += num_batches
         mean = self.losses.mean(0)
         return mean[0] if chains == 1 else mean
@@ -682,38 +753,6 @@ class _EpochProgram:
         self.losses.index_copy_(0, i, losses.to(self.losses.dtype)[None])
         self.batch.add_(1)
         self.step.add_(1)
-
-    def _eager(self) -> None:
-        if self._side is None:
-            self._step()
-        else:  # a warm-up step, on a side stream as a capture wants
-            current = torch.cuda.current_stream(self.device)
-            self._side.wait_stream(current)
-            with torch.cuda.stream(self._side):
-                self._step()
-            current.wait_stream(self._side)
-        self.steps_run += 1
-
-    def _capture(self) -> None:
-        # capture_begin on the side stream, not torch.cuda.graph, which first
-        # empties the allocator's cache: every later eager allocation of the
-        # process would pay for that
-        torch.cuda.synchronize(self.device)
-        reserved = torch.cuda.memory_reserved(self.device)  # the pool maps segments of its own
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with launches.record() as captured, torch.cuda.stream(self._side):
-            graph.capture_begin()
-            try:
-                self._step()
-            finally:
-                graph.capture_end()
-        self._captured_launches = captured
-        torch.cuda.synchronize(self.device)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.graph = graph
-        self.captures += 1
 
 
 def make_epoch_fn(state: TrainState, split, images: torch.Tensor, labels: torch.Tensor, *,
@@ -883,3 +922,174 @@ def eval_loss(module: nn.Module, split, *, state: Optional[StateDict] = None,
     finally:
         module.train(was_training)
     return total / split.n
+
+
+def _probe_dropout(module: nn.Module, split, training: bool):
+    """``(calls, masks)``: ``dropout_calls``' ``[(layer, shape)]`` of a
+    forward of ``module`` in ``training`` mode on a batch of ``split``, and
+    a static keep-mask buffer for each (none without active dropout)."""
+    if not dropout_layers(module):
+        return [], []
+    device = next(module.parameters()).device
+    h, w, c = split.spec.shape
+    was_training = module.training
+    module.train(training)
+    try:
+        calls = dropout_calls(module, torch.zeros((split.batch_size, c, h, w), device=device))
+    finally:
+        module.train(was_training)
+    return calls, [torch.zeros(shape, dtype=torch.bool, device=device) for _, shape in calls]
+
+
+def _draw_into(masks: list, calls: list, gen: torch.Generator) -> None:
+    """Each layer's keep mask from ``gen``, layer after layer (what a plain
+    forward with ``gen`` bound draws), into its static buffer."""
+    for buf, (layer, shape) in zip(masks, calls):
+        buf.copy_(layer.draw(shape, gen))
+
+
+class _RefreshProgram(_Captured):
+    """``make_bn_refresh_fn``'s program: ``bn_refresh`` over a resident
+    split, a step a batch. The step gathers batch i of the plan (``arange(n)``,
+    the last batch filled up with the first ``pad`` indices) by the device
+    counter, normalizes, runs the module's train-mode forward with every
+    ``BatchNorm2d`` under ``batch_stats_out`` (it writes nothing and returns
+    its batch's mean and biased variance) and folds them into device
+    accumulators with the weight ``count / (count + b)`` of a device count,
+    ``acc = w * acc + (1 - w) * batch``: the exact batch-size-weighted mean.
+    A call resets the accumulators (mean 0, variance 1), runs the steps and
+    writes the running statistics from them. The module's parameters are
+    read where they are, so weights copied in place need no new capture.
+    A model with dropout draws each batch's masks from
+    ``make_generator(device, 0, bi)`` into static buffers before the step,
+    as ``bn_refresh`` draws them by default."""
+
+    def __init__(self, module: nn.Module, split, images: torch.Tensor):
+        device = next(module.parameters()).device
+        super().__init__(device)
+        self.module, self.spec, self.images = module, split.spec, images
+        self.bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+        self.batch_size = split.batch_size
+        self.plan = _padded_batches(split.n, split.batch_size, lambda idx, pad: idx[:pad], device)
+        self.batch = torch.zeros((), dtype=torch.int64, device=device)
+        self.count = torch.zeros((), dtype=torch.float32, device=device)
+        self.means = [torch.zeros_like(m.running_mean) for m in self.bns]
+        self.vars = [torch.ones_like(m.running_var) for m in self.bns]
+        self.calls, self.masks = _probe_dropout(module, split, training=True)
+
+    @torch.no_grad()
+    def __call__(self, eager: bool = False) -> None:
+        """Recompute the running statistics of the module's BatchNorm layers,
+        in place (``eager``: every step on the current stream, uncaptured)."""
+        if not self.bns:
+            return
+        for mean, var in zip(self.means, self.vars):
+            mean.zero_()
+            var.fill_(1.0)
+        self.batch.zero_()
+        self.count.zero_()
+        was_training = self.module.training
+        self.module.train()
+        try:
+            for bi in range(self.plan.shape[0]):
+                if self.calls:
+                    _draw_into(self.masks, self.calls, make_generator(self.device, 0, bi))
+                self._advance(eager)
+        finally:
+            self.module.train(was_training)
+        for m, mean, var in zip(self.bns, self.means, self.vars):
+            m.running_mean.copy_(mean)
+            m.running_var.copy_(var)
+
+    def _step(self) -> None:
+        i = self.batch.view(1)
+        x = normalize(self.images.index_select(0, self.plan.index_select(0, i).squeeze(0)),
+                      self.spec)
+        layers = [layer for layer, _ in self.calls]
+        with dropout_masks(layers, self.masks), batch_stats_out(self.bns) as stats:
+            self.module(x.permute(0, 3, 1, 2).contiguous())
+        w = self.count / (self.count + self.batch_size)
+        for acc, new in zip(self.means + self.vars,
+                            [s[0] for s in stats] + [s[1] for s in stats]):
+            acc.mul_(w).add_(new * (1.0 - w))
+        self.count.add_(self.batch_size)
+        self.batch.add_(1)
+
+
+def make_bn_refresh_fn(module: nn.Module, split, images: Optional[torch.Tensor] = None
+                       ) -> _RefreshProgram:
+    """The BatchNorm refresh of ``module`` over ``split`` as one program
+    (the JAX package's ``make_bn_refresh_fn``): ``fn()`` recomputes the
+    running statistics in place from the module's current weights, as
+    ``bn_refresh`` does. ``images`` is the split on the module's device, if
+    already there. Build it once and call it for every set of weights
+    copied into the module in place."""
+    if images is None:
+        images, _ = split.device_tensors(next(module.parameters()).device)
+    return _RefreshProgram(module, split, images)
+
+
+class _LossProgram(_Captured):
+    """``make_eval_loss_fn``'s program: ``eval_loss`` over a resident split,
+    a step a batch. The state it evaluates lies in static buffers (one per
+    entry of the module's state dict) that a call copies the given state
+    into; the step gathers batch i (the last filled up with index -1, those
+    rows masked out) by the device counter, normalizes, runs the eval-mode
+    forward on the static state and adds the masked cross entropy's sum to a
+    device total. A model whose dropout stays on in eval mode draws each
+    batch's masks from ``make_generator(device, 0, bi)`` into static
+    buffers before the step, as ``eval_loss`` draws them by default."""
+
+    def __init__(self, module: nn.Module, split):
+        device = next(module.parameters()).device
+        super().__init__(device)
+        self.module, self.spec, self.n = module, split.spec, split.n
+        self.images, self.labels = split.device_tensors(device)
+        plan = _padded_batches(split.n, split.batch_size,
+                               lambda idx, pad: torch.full_like(idx[:pad], -1), device)
+        self.valid = (plan >= 0).to(torch.float32)
+        self.plan = plan.clamp_min(0)
+        self.state = {k: v.detach().clone() for k, v in module.state_dict().items()}
+        self.batch = torch.zeros((), dtype=torch.int64, device=device)
+        self.total = torch.zeros((), dtype=torch.float32, device=device)
+        self.calls, self.masks = _probe_dropout(module, split, training=False)
+
+    @torch.no_grad()
+    def __call__(self, state: Optional[StateDict] = None, eager: bool = False) -> torch.Tensor:
+        """The mean cross entropy of ``state`` (entries missing from it, or
+        all of them without it: the module's own), a 0-dim device tensor
+        (``eager``: every step on the current stream, uncaptured)."""
+        own = self.module.state_dict()
+        for k, buf in self.state.items():
+            buf.copy_(own[k] if state is None or k not in state else state[k])
+        self.batch.zero_()
+        self.total.zero_()
+        was_training = self.module.training
+        self.module.eval()
+        try:
+            for bi in range(self.plan.shape[0]):
+                if self.calls:
+                    _draw_into(self.masks, self.calls, make_generator(self.device, 0, bi))
+                self._advance(eager)
+        finally:
+            self.module.train(was_training)
+        return self.total / self.n
+
+    def _step(self) -> None:
+        i = self.batch.view(1)
+        b = self.plan.index_select(0, i).squeeze(0)
+        x = normalize(self.images.index_select(0, b), self.spec).permute(0, 3, 1, 2)
+        with dropout_masks([layer for layer, _ in self.calls], self.masks):
+            logits = functional_call(self.module, self.state, (x.contiguous(),))
+        ce = F.cross_entropy(logits.to(torch.float32), self.labels.index_select(0, b),
+                             reduction="none")
+        self.total.add_(torch.sum(ce * self.valid.index_select(0, i).squeeze(0)))
+        self.batch.add_(1)
+
+
+def make_eval_loss_fn(module: nn.Module, split) -> _LossProgram:
+    """The mean cross entropy over ``split`` in eval mode as one program
+    (the JAX package's ``make_eval_loss_fn``): ``fn(state)`` evaluates
+    ``state`` (by default the module's own) as ``eval_loss`` does. Build it
+    once a split and call it for every state."""
+    return _LossProgram(module, split)

@@ -4,7 +4,8 @@ Counterpart of ``ursabench_tpu/inference/swa.py``: SGD under a constant,
 then linearly decaying, then constant learning rate; running first and
 second moments of the flat weight vector; each deviation from the running
 mean goes into a ``Subspace``; the ensemble is the SWA mean with its
-BatchNorm statistics refreshed by one exact pass (on the last draw only).
+BatchNorm statistics refreshed by one exact pass (on the last draw only),
+``engine.make_bn_refresh_fn``'s program, built once and kept.
 
 The reference's quirk is kept: ``sample_iterative`` counts the model
 before its epochs run, so the first average includes a phantom zero
@@ -30,7 +31,7 @@ import torch
 
 from ..util import StateDict, as_f32
 from .base import _EpochSampler
-from .engine import bn_refresh, flatten_parameters
+from .engine import flatten_parameters, make_bn_refresh_fn
 from .ensemble import Ensemble
 from .sgd_map import _sgd_hyp_update
 from .subspaces import Subspace
@@ -77,6 +78,10 @@ class SWA(_EpochSampler):
         # holds the SWA mean (or a SWAG draw) for its BatchNorm refresh
         self._eval_module = copy.deepcopy(self.module)
         self._eval_params, _ = flatten_parameters(self._eval_module)
+        # the BatchNorm refresh of _eval_module over the train split, built at
+        # the first refresh: its weights are copied in place, so one program
+        # (one capture on the card) serves every draw
+        self._bn_refresh = None
         self._setup(hyperparameters)
 
     def _setup(self, hyp):
@@ -155,7 +160,10 @@ class SWA(_EpochSampler):
             for name, buf in self.module.named_buffers():
                 self._eval_module.get_buffer(name).copy_(buf)
         if update_bn:
-            bn_refresh(self._eval_module, self.train, images=self._images)
+            if self._bn_refresh is None:
+                self._bn_refresh = make_bn_refresh_fn(self._eval_module, self.train,
+                                                      images=self._images)
+            self._bn_refresh()
         return {k: v.detach().clone() for k, v in self._eval_module.state_dict().items()}
 
     def sample_iterative(self, update_bn_swa=True, val_loader=None, debug_val_loss=False):

@@ -266,6 +266,10 @@ class BatchNorm2d(nn.Module):
 
     def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            # a bfloat16 input normalized in float32, as the mixed-dtype call
+            # computes it; under vmap (stacked members' statistics) the batch
+            # rule needs the input in the statistics' dtype
+            x = x.to(torch.promote_types(x.dtype, self.running_mean.dtype))
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         if self.stats_out:

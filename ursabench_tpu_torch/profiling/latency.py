@@ -36,6 +36,8 @@ import torch
 from torch import nn
 from torch.func import functional_call, vmap
 
+# the member-layout rule lives with the ensembles it lays out
+from ..inference.ensemble import MEMBER_STRATEGIES, member_cost, resolve_member_strategy
 from .hw import device_name, device_peaks, forward_flops
 from .quantize import dequantize_state, quantize_state
 
@@ -44,7 +46,6 @@ REPS_PER_BATCH = 10  # trtprof prof.py:153-171
 BURN_IN_BATCHES = 10  # trtprof run_prediction.py:70
 
 PRECISIONS = ("fp32", "bf16", "int8")
-MEMBER_STRATEGIES = ("scan", "vmap")
 
 
 @dataclass(frozen=True)
@@ -317,54 +318,6 @@ def random_ensemble(model: str, num_classes: int, ensemble_size: int, device):
     ens.module.to(device)
     ens.state = {k: v.to(device) for k, v in ens.state.items()}
     return ens
-
-
-# the largest forward of one member (FLOPs, batch x image) that runs faster
-# vmapped than alone, by precision, as measured on an H100 (PERF.md): between
-# 11.9 and 127 GFLOP in fp32, 11.9 and 16.4 in bf16, 32.7 and 65.4 in int8
-VMAP_FLOPS = {"fp32": 40e9, "bf16": 14e9, "int8": 46e9}
-
-
-def member_cost(model: str, num_classes: int, input_shape):
-    """``(flops, convs)``: the FLOPs of one member's forward on one image of
-    ``input_shape`` (C, H, W), counted on the meta device, and whether the
-    model has convolutions."""
-    from .. import models
-
-    with torch.device("meta"):
-        module = models.get_model(model).build(num_classes)
-    convs = any(isinstance(m, nn.Conv2d) for m in module.modules())
-    x = torch.empty((1,) + tuple(input_shape), device="meta")
-    return float(forward_flops(module, x)), convs
-
-
-def resolve_member_strategy(member_strategy: str, ensemble_size: int, batch_size: int,
-                            input_shape, precision: str, image_flops: float,
-                            convs: bool = True) -> str:
-    """'auto' picks the strategy with the shorter device time as measured on
-    an H100 (PERF.md), from one member's FLOPs on one image (``member_cost``):
-    - at S=1, scan, a plain forward;
-    - without convolutions (the MLPs), vmap: one batched matrix product
-      a layer, 3-5x faster than the members in turn at every precision and
-      batch measured;
-    - with convolutions, vmap while one member's forward (batch x
-      ``image_flops``) stays within ``VMAP_FLOPS`` of its precision, scan
-      above, where the grouped convolutions that vmap over stacked conv
-      weights becomes take longer than S plain forwards (PreResNet-20 at
-      batch 128 and WideResNet-28x10 and TVResNet-50 at batch 1 under it;
-      INResNet50 at batch 1, WRN-28x10 at 128 and TVResNet-50 from batch 2,
-      int8 from 8, over it); in fp32 also only at batch 1 and, for inputs
-      under 64 pixels high, up to batch 7 (cuDNN's float32 grouped
-      convolutions are slow without TF32)."""
-    if member_strategy != "auto":
-        return member_strategy
-    if ensemble_size == 1:
-        return "scan"
-    if not convs:
-        return "vmap"
-    if precision == "fp32" and batch_size >= (2 if input_shape[1] >= 64 else 8):
-        return "scan"
-    return "vmap" if batch_size * image_flops <= VMAP_FLOPS[precision] else "scan"
 
 
 def _device(device) -> torch.device:
