@@ -340,6 +340,7 @@ CYC_HYP = {"lr_0": 0.05, "prior_std": 1.0, "cycle_length": 4, "burn_in_epochs": 
 SGD_HYP = {"lr": 0.05, "epochs": 2, "momentum": 0.9, "weight_decay": 5e-4}
 MCD_HYP = {"lr": 0.02, "epochs": 1, "dropout": 0.1, "lengthscale": 0.01, "num_samples": 4,
            "momentum": 0.9, "weight_decay": 0}
+MCD_CHECK_N = 60000  # MNIST's train split: the MCdropout MLP200 check's epoch, 469 steps
 SWA_HYP = {"lr_init": 0.05, "swag_lr": 0.01, "swag_wd": 5e-4, "momentum": 0.9,
            "burn_in_epochs": 2, "num_iterates": 3, "num_samples": 3}
 # sampler -> (constructor keywords, sample() keywords, members, epochs, chains)
@@ -436,6 +437,9 @@ CH_CHECK_STEPS, CH_CHECK_CHAINS = 4, 2  # vmap against scan: 4 noisy steps of 2 
 # the timed turns of each row, after its warm-up: one a strategy (scan vmap vmap
 # scan until the mesh phase grew again)
 CH_ORDER = ("scan", "vmap")
+# the chain counts whose rows also time an eager epoch of each strategy (PERF.md
+# keeps the graphed/eager ratios measured at every count)
+CH_EAGER_CHAINS = (1,)
 # its limits: in float32, ||vmap - scan|| / ||scan|| (TF32 off); in bf16, vmap's
 # distance from a float32 run of the same seed, as a multiple of bf16 scan's own
 CH_FP32, CH_BF16 = 1e-4, 2.0
@@ -804,6 +808,16 @@ def _path_epoch(sampler, path: str) -> dict:
     return out
 
 
+def _graph_and_eager(sampler) -> dict:
+    """One epoch of ``sampler`` graphed, then one eager from the same state
+    and draws (``_path_epoch`` each), by path."""
+    snap, runs = _snapshot(sampler), {}
+    for path in ("graph", "eager"):
+        _restore(sampler, snap)
+        runs[path] = _path_epoch(sampler, path)
+    return runs
+
+
 def _max_diff(a: list, b: list) -> float:
     return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
 
@@ -828,17 +842,20 @@ def _busy(prof) -> tuple:
     return total / 1e3, union / window * 100, window / 1e3
 
 
-def _busy_shares(device) -> dict:
-    """PreResNet-20 SGHMC over 2,048 CIFAR-10 images (16 steps of the
-    slice's batch): after a warm-up epoch (the capture), one graphed and one
-    eager epoch under torch.profiler: the kernels' ms a step and the
-    device's busy share of the traced window."""
-    split, c = _ch_split("PreResNet20", "CIFAR10", 2048)
-    s = _ch_sampler(device, "PreResNet20", split, c, "fp32", 1, "scan")
+def _busy_shares(device, sampler=None) -> dict:
+    """A sampler of 16-step epochs, by default PreResNet-20 SGHMC over 2,048
+    CIFAR-10 images at the slice's batch: after a warm-up epoch (the
+    capture), three untimed graphed and eager epochs each for the untraced
+    time, then one graphed and one eager epoch under torch.profiler: the
+    kernels' ms a step and the device's busy share of the traced window."""
     from ursabench_tpu_torch.profiling.hw import event_ms
 
+    s = sampler
+    if s is None:
+        split, c = _ch_split("PreResNet20", "CIFAR10", 2048)
+        s = _ch_sampler(device, "PreResNet20", split, c, "fp32", 1, "scan")
     s._run_epoch()
-    out, steps = {}, split.num_batches
+    out, steps = {}, s.train.num_batches
     for path in ("graph", "eager"):
         run = s._run_epoch if path == "graph" else (lambda: _eager_epoch(s))
         untraced = min(event_ms(run, 1) for _ in range(3))
@@ -1756,25 +1773,32 @@ def samplers_phase(device) -> dict:
             a, b = ens.logits_all(x, 0), ens.logits_all(x, 0)
             check(torch.equal(a, b), "MCdropout: one seed gave different logits")
             check(not torch.allclose(a[0], a[1]), "MCdropout: two members agree")
-        # the step program by the rule: eager for the dropout twin, else one
-        # capture, kept across update_hyp and a second sample() (SGD's)
+        # every sampler's epochs through its program (the dropout twin's too),
+        # one capture, kept across update_hyp and a second sample() (SGD's)
         prog = sampler._program
-        want = "eager" if name == "MCdropout" else "graph"
-        check(sampler.step_program == want and (prog is None) == (want == "eager"),
-              f"{name}: step_program {sampler.step_program}, expected {want}")
+        check(sampler.step_program == "graph" and prog is not None and prog.path == "graph",
+              f"{name}: step_program {sampler.step_program}, program {prog}")
         if name == "SGD":
             sampler.update_hyp(SGD_HYP)
             sampler.sample(**sample_kw)
             check(sampler._program is prog and sampler.epochs_run == epochs,
                   "SGD: update_hyp and a second sample() rebuilt the program")
-        captures = None if prog is None else prog.captures
-        check(captures in (None, 1), f"{name}: {captures} captures")
+        graph_over_eager = None
+        if name == "MCdropout":  # the device-bound dropout step: an epoch graphed and eager
+            pair = _graph_and_eager(sampler)
+            g, e = (WRN_STEPS / pair[path]["wall_s"] for path in ("graph", "eager"))
+            graph_over_eager = g / e
+            bma += (f"; one epoch from one state graphed {g:.2f} steps/s against eager {e:.2f} "
+                    f"({graph_over_eager:.3f}x), {len(prog.dropout.masks)} masks drawn before "
+                    "each replay")
+        captures = prog.captures
+        check(captures == 1, f"{name}: {captures} captures")
         steps = epochs * WRN_STEPS
         rows[name] = {"members": members, "epochs": epochs, "chains": chains, "steps": steps,
                       "sample_s": sample_s, "step_forwards_per_s": steps * chains / sample_s,
                       "bma_s": bma_s, "bma_img_per_s": test.n / bma_s, "error_rate": err,
                       "epoch_losses": losses.tolist(), "step_program": sampler.step_program,
-                      "captures": captures}
+                      "captures": captures, "graph_over_eager": graph_over_eager}
         print(f"  {name}: step_program {sampler.step_program} (captures {captures}"
               f"{', across update_hyp and a second sample()' if name == 'SGD' else ''}); "
               f"{members} members, {epochs} epochs x {chains} chain(s) of "
@@ -1792,7 +1816,62 @@ def samplers_phase(device) -> dict:
           f"expected {2 * cyc_steps} (cSGHMC and cSGLD only)")
     bn_refresh_check(device, train)
     k1 = k1_stacked_check(device)
-    return {"launches": launches, "rows": rows, "k1": k1}
+    return {"launches": launches, "rows": rows, "k1": k1, "mcdropout": mcdropout_check(device)}
+
+
+def mcdropout_check(device) -> dict:
+    """MC dropout on MLP200MNIST (the registry's twin, rate 0.2) over
+    MCD_CHECK_N synthetic MNIST images at batch 128, under deterministic cuDNN: a
+    warm-up epoch (the capture), then one epoch through the program (each
+    step's two keep masks drawn into static buffers before its replay) and
+    one through ``train_steps`` from the same state and draws: bit-equal;
+    steps/s and host us a step of each, and the host's us a step in the
+    mask draws alone."""
+    from ursabench_tpu_torch import data, inference, models
+
+    splits, c = data.loaders("MNIST", None, batch_size=BATCH, use_validation=False,
+                             synthetic_n_train=MCD_CHECK_N, synthetic_n_test=MNIST_TEST)
+    s = inference.MCdropout(MCD_HYP, model=models.get_model("MLP200MNIST").build(c),
+                            train=splits["train"], seed=0, device=device,
+                            model_name="MLP200MNIST")
+    steps = s.train.num_batches
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        s._run_epoch()
+        prog = s._program
+        runs = _graph_and_eager(s)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = _max_diff(runs["graph"]["state"], runs["eager"]["state"])
+    check(s.step_program == "graph" and prog.path == "graph" and prog.captures == 1
+          and s._program is prog and len(prog.dropout.masks) == 2,
+          f"MCdropout MLP200: program {prog.path}, {prog.captures} captures, "
+          f"{len(prog.dropout.masks)} masks")
+    check(diff == 0.0, f"MCdropout MLP200: the graphed epoch differs from the eager one by "
+                       f"{diff:.3g} under deterministic cuDNN")
+    check(all(math.isfinite(float(v)) for v in s.epoch_losses), "MCdropout MLP200: losses")
+    seeds = [int(x) for x in torch.randint(0, 2 ** 62, (1,))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        prog.dropout.draw(seeds, i)
+    draw_us = (time.perf_counter() - t0) / steps * 1e6
+    torch.cuda.synchronize()
+    out = {"steps": steps, "max_abs_diff": diff, "capture_ms": prog.capture_ms,
+           "pool_bytes": prog.pool_bytes, "draw_us_per_step": draw_us}
+    for path in ("graph", "eager"):
+        out[path] = {"steps_per_s": steps / runs[path]["wall_s"],
+                     "call_us_per_step": runs[path]["host_s"] / steps * 1e6}
+    g, e = out["graph"], out["eager"]
+    print(f"  MCdropout MLP200MNIST, {MCD_CHECK_N} images, batch {BATCH}: one epoch of {steps} "
+          f"steps graphed {g['steps_per_s']:.1f} steps/s against eager {e['steps_per_s']:.1f} "
+          f"({g['steps_per_s'] / e['steps_per_s']:.2f}x), bit-equal under deterministic cuDNN; "
+          f"host us a step graphed {runs['graph']['replay_gap_us'][0]:.1f} between replays "
+          f"(median {runs['graph']['replay_gap_us'][1]:.1f}), of it {draw_us:.1f} drawing "
+          f"the {len(prog.dropout.masks)} masks; eager {e['call_us_per_step']:.1f}; one capture "
+          f"({prog.capture_ms:.1f} ms)", flush=True)
+    return out
 
 
 def _run_cli(argv, runs):
@@ -2843,10 +2922,50 @@ def _stream_sampler(device, train, model, chunk):
     check(bad == 0 and checked.checked == stream.num_chunks,
           f"streamed batches (M={chunk}): {bad} mismatched bytes over {checked.checked} "
           f"transfers")
-    sampler.train = stream
-    check(sampler.step_program == "eager", f"a streamed sampler's step_program "
-                                           f"{sampler.step_program}")
+    prog = sampler._program
+    sampler.train = stream  # the split is taken at each call: the program stays
+    check(sampler.step_program == "graph" and prog.path == "graph" and prog.captures == 1
+          and sampler.epoch_program() is prog,
+          f"a streamed sampler's step_program {sampler.step_program}, its program "
+          f"{prog.path} with {prog.captures} captures")
     return sampler, stream, checked.checked
+
+
+def _stream_pair(sampler, stream) -> dict:
+    """One epoch of a streamed ``sampler`` through its program, then, from a
+    snapshot of the state before it, one through ``stream_steps`` on a
+    second split of the same seed at the same epoch: each timed
+    (``_path_epoch``) with its stream's counters, and the largest difference
+    of the two states after them."""
+    from ursabench_tpu_torch.data.native import HostStreamingSplit
+
+    twin = HostStreamingSplit(stream.images, stream.labels, stream.batch_size, stream.spec,
+                              seed=stream.seed, chunk_batches=stream.chunk_batches)
+    twin.epochs_started = stream.epochs_started
+    snap = _snapshot(sampler)
+    runs = {}
+    for path, split in (("graph", stream), ("eager", twin)):
+        _restore(sampler, snap)
+        sampler.train = split
+        before = dict(split.stats)
+        runs[path] = _path_epoch(sampler, path)
+        runs[path]["stats"] = {k: v - before[k] for k, v in split.stats.items()}
+    sampler.train = stream
+    runs["max_abs_diff"] = _max_diff(runs["graph"].pop("state"), runs["eager"].pop("state"))
+    return runs
+
+
+def _busy_stream_sampler(device, train, chunk):
+    """SGHMC on PreResNet-20 over a uint8 stream of ``train``'s first 2,048
+    images (16 steps, ``chunk`` batches a transfer), for ``_busy_shares``."""
+    from ursabench_tpu_torch import inference, models
+    from ursabench_tpu_torch.data.native import HostStreamingSplit
+
+    n = 16 * BATCH
+    stream = HostStreamingSplit(train.images[:n], train.labels[:n], BATCH, train.spec, seed=1,
+                                chunk_batches=chunk)
+    return inference.SGHMC(HYP, model=models.get_model("PreResNet20").build(10), train=stream,
+                           seed=1, device=device)
 
 
 def _timed_epoch(sampler, stats=None) -> float:
@@ -2874,12 +2993,20 @@ def _stream_line(stats, steps) -> str:
 
 def stream_cifar(device, splits) -> dict:
     """(a) PreResNet-20 / CIFAR-10 (50,000 images, batch 128, fp32, SGHMC, one
-    chain), resident, streamed (M=1) and chunked (M=16): a warm-up epoch
-    each (every streamed transfer checked byte for byte), then one timed
-    epoch each in the order ``ST_ORDER``; float32-mode batches against
-    gather_normalize."""
+    chain): resident, streamed (M=1) and chunked (M=16), each through its
+    program: a warm-up epoch each (the capture; every streamed transfer
+    checked byte for byte), then one timed graphed epoch each in the order
+    ``ST_ORDER``, a streamed one followed by an epoch through
+    ``stream_steps`` from the same state on a second split of the same seed
+    (``_stream_pair``); each streamed program captured once across its
+    epochs. Then, over streams of 2,048 images: a streamed and a chunked
+    program built and captured under deterministic cuDNN, each epoch
+    bit-equal to ``stream_steps``' from the same state (required), and the
+    busy share of a streamed and a chunked step, graphed and eager, in the
+    default mode; float32-mode batches against gather_normalize."""
     from ursabench_tpu_torch import inference, models
     from ursabench_tpu_torch.data import native
+    from ursabench_tpu_torch.inference.engine import STREAM_AHEAD
     from ursabench_tpu_torch.kernels.sghmc import sghmc_update_flat
 
     train = splits["train"]
@@ -2890,32 +3017,73 @@ def stream_cifar(device, splits) -> dict:
     modes = {"resident": (resident, None, 0)}
     for name, chunk in (("streamed", 1), ("chunked", STREAM_CHUNK)):
         modes[name] = _stream_sampler(device, train, cfg.build(10), chunk)
-    ms = {name: [] for name in modes}
-    stats = {name: {} for name in modes}
+    runs = {}
     for name in ST_ORDER:
-        sampler = modes[name][0]
-        ms[name].append(_timed_epoch(sampler, None if name == "resident" else stats[name]))
-    epochs = 1 + len(ST_ORDER) // len(modes)  # the warm-up and the timed ones, each mode
-    steps = sum(epochs * m[0].train.num_batches for m in modes.values())
+        sampler, stream, _ = modes[name]
+        runs[name] = ({"graph": _path_epoch(sampler, "graph")} if stream is None
+                      else _stream_pair(sampler, stream))
+    small = {"streamed": 1, "chunked": STREAM_CHUNK}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:  # programs captured in that mode, their first epoch against stream_steps'
+        det = {}
+        for name, chunk in small.items():
+            s = _busy_stream_sampler(device, train, chunk)
+            det[name] = _stream_pair(s, s.train)["max_abs_diff"]
+            check(det[name] == 0.0 and s._program.captures == 1,
+                  f"stream (a) {name}: the graphed epoch differs from stream_steps' by "
+                  f"{det[name]:.3g} under deterministic cuDNN ({s._program.captures} captures)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    busy = {name: _busy_shares(device, _busy_stream_sampler(device, train, chunk))
+            for name, chunk in small.items()}
+    # the warm-up and the graphed epoch of each mode, the streamed modes' eager twin
+    epochs = {"resident": 2, "streamed": 3, "chunked": 3}
+    steps = sum(epochs[k] * m[0].train.num_batches for k, m in modes.items())
+    steps += sum(2 * 16 + b["steps_run"] for b in busy.values())
     launches = sghmc_update_flat.launches
     check(launches == steps, f"stream (a): K1 launched {launches} times for {steps} steps")
     out = {"launches": launches}
     for name, (sampler, stream, checked) in modes.items():
         losses = [float(v) for v in sampler.epoch_losses]
-        check(len(losses) == epochs and all(map(math.isfinite, losses)),
+        check(len(losses) == epochs[name] and all(map(math.isfinite, losses)),
               f"{name}: losses {losses}")
-        sps = [1e3 / v for v in ms[name]]
-        out[name] = {"steps_per_sec": sps, "steps": sampler.train.num_batches,
-                     "checked_transfers": checked, "stats": stats[name], "losses": losses}
-        if stream is not None:
-            print(f"  {name} (M={stream.chunk_batches}): "
-                  f"{' / '.join(f'{v:.1f}' for v in sps)} steps/s over {stream.num_batches} "
-                  f"steps; {checked} transfers of the warm-up epoch byte-equal to the host's "
-                  f"gather; {_stream_line(stats[name], (epochs - 1) * stream.num_batches)}",
-                  flush=True)
-    mean = {name: sum(out[name]["steps_per_sec"]) / (epochs - 1) for name in modes}
-    out["streamed_pct_of_in_hbm"] = 100 * mean["streamed"] / mean["resident"]
-    out["chunked_pct_of_in_hbm"] = 100 * mean["chunked"] / mean["resident"]
+        nb, prog, r = sampler.train.num_batches, sampler._program, runs[name]
+        check(prog.path == "graph" and prog.captures == 1,
+              f"stream (a) {name}: the program ran {prog.path} with {prog.captures} captures")
+        row = {"steps": nb, "checked_transfers": checked, "losses": losses,
+               "captures": prog.captures, "capture_ms": prog.capture_ms,
+               "pool_bytes": prog.pool_bytes}
+        for path in ("graph", "eager"):
+            if path in r:
+                row[path] = {"steps_per_sec": nb / r[path]["wall_s"],
+                             "call_us_per_step": r[path]["host_s"] / nb * 1e6,
+                             "stats": r[path].get("stats")}
+        row["graph"]["replay_gap_us"] = r["graph"]["replay_gap_us"]
+        out[name] = row
+        if stream is None:
+            continue
+        row.update(default_max_abs_diff=r["max_abs_diff"], deterministic_max_abs_diff=det[name],
+                   busy=busy[name])
+        g, e, b = row["graph"], row["eager"], busy[name]
+        print(f"  {name} (M={stream.chunk_batches}): graphed {g['steps_per_sec']:.1f} steps/s, "
+              f"stream_steps {e['steps_per_sec']:.1f} ({g['steps_per_sec'] / e['steps_per_sec']:.2f}x"
+              f") over {nb} steps from one state and one stream epoch (largest difference "
+              f"{r['max_abs_diff']:.3g}; 0 under deterministic cuDNN over 16 steps); host us a "
+              f"step: graphed {g['replay_gap_us'][0]:.1f} between replays (median "
+              f"{g['replay_gap_us'][1]:.1f}, the host at most {STREAM_AHEAD} transfers ahead; the "
+              f"call {g['call_us_per_step']:.1f}), stream_steps {e['call_us_per_step']:.1f}; one "
+              f"capture ({prog.capture_ms:.1f} ms, a pool of {prog.pool_bytes / 1e6:.1f} MB) "
+              f"across {len(losses)} epochs and a swapped split; 16-step epochs (graphed / eager): "
+              f"{b['graph']['untraced_ms_per_step']:.3f} / {b['eager']['untraced_ms_per_step']:.3f}"
+              f" ms a step untraced, busy {b['graph']['busy_pct']:.1f}% / "
+              f"{b['eager']['busy_pct']:.1f}%; {checked} transfers of the warm-up epoch "
+              f"byte-equal to the host's gather; graphed: {_stream_line(g['stats'], nb)}",
+              flush=True)
+    res = out["resident"]["graph"]["steps_per_sec"]
+    for name in ("streamed", "chunked"):
+        out[f"{name}_pct_of_in_hbm"] = 100 * out[name]["graph"]["steps_per_sec"] / res
+        out[f"{name}_eager_pct_of_in_hbm"] = 100 * out[name]["eager"]["steps_per_sec"] / res
 
     # float32 mode: dataio.cc's normalization, moved as it is
     stream = native.HostStreamingSplit(train.images, train.labels, BATCH, train.spec, seed=5,
@@ -2930,16 +3098,14 @@ def stream_cifar(device, splits) -> dict:
         check(x.dtype == torch.float32 and torch.equal(x.cpu(), torch.from_numpy(wx))
               and torch.equal(y.cpu(), torch.from_numpy(wy).long()),
               f"float32 streamed batch {t} differs from gather_normalize")
-    print(f"  PreResNet-20 / CIFAR-10 bs{BATCH} fp32 SGHMC, steps/s in the order "
-          f"{' '.join(name[0].upper() for name in ST_ORDER)}: "
-          f"resident {' / '.join(f'{v:.1f}' for v in out['resident']['steps_per_sec'])}, "
-          f"streamed {' / '.join(f'{v:.1f}' for v in out['streamed']['steps_per_sec'])}, "
-          f"chunked (M={STREAM_CHUNK}) "
-          f"{' / '.join(f'{v:.1f}' for v in out['chunked']['steps_per_sec'])}; "
-          f"streamed_pct_of_in_hbm {out['streamed_pct_of_in_hbm']:.1f}, chunked "
-          f"{out['chunked_pct_of_in_hbm']:.1f} (means of the timed epochs); K1 {launches} "
-          f"launches = "
-          f"{steps} steps; 3 float32-mode batches equal to gather_normalize", flush=True)
+    print(f"  PreResNet-20 / CIFAR-10 bs{BATCH} fp32 SGHMC, graphed steps/s in the order "
+          f"{' '.join(name[0].upper() for name in ST_ORDER)}: resident {res:.1f}, streamed "
+          f"{out['streamed']['graph']['steps_per_sec']:.1f}, chunked (M={STREAM_CHUNK}) "
+          f"{out['chunked']['graph']['steps_per_sec']:.1f}; streamed_pct_of_in_hbm "
+          f"{out['streamed_pct_of_in_hbm']:.1f}, chunked {out['chunked_pct_of_in_hbm']:.1f} "
+          f"(stream_steps: {out['streamed_eager_pct_of_in_hbm']:.1f}, "
+          f"{out['chunked_eager_pct_of_in_hbm']:.1f}); K1 {launches} launches = {steps} "
+          "steps; 3 float32-mode batches equal to gather_normalize", flush=True)
     return out
 
 
@@ -2981,24 +3147,31 @@ def stream_imagenet(device, resident_sps) -> dict:
         torch.cuda.synchronize()
     launches = sghmc_update_flat.launches
     check(launches == 3 * steps, f"stream (b): K1 launched {launches} times for {3 * steps} steps")
+    prog = sampler._program
+    check(prog.path == "graph" and prog.captures == 1,
+          f"stream (b): the program ran {prog.path} with {prog.captures} captures")
+    captures, pool_bytes = prog.captures, prog.pool_bytes
+    capture = f"one capture ({prog.capture_ms:.1f} ms, a pool of {pool_bytes / 1e9:.2f} GB)"
     losses = [float(v) for v in sampler.epoch_losses]
     check(len(losses) == 3 and all(map(math.isfinite, losses)), f"stream (b): losses {losses}")
     times = device_times(prof)
-    copy_us = sum(us for k, (_, us) in times.items() if k.startswith("Memcpy"))
+    copy_us = sum(us for k, (_, us) in times.items() if k.startswith("Memcpy HtoD"))
     kernel_us = sum(us for k, (_, us) in times.items() if not k.startswith("Mem"))
     busy = kernel_us / 1e3 / steps / ms * 100
     slot_bytes = delta["bytes"] / delta["transfers"]
     prof_gbs = slot_bytes * steps / copy_us / 1e3 if copy_us else float("nan")
-    del sampler, stream, train, images
+    del sampler, stream, train, images, prog
     os.remove(path)
     out = {"n": ST_IMAGENET_N, "steps": steps, "steps_per_sec": 1e3 / ms,
            "resident_steps_per_sec": resident_sps, "pct_of_resident": 1e3 / ms / resident_sps * 100,
            "stats": delta, "device_busy_pct": busy,
            "kernel_ms_per_step": kernel_us / 1e3 / steps, "copy_ms_per_step": copy_us / 1e3 / steps,
            "profiled_h2d_gb_per_s": prof_gbs,
-           "losses": losses, "launches": launches, "memmap_seconds": data_s}
+           "losses": losses, "launches": launches, "memmap_seconds": data_s,
+           "captures": captures, "pool_bytes": pool_bytes}
     print(f"  TVResNet-50 bf16 224^2 bs{BATCH} SGHMC from a {ST_IMAGENET_N}-image uint8 memmap: "
-          f"streamed {1e3 / ms:.2f} steps/s beside the resident slice's {resident_sps:.2f} "
+          f"streamed, graphed ({capture}), {1e3 / ms:.2f} steps/s beside the resident slice's "
+          f"{resident_sps:.2f} "
           f"({out['pct_of_resident']:.1f}%); {_stream_line(delta, steps)}; device busy "
           f"{busy:.1f}% ({kernel_us / 1e3 / steps:.2f} ms of kernels a step, "
           f"{copy_us / 1e3 / steps:.2f} ms of copies beside them: "
@@ -3210,8 +3383,9 @@ def _ch_agree(device, name, dataset, dtype, launches: list) -> dict:
 
 def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
     """The timed rows of one model: at each C, a graphed warm-up epoch of
-    each strategy (its peak memory), then a graphed and an eager epoch
-    timed in the turns CH_ORDER (the eager one's peak memory too); a C
+    each strategy (its peak memory), then a graphed epoch and, at a C of
+    CH_EAGER_CHAINS, an eager one timed in the turns CH_ORDER (the eager
+    one's peak memory too); a C
     whose vmap run would not fit beside what is allocated (C times the
     one-chain vmap epoch's working memory) is skipped."""
     import gc
@@ -3233,9 +3407,10 @@ def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
                 peak[strategy] = _ch_peak(samplers[strategy], launches)[:2]
             for strategy in CH_ORDER:
                 ms[strategy].append(_ch_epoch(samplers[strategy], launches))
-                peak_eager[strategy], _, eager_ms = _ch_peak(samplers[strategy], launches,
-                                                             eager=True)
-                ms_eager[strategy].append(eager_ms)
+                if chains in CH_EAGER_CHAINS:
+                    peak_eager[strategy], _, eager_ms = _ch_peak(samplers[strategy], launches,
+                                                                 eager=True)
+                    ms_eager[strategy].append(eager_ms)
         except torch.cuda.OutOfMemoryError:
             print(f"  {name} C={chains}: skipped, out of memory", flush=True)
             rows.append({"model": name, "chains": chains, "skipped": True})
@@ -3252,7 +3427,7 @@ def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
         sf = {k: [chains * steps * 1e3 / v for v in ms[k]] for k in ms}
         sf_eager = {k: [chains * steps * 1e3 / v for v in ms_eager[k]] for k in ms_eager}
         mean = {k: sum(v) / len(v) for k, v in sf.items()}
-        mean_eager = {k: sum(v) / len(v) for k, v in sf_eager.items()}
+        mean_eager = {k: sum(v) / len(v) if v else float("nan") for k, v in sf_eager.items()}
         rows.append({"model": name, "dtype": dtype, "chains": chains, "steps": steps,
                      "images": n, "ms": ms, "step_forwards_per_s": sf,
                      "per_chain": {k: v / chains for k, v in mean.items()},
@@ -3384,22 +3559,28 @@ def chains_phase(device) -> dict:
             if key in agree:
                 print(f"    {name} {dtype} {key}: " + ", ".join(
                     f"{k} {v:.2e}" for k, v in agree[key].items()), flush=True)
-    print(f"  chains table (SGHMC, batch 128, step_program graph, one graphed and one eager "
-          f"epoch a run, turns {' '.join(CH_ORDER)}; step-forwards/s aggregate, per chain, "
+    print(f"  chains table (SGHMC, batch 128, step_program graph, one graphed epoch a run and "
+          f"an eager one at C in {CH_EAGER_CHAINS}, turns {' '.join(CH_ORDER)}; "
+          "step-forwards/s aggregate, per chain, "
           "vmap/scan, graphed/eager, peak GB allocated, the graph's pool):", flush=True)
     for r in out["rows"]:
         if r.get("skipped"):
             continue
         sf, se, ge = r["step_forwards_per_s"], r["step_forwards_per_s_eager"], r["graph_over_eager"]
+        eager = (f"eager scan {fmt(se['scan'])}, vmap {fmt(se['vmap'])}; " if se["scan"]
+                 else "eager not timed at this C; ")
+        ratios = (f"vmap/scan {r['vmap_over_scan']:.3f} graphed, "
+                  f"{r['vmap_over_scan_eager']:.3f} eager; graphed/eager scan {ge['scan']:.3f}, "
+                  f"vmap {ge['vmap']:.3f}; " if se["scan"]
+                  else f"vmap/scan {r['vmap_over_scan']:.3f} graphed; ")
+        eager_peak = (f", {r['peak_gb_eager']['scan']:.2f} / {r['peak_gb_eager']['vmap']:.2f} "
+                      "eager" if se["scan"] else "")
         print(f"    {r['model']} {r['dtype']} C={r['chains']} ({r['steps']} steps of "
               f"{r['images']} images): graphed scan {fmt(sf['scan'])}, vmap {fmt(sf['vmap'])}; "
-              f"eager scan {fmt(se['scan'])}, vmap {fmt(se['vmap'])}; per chain (graphed) "
-              f"{r['per_chain']['scan']:.1f} / {r['per_chain']['vmap']:.1f}; vmap/scan "
-              f"{r['vmap_over_scan']:.3f} graphed, {r['vmap_over_scan_eager']:.3f} eager; "
-              f"graphed/eager scan {ge['scan']:.3f}, vmap {ge['vmap']:.3f}; peak "
+              f"{eager}per chain (graphed) "
+              f"{r['per_chain']['scan']:.1f} / {r['per_chain']['vmap']:.1f}; {ratios}peak "
               f"{r['peak_gb']['scan']:.2f} / {r['peak_gb']['vmap']:.2f} GB graphed (the epoch's "
-              f"own {r['epoch_gb']['scan']:.2f} / {r['epoch_gb']['vmap']:.2f}), "
-              f"{r['peak_gb_eager']['scan']:.2f} / {r['peak_gb_eager']['vmap']:.2f} eager; the "
+              f"own {r['epoch_gb']['scan']:.2f} / {r['epoch_gb']['vmap']:.2f}){eager_peak}; the "
               f"graph's pool {r['pool_gb']['scan']:.2f} / {r['pool_gb']['vmap']:.2f} GB",
               flush=True)
     h, p, w = out["hmc"], out["pca"], out["sweep"]

@@ -8,8 +8,8 @@ for bit: parameters, momenta, BatchNorm statistics, losses and the step
 counter, for one chain, chains in turn and batched, a sweep's K rows, SGD,
 SWA and cSGHMC across the epochs where its noise gate and cyclic rate
 change. The program is built once per state and hyperparameter dict and
-survives ``update_hyp`` and a second ``sample()``; models with dropout,
-streamed splits and meshes stay on the eager path. The schedules in their
+survives ``update_hyp`` and a second ``sample()``; models with dropout and
+streamed splits take their programs, meshes stay on the eager path. The schedules in their
 device form (epoch, batch and step as 0-dim tensors) against the JAX
 package's; K1's plain path with its seed in a tensor; the launch counts of a
 kernel captured into a graph."""
@@ -218,8 +218,11 @@ def test_a_new_state_or_hyperparameter_dict_rebuilds_the_program():
 
 
 def test_dropout_models_and_streamed_splits_stay_eager():
-    """By rule, not on failure: a model with dropout (a fresh generator a
-    step) and a streamed split run ``train_steps`` / ``stream_steps``."""
+    """The rule this test held before, dropout models and streamed splits
+    on the eager path, is gone: both report ``"graph"``, build their
+    program at the first epoch (the streamed program for the stream, the
+    dropout model's drawing its masks before each step) and run their
+    epochs through it. Only meshes stay eager (``test_meshes_stay_eager``)."""
     _, ts, c = _splits("MNIST")
     mcd = sgd_map.MCdropout(MCD_HYP, model=tmodels.get_model("MLP200MNIST").build(c),
                             train=ts["train"], device="cpu", model_name="MLP200MNIST")
@@ -227,10 +230,13 @@ def test_dropout_models_and_streamed_splits_stay_eager():
     stream = native.HostStreamingSplit(train.images, train.labels, 32, train.spec, seed=2)
     streamed = sgmcmc.SGHMC(SGHMC_HYP, model=tmodels.get_model("MLP200MNIST").build(c),
                             train=stream, device="cpu")
-    for s in (mcd, streamed):
-        assert s.step_program == "eager" and s.epoch_program() is None
+    for s, kind in ((mcd, engine._EpochProgram), (streamed, engine._StreamProgram)):
+        assert s.step_program == "graph"
         s._run_epoch()
-        assert s._program is None and s._state.step > 0
+        assert isinstance(s._program, kind) and s.epoch_program() is s._program
+        assert s._program.steps_run == s._state.step > 0
+    assert len(mcd._program.dropout.masks) == 2  # MLP200's two dropout calls
+    assert not streamed._program.dropout.masks
 
 
 def _mesh_step_programs():

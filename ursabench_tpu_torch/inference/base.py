@@ -279,26 +279,28 @@ class _EpochSampler(_Inference):
     with (C,) hyperparameter tensors and each row's generators.
 
     A train split with ``epoch`` (``data.native.HostStreamingSplit``) stays
-    on the host: each epoch streams its batches through ``engine.
-    stream_steps``, one chain only, and the split's permutation takes the
-    place of the data generator's (which still draws the crops and flips).
-    On a data mesh the split streams this rank's rows of every batch: it
-    must have been made with the sampler's mesh (ValueError otherwise).
+    on the host: each epoch streams its batches, one chain only, and the
+    split's permutation takes the place of the data generator's (which
+    still draws the crops and flips). On a data mesh the split streams this
+    rank's rows of every batch: it must have been made with the sampler's
+    mesh (ValueError otherwise).
 
     On a mesh ``self.modules`` are this rank's chains (``chain_ids``) and
     ``self.chains`` counts every rank's; the epoch is ``engine.
-    train_steps``'s sharded one.
+    train_steps``'s (or ``stream_steps``') sharded one.
 
-    ``step_program`` says how a resident epoch runs: ``"graph"``, through
-    ``engine.make_epoch_fn``'s program (its step captured once as a CUDA
-    graph on the card and replayed, run eagerly on the CPU), or ``"eager"``,
-    through ``train_steps`` or ``stream_steps``, a step at a time from
-    Python: by a fixed rule, for a streamed split, on a mesh (its
-    collectives are not captured) and for a model with dropout (a fresh
-    generator a step). The program is built at the first epoch and again
-    only when ``_state`` or ``_hyp`` is a new object (a sweep's); update_hyp,
-    the noise gate, a second ``sample()`` and a checkpoint restore write in
-    place and keep it."""
+    ``step_program`` says how an epoch runs: ``"graph"``, through
+    ``engine.make_epoch_fn``'s program, resident or streamed, with or
+    without dropout (its step captured once as a CUDA graph on the card and
+    replayed, a model with dropout drawing its masks into static buffers
+    before each replay; run eagerly on the CPU), or ``"eager"``, through
+    ``train_steps`` or ``stream_steps``, a step at a time from Python: by a
+    fixed rule, on a mesh (its collectives are not captured). The program
+    is built at the first epoch and again only when ``_state`` or ``_hyp``
+    is a new object (a sweep's) or the split's batches no longer fit it (a
+    stream of another transfer layout); update_hyp, the noise gate, a
+    second ``sample()``, a checkpoint restore and a stream of the same
+    layout in place of the split keep it."""
 
     _HYP_KEYS: tuple = ()
     _LR_FN = None  # (hyp, epoch, batch_idx, step) -> lr
@@ -369,19 +371,19 @@ class _EpochSampler(_Inference):
     def step_program(self) -> str:
         """``"graph"`` or ``"eager"``: how the next epoch runs (class
         docstring)."""
-        if self._streamed or self.mesh is not None or self._has_dropout:
-            return "eager"
-        return "graph"
+        return "eager" if self.mesh is not None else "graph"
 
     def epoch_program(self):
-        """The ``engine.make_epoch_fn`` program of the resident epochs (None
-        when ``step_program`` is ``"eager"``), built on first use and
-        rebuilt when ``_state``, ``_hyp`` or the chain strategy is a new one."""
+        """The ``engine.make_epoch_fn`` program of the epochs, resident or
+        streamed (None when ``step_program`` is ``"eager"``), built on
+        first use and rebuilt when ``_state``, ``_hyp`` or the chain
+        strategy is a new one, or the split no longer fits it."""
         if self.step_program != "graph":
             return None
         prog, split = self._program, self.train
         if (prog is None or prog.state is not self._state or prog.hyp is not self._hyp
-                or prog.chain_strategy != self._resolved_chain_strategy):
+                or prog.chain_strategy != self._resolved_chain_strategy
+                or not prog.fits(split)):
             self._program = make_epoch_fn(
                 self._state, split, self._images, self._labels, hyp=self._hyp,
                 noise_on=self._noise_gate, lr_fn=self._LR_FN, update_fn=self._UPDATE_FN,
@@ -394,7 +396,7 @@ class _EpochSampler(_Inference):
         if noise_on is not None:
             self._noise_gate.fill_(1.0 if noise_on else 0.0)
         split = self.train
-        if self._streamed:  # stream_steps refuses a sweep's K rows
+        if self._streamed:  # one chain: a streamed epoch refuses a sweep's K rows
             shape = (1, split.num_batches, split.batch_size)
         else:
             idx = torch.stack([epoch_indices(g, split.n, split.batch_size)
@@ -411,7 +413,8 @@ class _EpochSampler(_Inference):
                           ][self._dropout_rows] if self._has_dropout else None)
         program = self.epoch_program()
         if program is not None:
-            loss = program(idx, epoch=self.epochs_run, seeds=seeds, aug=aug)
+            loss = program(split if self._streamed else idx, epoch=self.epochs_run, seeds=seeds,
+                           aug=aug, dropout_seeds=dropout_seeds)
         else:
             kw = dict(epoch=self.epochs_run, noise_on=self._noise_gate, hyp=self._hyp,
                       lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds.tolist(),

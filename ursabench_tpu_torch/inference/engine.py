@@ -9,12 +9,17 @@ device buffers once an epoch, and one step, which reads them by a device
 counter, is captured once as a CUDA graph and replayed a batch at a time
 (on the CPU the same step runs eagerly). The step is gather -> normalize ->
 augment -> forward, cross entropy, backward -> learning rate -> parameter
-update. ``train_steps`` runs the same epoch step by step from Python
-(``train_step``, the step from normalize on): the path of models with
-active dropout and of device meshes; ``stream_steps`` runs ``train_step``
-over the batches a ``data.native.HostStreamingSplit`` streams from the
-host (the JAX package's ``run_streaming_epoch`` and its chunked epoch),
-where the stream's permutation takes the place of the batch plan.
+update; a model with dropout draws each step's keep masks into static
+buffers before the step, from the generators ``train_steps`` draws from.
+``make_streaming_step_fn`` and ``make_streaming_chunk_fn`` build the
+program of an epoch over the batches a ``data.native.HostStreamingSplit``
+streams from the host (the JAX package's ``run_streaming_epoch`` over its
+compiled step or chunk), where the stream's permutation takes the place of
+the batch plan: each transfer is copied into a static buffer and the one
+captured step replayed once for each of its batches. ``train_steps`` runs
+the resident epoch step by step from Python (``train_step``, the step
+from normalize on) and ``stream_steps`` the streamed one: the programs'
+plain versions, and the path of device meshes.
 
 C chains each have their own module (and so their own BatchNorm buffers),
 batch plan, crops, flips and dropout streams. Their parameters, momenta and
@@ -348,10 +353,16 @@ def _batch_loss(logits: torch.Tensor, y: torch.Tensor, shards: int) -> torch.Ten
     return F.cross_entropy(logits, y, reduction="sum") / (y.shape[0] * shards)
 
 
+_NO_DROPOUT_SEEDS = ("active Dropout without a generator: a model with dropout needs "
+                     "dropout_seeds")
+
+
 def _chains_loss_backward(state: TrainState, batches: Sequence[tuple], *, spec: ImageSpec,
-                          batch_idx, aug, dropout_seeds, mesh) -> torch.Tensor:
+                          batch_idx, aug, dropout_seeds, mesh, masks=None) -> torch.Tensor:
     """Each chain's forward, cross entropy and backward in turn (the
-    gradients added into ``state.grads``); returns the (C,) losses."""
+    gradients added into ``state.grads``); returns the (C,) losses. Chain
+    c's dropout draws from its generator for ``batch_idx`` or, with
+    ``masks``, takes ``masks[c]``, ``(layers, keep masks)`` drawn outside."""
     shards = _data_shards(mesh)
     losses = []
     for c, module in enumerate(state.modules):
@@ -361,9 +372,13 @@ def _chains_loss_backward(state: TrainState, batches: Sequence[tuple], *, spec: 
         if aug is not None:
             x = augment_normalized(x, spec, *aug[c])
         x = x.permute(0, 3, 1, 2).contiguous()
-        gen = (None if dropout_seeds is None
-               else _dropout_gen(x.device, dropout_seeds[c], batch_idx, mesh))
-        with dropout_generator(module, gen):
+        if masks is not None:
+            drop = dropout_masks(*masks[c])
+        else:
+            gen = (None if dropout_seeds is None
+                   else _dropout_gen(x.device, dropout_seeds[c], batch_idx, mesh))
+            drop = dropout_generator(module, gen)
+        with drop:
             loss = _batch_loss(module(x), y, shards)
         loss.backward()
         losses.append(loss.detach())
@@ -372,10 +387,12 @@ def _chains_loss_backward(state: TrainState, batches: Sequence[tuple], *, spec: 
 
 def _vmap_loss_backward(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                         idx: torch.Tensor, *, spec: ImageSpec, batch_idx, aug, dropout_seeds,
-                        mesh) -> torch.Tensor:
+                        mesh, masks=None) -> torch.Tensor:
     """Every chain's forward, cross entropy and backward as one batched
     pass (``ChainForward``), the BatchNorm statistics folded after it;
-    returns the (C,) losses."""
+    returns the (C,) losses. Dropout draws from the chains' generators for
+    ``batch_idx`` or, with ``masks``, takes ``(layers, (C, *shape) keep
+    masks)`` drawn outside."""
     chains, bsz = idx.shape
     fwd, leaves, bns = state.batched()
     flat = idx.reshape(-1)
@@ -386,15 +403,16 @@ def _vmap_loss_backward(state: TrainState, images: torch.Tensor, labels: torch.T
         x = augment_normalized(x, spec, *(None if a is None else a.reshape(-1) for a in aug))
     x = x.permute(0, 3, 1, 2).contiguous()
     x = x.view((chains, bsz) + tuple(x.shape[1:]))
-    layers, masks = (), ()
-    if dropout_layers(fwd.module):
+    layers, keep, batched = (), (), chains > 1
+    if masks is not None:
+        (layers, keep), batched = masks, True
+    elif dropout_layers(fwd.module):
         if dropout_seeds is None:
-            raise RuntimeError("active Dropout without a generator: a model with dropout "
-                               "needs dropout_seeds")
-        layers, masks = fwd.masks(x[0], [_dropout_gen(x.device, s, batch_idx, mesh)
-                                         for s in dropout_seeds])
-    logits, stats = fwd(leaves, x, x_batched=True, layers=layers, masks=masks,
-                        masks_batched=chains > 1)
+            raise RuntimeError(_NO_DROPOUT_SEEDS)
+        layers, keep = fwd.masks(x[0], [_dropout_gen(x.device, s, batch_idx, mesh)
+                                        for s in dropout_seeds])
+    logits, stats = fwd(leaves, x, x_batched=True, layers=layers, masks=keep,
+                        masks_batched=batched)
     ce = F.cross_entropy(logits.reshape(chains * bsz, -1), y, reduction="none").view(chains, bsz)
     shards = _data_shards(mesh)
     losses = ce.mean(1) if shards == 1 else ce.sum(1) / (bsz * shards)
@@ -552,6 +570,13 @@ def _aug_at(aug: Optional[tuple], chains: int, bi: int) -> Optional[list]:
     return [tuple(None if a is None else a[c, bi] for a in aug) for c in range(chains)]
 
 
+def _per_chain(aug: Optional[tuple], chains: int) -> Optional[list]:
+    """Each chain's ``(ox, oy, flip)`` of one batch, from (C, batch) draws."""
+    if aug is None:
+        return None
+    return [tuple(None if a is None else a[c] for a in aug) for c in range(chains)]
+
+
 # eager steps a program runs before it captures its step on the card: cuDNN,
 # cuBLAS and autograd make their handles and workspaces there, the
 # normalization constants and K1's library are built, and the capture then
@@ -648,45 +673,61 @@ class _Captured:
         self.captures += 1
 
 
-class _EpochProgram(_Captured):
-    """One sampler's resident epoch as one program (``make_epoch_fn``'s):
-    built once for a ``TrainState``, its hyperparameter
-    tensors and its noise gate, which it reads in place, and called once an
-    epoch with that epoch's draws.
+class _ChainMasks:
+    """The keep masks of a training program's active dropout calls, probed
+    once when the program is built (``dropout_calls`` of each chain's
+    train-mode forward on one batch): one static (C, *shape) buffer a call,
+    row c chain c's. ``draw`` fills them before a step from each chain's
+    generator for the batch, layer after layer, as ``train_step`` draws
+    them (``_dropout_gen``); ``per_chain[c]`` binds chain c's layers to its
+    rows (``dropout_masks``, the scan step), ``batched`` chain 0's layers to
+    the whole buffers (the vmap step). Empty without active dropout."""
 
-    A call copies the batch plan (C, num_batches, batch), the crops and
-    flips shaped like it, the steps' noise seeds and the epoch into static
-    buffers, resets the in-epoch batch counter and sets the global step
-    counter from ``state.step``; then it runs the step once a batch
-    (``_Captured``: replays of one capture on the card). The step
-    reads row i of the plan and of the crops and flips by the device
-    counter, gathers, normalizes, augments and permutes to NCHW, runs the
-    forward, cross entropy and backward (each chain in turn, or every chain
-    as one batched pass under ``"vmap"``), computes the learning rate from
-    the epoch, batch and step counters and sets the first-step flag from the
-    global one on the device, launches the update (K1 reads its seed,
-    ``seeds[i]``, from device memory), writes the losses into row i of a
-    (num_batches, C) buffer and advances both counters. Nothing in it reads
-    the host or copies from it.
+    def __init__(self, modules: Sequence[nn.Module], spec: ImageSpec, batch_size: int,
+                 device: torch.device):
+        self.device = device
+        self.calls = [_dropout_probe(m, spec, batch_size, training=True) for m in modules]
+        self.masks = [torch.zeros((len(modules),) + shape, dtype=torch.bool, device=device)
+                      for _, shape in self.calls[0]]
+        self.per_chain = [([layer for layer, _ in calls], [m[c] for m in self.masks])
+                          for c, calls in enumerate(self.calls)]
+        self.batched = self.per_chain[0][0], self.masks
 
-    The hyperparameters, the noise gate and ``state``'s buffers are read
-    where they are, so ``update_hyp``, the gate and an in-place checkpoint
-    restore change what the next replay computes without a new capture;
-    a new ``TrainState`` or hyperparameter dict needs a new program."""
+    def draw(self, seeds: Sequence[int], batch_idx: int) -> None:
+        for c, calls in enumerate(self.calls):
+            _draw_into([m[c] for m in self.masks], calls,
+                       _dropout_gen(self.device, seeds[c], batch_idx, None))
 
-    def __init__(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor, *,
-                 spec: ImageSpec, num_batches: int, batch_size: int, hyp: dict,
-                 noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn,
-                 chain_strategy: Optional[str] = None):
+
+class _TrainProgram(_Captured):
+    """What the resident and the streamed epoch programs share: one
+    ``TrainState``, its hyperparameter tensors and its noise gate, read in
+    place, so ``update_hyp``, the gate and an in-place checkpoint restore
+    change what the next replay computes without a new capture (a new
+    ``TrainState`` or hyperparameter dict needs a new program); static
+    buffers for an epoch's crops and flips ((C, num_batches, batch), None
+    where the spec draws none), its noise seeds and its epoch; device
+    counters for the batch in the epoch and the global step; a
+    (num_batches, C) loss buffer; and the dropout masks (``_ChainMasks``),
+    drawn before each step.
+
+    A call starts an epoch (``_begin``: the draws copied in, the counters
+    reset) and runs its steps (``_run``). The step ends in ``_update``: the
+    learning rate from the epoch, batch and step counters, the first-step
+    flag from the global one on the device, the update (K1 reads its seed,
+    ``seeds[i]``, from device memory), the losses into row i, both counters
+    advanced. Nothing in the step reads the host or copies from it."""
+
+    chain_strategy: Optional[str] = None
+
+    def __init__(self, state: TrainState, *, spec: ImageSpec, num_batches: int, batch_size: int,
+                 hyp: dict, noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn):
         device = state.params.device
         super().__init__(device)
         chains = len(state.modules)
         shape = (chains, num_batches, batch_size)
-        self.state, self.hyp, self.noise_on = state, hyp, noise_on
-        self.images, self.labels, self.spec = images, labels, spec
-        self.lr_fn, self.update_fn, self.chain_strategy = lr_fn, update_fn, chain_strategy
-        self.plan = torch.zeros(shape, dtype=torch.int64, device=device)
-        # (ox, oy, flip) buffers, None where the spec does not draw one
+        self.state, self.hyp, self.noise_on, self.spec = state, hyp, noise_on, spec
+        self.lr_fn, self.update_fn = lr_fn, update_fn
         crop = spec.random_crop_pad > 0
         self.aug = (tuple(torch.zeros(shape, dtype=dt, device=device) if on else None
                           for on, dt in ((crop, torch.int64), (crop, torch.int64),
@@ -697,18 +738,15 @@ class _EpochProgram(_Captured):
         self.batch = torch.zeros((), dtype=torch.int64, device=device)  # in the epoch
         self.step = torch.zeros((), dtype=torch.int64, device=device)  # global
         self.losses = torch.zeros((num_batches, chains), dtype=state.params.dtype, device=device)
+        self.dropout = _ChainMasks(state.modules, spec, batch_size, device)
+        self._dropout_seeds: Optional[Sequence[int]] = None
 
-    def __call__(self, idx: torch.Tensor, *, epoch: int, seeds, aug: Optional[tuple] = None
-                 ) -> torch.Tensor:
-        """One epoch of every chain, in place, from this epoch's draws (as
-        ``train_steps`` takes them: ``idx`` (C, num_batches, batch) or, for
-        one chain, (num_batches, batch); ``aug`` shaped like it; ``seeds``
-        the (num_batches,) int64 noise seeds, a tensor or a list). Returns the
-        mean training loss, a 0-dim tensor for one chain and (C,) for C, on
-        the device; advances ``state.step`` by the epoch's steps."""
-        state = self.state
-        chains, num_batches, _ = self.plan.shape
-        self.plan.copy_(idx.reshape(self.plan.shape))
+    def _begin(self, *, epoch: int, seeds, aug: Optional[tuple],
+               dropout_seeds: Optional[Sequence[int]]) -> None:
+        """An epoch's draws into the static buffers, the counters reset."""
+        if self.dropout.masks and dropout_seeds is None:
+            raise RuntimeError(_NO_DROPOUT_SEEDS)
+        self._dropout_seeds = dropout_seeds
         if self.aug is not None:
             for buf, a in zip(self.aug, aug):
                 if buf is not None:
@@ -719,12 +757,81 @@ class _EpochProgram(_Captured):
         self.seeds.copy_(seeds, non_blocking=True)
         self.epoch.fill_(float(epoch))
         self.batch.zero_()
-        self.step.fill_(state.step)
-        for m in state.modules:
+        self.step.fill_(self.state.step)
+        for m in self.state.modules:
             m.train()
-        for _ in range(num_batches):
-            self._advance()
-        state.step += num_batches
+
+    def _run(self, batch_idx: int) -> None:
+        """Step ``batch_idx`` of the epoch: its dropout masks drawn, then
+        the step (on the card a replay)."""
+        if self.dropout.masks:
+            self.dropout.draw(self._dropout_seeds, batch_idx)
+        self._advance()
+
+    def _step_aug(self, i: torch.Tensor) -> Optional[tuple]:
+        """The crops and flips of batch ``i`` (a device index): ``(ox, oy,
+        flip)``, (C, batch) each, or None."""
+        if self.aug is None:
+            return None
+        return tuple(None if a is None else a.index_select(1, i).squeeze(1) for a in self.aug)
+
+    def _update(self, losses: torch.Tensor, i: torch.Tensor) -> None:
+        state = self.state
+        lr = self.lr_fn(self.hyp, self.epoch, self.batch, self.step)
+        self.update_fn(state, self.hyp, lr=lr, noise_on=self.noise_on,
+                       is_first_step=self.step == 0, seed=self.seeds.index_select(0, i))
+        self.losses.index_copy_(0, i, losses.to(self.losses.dtype)[None])
+        self.batch.add_(1)
+        self.step.add_(1)
+
+
+class _EpochProgram(_TrainProgram):
+    """One sampler's resident epoch as one program (``make_epoch_fn``'s),
+    called once an epoch with that epoch's draws.
+
+    A call copies the batch plan (C, num_batches, batch), the crops and
+    flips shaped like it, the steps' noise seeds and the epoch into static
+    buffers, resets the in-epoch batch counter and sets the global step
+    counter from ``state.step``; then it runs the step once a batch
+    (``_Captured``: replays of one capture on the card), a model with
+    dropout drawing each chain's masks into static buffers before it. The
+    step reads row i of the plan and of the crops and flips by the device
+    counter, gathers, normalizes, augments and permutes to NCHW, runs the
+    forward, cross entropy and backward (each chain in turn, or every chain
+    as one batched pass under ``"vmap"``) with the masks bound, and ends in
+    the update (``_TrainProgram``)."""
+
+    def __init__(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor, *,
+                 spec: ImageSpec, num_batches: int, batch_size: int, hyp: dict,
+                 noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn,
+                 chain_strategy: Optional[str] = None):
+        super().__init__(state, spec=spec, num_batches=num_batches, batch_size=batch_size,
+                         hyp=hyp, noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn)
+        self.images, self.labels, self.chain_strategy = images, labels, chain_strategy
+        self.plan = torch.zeros((len(state.modules), num_batches, batch_size), dtype=torch.int64,
+                                device=self.device)
+
+    def fits(self, split) -> bool:
+        """Whether ``split``'s epochs take this program (its batches and spec)."""
+        return (self.plan.shape[1:] == (split.num_batches, split.batch_size)
+                and self.spec == split.spec)
+
+    def __call__(self, idx: torch.Tensor, *, epoch: int, seeds, aug: Optional[tuple] = None,
+                 dropout_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """One epoch of every chain, in place, from this epoch's draws (as
+        ``train_steps`` takes them: ``idx`` (C, num_batches, batch) or, for
+        one chain, (num_batches, batch); ``aug`` shaped like it; ``seeds``
+        the (num_batches,) int64 noise seeds, a tensor or a list;
+        ``dropout_seeds[c]`` chain c's dropout seed, needed by a model with
+        dropout only). Returns the mean training loss, a 0-dim tensor for
+        one chain and (C,) for C, on the device; advances ``state.step`` by
+        the epoch's steps."""
+        chains, num_batches, _ = self.plan.shape
+        self.plan.copy_(idx.reshape(self.plan.shape))
+        self._begin(epoch=epoch, seeds=seeds, aug=aug, dropout_seeds=dropout_seeds)
+        for i in range(num_batches):
+            self._run(i)
+        self.state.step += num_batches
         mean = self.losses.mean(0)
         return mean[0] if chains == 1 else mean
 
@@ -735,39 +842,158 @@ class _EpochProgram(_Captured):
         state.grads.zero_()
         i = self.batch.view(1)
         rows = self.plan.index_select(1, i).squeeze(1)  # (C, batch)
-        aug = (None if self.aug is None else
-               tuple(None if a is None else a.index_select(1, i).squeeze(1) for a in self.aug))
+        aug = self._step_aug(i)
         kw = dict(spec=self.spec, batch_idx=None, dropout_seeds=None, mesh=None)
         if self.chain_strategy == "vmap":
-            losses = _vmap_loss_backward(state, self.images, self.labels, rows, aug=aug, **kw)
+            losses = _vmap_loss_backward(state, self.images, self.labels, rows, aug=aug,
+                                         masks=self.dropout.batched, **kw)
         else:
             batches = [(self.images.index_select(0, r), self.labels.index_select(0, r))
                        for r in rows]
-            per_chain = (None if aug is None else
-                         [tuple(None if a is None else a[c] for a in aug)
-                          for c in range(len(batches))])
-            losses = _chains_loss_backward(state, batches, aug=per_chain, **kw)
-        lr = self.lr_fn(self.hyp, self.epoch, self.batch, self.step)
-        self.update_fn(state, self.hyp, lr=lr, noise_on=self.noise_on,
-                       is_first_step=self.step == 0, seed=self.seeds.index_select(0, i))
-        self.losses.index_copy_(0, i, losses.to(self.losses.dtype)[None])
-        self.batch.add_(1)
-        self.step.add_(1)
+            losses = _chains_loss_backward(state, batches, aug=_per_chain(aug, len(batches)),
+                                           masks=self.dropout.per_chain, **kw)
+        self._update(losses, i)
 
 
-def make_epoch_fn(state: TrainState, split, images: torch.Tensor, labels: torch.Tensor, *,
-                  hyp: dict, noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn,
-                  chain_strategy: Optional[str] = None) -> _EpochProgram:
+def make_epoch_fn(state: TrainState, split, images: Optional[torch.Tensor] = None,
+                  labels: Optional[torch.Tensor] = None, *, hyp: dict, noise_on: torch.Tensor,
+                  lr_fn: LrFn, update_fn: UpdateFn,
+                  chain_strategy: Optional[str] = None) -> _TrainProgram:
     """The epoch program (the JAX package's ``make_epoch_fn``) of
-    ``state``'s chains over a resident ``split`` whose ``images`` and
-    ``labels`` lie on their device: one chain, or C chains in turn or, with
+    ``state``'s chains: over a resident ``split`` whose ``images`` and
+    ``labels`` lie on their device, one chain, or C chains in turn or, with
     ``chain_strategy`` ``"vmap"``, batched, in the split's batches and with
-    the crops and flips its spec draws. Models with active dropout and
-    device meshes take ``train_steps`` instead."""
+    the crops and flips its spec draws; a split with ``epoch`` (a
+    ``data.native.HostStreamingSplit``) goes to ``make_streaming_step_fn``
+    or, with M > 1 batches a transfer, ``make_streaming_chunk_fn``. Device
+    meshes take ``train_steps`` and ``stream_steps`` instead."""
+    if hasattr(split, "epoch"):
+        maker = make_streaming_chunk_fn if split.chunk_batches > 1 else make_streaming_step_fn
+        return maker(state, split, hyp=hyp, noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn)
     return _EpochProgram(state, images, labels, spec=split.spec,
                          num_batches=split.num_batches, batch_size=split.batch_size, hyp=hyp,
                          noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn,
                          chain_strategy=chain_strategy)
+
+
+# transfers the host may queue ahead of the card in a streamed program: each
+# holds a device copy of its batches until the card has read it
+STREAM_AHEAD = 2
+
+
+def _transfer_layout(split) -> tuple:
+    """``(shape, dtype, num_batches)`` of a streamed split's transfers: (M,
+    batch, H, W, C) uint8 or float32, and the batches of an epoch."""
+    shape = (split.chunk_batches, split.local_batch) + tuple(split.images.shape[1:])
+    dtype = torch.uint8 if split.transfer_dtype == "uint8" else torch.float32
+    return shape, dtype, split.num_batches
+
+
+class _StreamProgram(_TrainProgram):
+    """``make_streaming_step_fn``'s and ``make_streaming_chunk_fn``'s
+    program: one chain's epoch over the transfers of a host stream, M
+    batches a transfer (M = 1: a batch), built for a ``TrainState``, its
+    hyperparameter tensors and its noise gate, and a transfer layout
+    (``_transfer_layout``); the split itself is taken at each call.
+
+    A call copies the epoch's crops and flips ((1, num_batches, batch)),
+    noise seeds and epoch into static buffers and resets the counters
+    (``_TrainProgram``); then, for each transfer the split's ``epoch``
+    yields on the card, it copies the transfer into a static (M, batch, H,
+    W, C) buffer and its labels into an (M, batch) one, on the current
+    stream (which the stream has made wait for its copy), and runs M steps,
+    a model with dropout drawing its masks before each. The step is
+    ``stream_steps``' ``train_step``, its inputs read from the device: row
+    ``i % M`` of the transfer, for the epoch's batch counter i, normalized
+    on the device (uint8) or taken as it is (float32), row i of the crops
+    and flips; forward, cross entropy and backward with the masks bound;
+    then the update (``_TrainProgram``). One step is captured and replayed
+    M times a transfer, whatever M. The host runs at most ``STREAM_AHEAD``
+    transfers ahead of the card. The epoch's loss is the mean of the
+    transfers' mean losses, reduced as ``stream_steps`` reduces it."""
+
+    def __init__(self, state: TrainState, split, *, hyp: dict, noise_on: torch.Tensor,
+                 lr_fn: LrFn, update_fn: UpdateFn):
+        if len(state.modules) != 1:
+            raise ValueError("host-streaming epochs are single-chain")
+        self.layout = _transfer_layout(split)
+        shape, dtype, num_batches = self.layout
+        super().__init__(state, spec=split.spec, num_batches=num_batches, batch_size=shape[1],
+                         hyp=hyp, noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn)
+        self.x = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.y = torch.zeros(shape[:2], dtype=torch.int64, device=self.device)
+
+    def fits(self, split) -> bool:
+        """Whether ``split``'s transfers take this program (their layout and
+        the spec)."""
+        return _transfer_layout(split) == self.layout and self.spec == split.spec
+
+    def __call__(self, split, *, epoch: int, seeds, aug: Optional[tuple] = None,
+                 dropout_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """One epoch over the transfers ``split`` streams, in place (the
+        draws as ``stream_steps`` takes them); returns the mean training
+        loss, a 0-dim device tensor, and advances ``state.step`` by the
+        epoch's steps."""
+        if not self.fits(split):
+            raise ValueError(f"the stream's transfers {_transfer_layout(split)} are not the "
+                             f"program's {self.layout}")
+        self._begin(epoch=epoch, seeds=seeds, aug=aug, dropout_seeds=dropout_seeds)
+        m = self.x.shape[0]
+        queued: list = []  # each transfer's end on the card
+        chunks = 0
+        for x, y in split.epoch(self.device):
+            self.x.copy_(x.view(self.x.shape))
+            self.y.copy_(y.view(self.y.shape))
+            for j in range(m):
+                self._run(chunks * m + j)
+            chunks += 1
+            if self._side is not None:
+                queued.append(torch.cuda.Event())
+                queued[-1].record()
+                if len(queued) > STREAM_AHEAD:
+                    queued.pop(0).synchronize()
+        if not chunks:
+            raise ValueError(f"the stream has {split.n} samples, fewer than one transfer "
+                             f"({split.batch_size} x {m})")
+        self.state.step += chunks * m
+        chunk_means = [losses.mean(0) for losses in self.losses.view(chunks, m, 1)]
+        return torch.stack(chunk_means).mean(0)[0]
+
+    def _step(self) -> None:
+        """The step that the graph captures; every input is read from the
+        device."""
+        self.state.grads.zero_()
+        i = self.batch.view(1)
+        row = torch.remainder(i, self.x.shape[0])
+        batch = (self.x.index_select(0, row).squeeze(0), self.y.index_select(0, row).squeeze(0))
+        losses = _chains_loss_backward(
+            self.state, [batch], spec=self.spec, batch_idx=None,
+            aug=_per_chain(self._step_aug(i), 1), dropout_seeds=None, mesh=None,
+            masks=self.dropout.per_chain)
+        self._update(losses, i)
+
+
+def make_streaming_step_fn(state: TrainState, split, *, hyp: dict, noise_on: torch.Tensor,
+                           lr_fn: LrFn, update_fn: UpdateFn) -> _StreamProgram:
+    """The streamed epoch of one chain over a ``HostStreamingSplit`` that
+    moves a batch a transfer, as one program (the JAX package's
+    ``make_streaming_step_fn``, one compiled step a batch, with its
+    ``run_streaming_epoch``): ``fn(split, epoch=, seeds=, aug=,
+    dropout_seeds=)`` runs an epoch as ``stream_steps`` does."""
+    if split.chunk_batches != 1:
+        raise ValueError(f"{split.chunk_batches} batches a transfer: use make_streaming_chunk_fn")
+    return _StreamProgram(state, split, hyp=hyp, noise_on=noise_on, lr_fn=lr_fn,
+                          update_fn=update_fn)
+
+
+def make_streaming_chunk_fn(state: TrainState, split, *, hyp: dict, noise_on: torch.Tensor,
+                            lr_fn: LrFn, update_fn: UpdateFn) -> _StreamProgram:
+    """The chunked streamed epoch (the JAX package's
+    ``make_streaming_chunk_fn``, one compiled scan over a staged chunk of M
+    batches): the same program as ``make_streaming_step_fn``'s, its one
+    captured step replayed M times a transfer."""
+    return _StreamProgram(state, split, hyp=hyp, noise_on=noise_on, lr_fn=lr_fn,
+                          update_fn=update_fn)
 
 
 def stream_steps(
@@ -786,7 +1012,9 @@ def stream_steps(
 ) -> torch.Tensor:
     """One epoch of ``train_step`` over the batches a ``HostStreamingSplit``
     streams to the device of ``state`` (one chain), in place; returns the
-    mean training loss, a 0-dim device tensor. A chunk of M batches trains
+    mean training loss, a 0-dim device tensor: the plain version of the
+    streamed programs (``make_streaming_step_fn``), and the streamed epoch
+    of a device mesh. A chunk of M batches trains
     its M steps in turn, batch ``chunk_idx * M + j``, and the epoch's loss
     is the mean of the chunks' mean losses (the JAX package's chunked
     epoch; with M = 1, the mean of the batches'). ``aug`` and ``seeds``
@@ -924,20 +1152,27 @@ def eval_loss(module: nn.Module, split, *, state: Optional[StateDict] = None,
     return total / split.n
 
 
-def _probe_dropout(module: nn.Module, split, training: bool):
-    """``(calls, masks)``: ``dropout_calls``' ``[(layer, shape)]`` of a
-    forward of ``module`` in ``training`` mode on a batch of ``split``, and
-    a static keep-mask buffer for each (none without active dropout)."""
+def _dropout_probe(module: nn.Module, spec: ImageSpec, batch_size: int, training: bool) -> list:
+    """``dropout_calls``' ``[(layer, shape)]`` of a forward of ``module`` in
+    ``training`` mode on a batch of ``batch_size`` images of ``spec`` (none
+    without active dropout)."""
     if not dropout_layers(module):
-        return [], []
-    device = next(module.parameters()).device
-    h, w, c = split.spec.shape
+        return []
+    h, w, c = spec.shape
     was_training = module.training
     module.train(training)
     try:
-        calls = dropout_calls(module, torch.zeros((split.batch_size, c, h, w), device=device))
+        x = torch.zeros((batch_size, c, h, w), device=next(module.parameters()).device)
+        return dropout_calls(module, x)
     finally:
         module.train(was_training)
+
+
+def _probe_dropout(module: nn.Module, split, training: bool):
+    """``(calls, masks)``: ``_dropout_probe`` on a batch of ``split``, and a
+    static keep-mask buffer for each call."""
+    calls = _dropout_probe(module, split.spec, split.batch_size, training)
+    device = next(module.parameters()).device
     return calls, [torch.zeros(shape, dtype=torch.bool, device=device) for _, shape in calls]
 
 
