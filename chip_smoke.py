@@ -165,7 +165,17 @@ Phases, each ending with its seconds:
    temperature 5000, prior_std 2, rank 20) with the SWA phase cut from 160
    burn-in epochs and 140 iterates to 1 and 20, 2 chains, 3 draws: subspace
    rank 20, the SWA's BatchNorm buffers unchanged by every log-density
-   call, Prediction finite; bracket proposals and seconds a draw; (d) HMC
+   call, Prediction finite; bracket proposals and seconds a draw. In (a)-(c)
+   every potential and log density runs through its program
+   (engine.make_potential_fn): step_program "graph", each program captured
+   once across every draw (one a variant and row count: its capture ms and
+   pool printed); then each is graphed against its eager twin (the programs
+   hidden: the plain potentials) from one state and one set of draws under
+   deterministic cuDNN, bit-equal: 3 tuned MLP200MNIST draws from the warm
+   start, 2 PreResNet-20 x2 draws, one PCA-ESS WRN draw of both chains;
+   gradients/s or proposals/s, s a draw, the device's busy share of a draw
+   (of a density call for PCA-ESS) under torch.profiler, and the host's
+   median gap between replays inside a potential and between two; (d) HMC
    (checkpoint every 2 draws, killed after 4 of 6), SGLD (every epoch) and
    PCA-ESS on MLP200MNIST killed and resumed: each equal to its
    uninterrupted run within 1e-6 of its largest weight (the largest
@@ -217,8 +227,10 @@ Phases, each ending with its seconds:
    accepts and draws within 1e-4), PCA-ESS x4 chains on PreResNet-20 (a
    check draw in turn and in
    lock step from one state: the same brackets and points; s a draw,
-   proposals) and MethodSweep K=4 on PreResNet-20 (step-forwards/s); the
-   table printed, its JSON under smoke_out/chains/.
+   proposals), both through their potential programs with one capture a
+   program (PCA-ESS: one a lock-step row count), and MethodSweep K=4 on
+   PreResNet-20 (step-forwards/s); the table printed, its JSON under
+   smoke_out/chains/.
 The latency phase (6.) also runs TVResNet-50 / ImageNet, S=2, batch 1 and
 32, in the three precisions, bf16 under both member strategies and fp32 and
 int8 under the 'auto' rule's.
@@ -255,9 +267,9 @@ resumes); (d) three ranks sharing the card under ``torchrun --standalone``
 ranks 0-1 and rank 2 idles and writes nothing; rank 0's results within the
 runner's limits (rtol 2e-4, atol 1e-5; 2e-3 on the model-uncertainty
 AUROCs) of one process's; its JSON under smoke_out/mesh/.
-Every epoch sampler these phases run reports step_program by the rule
-(inference/base.py): "eager" for dropout models, streamed splits and
-meshes, else "graph".
+Every sampler these phases run reports step_program by the rule
+(inference/base.py): "eager" on a mesh, else "graph" (the epoch samplers'
+epochs, HMC's potentials and PCA-ESS's log densities as programs).
 Then a JSON line describing each kernel (its launches on the main path,
 K1's summed over the slice, graph vs eager, the ImageNet slice, the samplers, the
 experiment, the hypopt, the hmc_ess, the stream, the chains and the mesh
@@ -402,6 +414,11 @@ HE_CONV_TRAIN, HE_CONV_TEST, HE_CONV_CHAINS = 2048, 512, 2
 # phase's 160 burn-in epochs and 140 iterates cut to 1 and 20
 HE_PCA_CUT = {"swag_burn_in_epochs": 1, "num_swag_iterates": 20, "num_samples": 3}
 HE_PCA_CHAINS = 2
+# each run's potentials graphed against their eager twin (the programs hidden)
+# from one state and one set of draws under deterministic cuDNN: (a) HE_TWIN_DRAWS
+# tuned MLP200MNIST draws from the warm start, (b) HE_CONV_TWIN_DRAWS PreResNet-20
+# x2 draws, (c) one PCA-ESS WRN draw of both chains
+HE_TWIN_DRAWS, HE_CONV_TWIN_DRAWS = 3, 2
 # (d) kill and resume, MLP200MNIST on MNIST_TRAIN images
 HE_RESUME = {
     "HMC": ({"step_size": 2e-4, "num_samples": 6, "L": 3, "tau": 100.0, "burn": 0,
@@ -775,6 +792,9 @@ class _TimedGraph:
 
     def __init__(self, graph):
         self.graph, self.stamps = graph, []
+
+    def pool(self):
+        return self.graph.pool()
 
     def replay(self):
         self.stamps.append(time.perf_counter())
@@ -2534,12 +2554,132 @@ def _ce_sum_f64(module, theta, split, device) -> float:
     return float(total)
 
 
+def _program_stats(name, sampler) -> dict:
+    """``sampler``'s potential programs (HMC's or PCA-ESS's) after its
+    draws: step_program "graph", each program on the graph path, captured
+    once across every draw (one a variant and row count) once it ran past
+    its WARMUP_STEPS eager steps (a program that ran no more, such as the
+    first CE sums of a chain whose split is one batch, has no capture);
+    each one's captures, capture ms, pool MB and steps."""
+    from ursabench_tpu_torch.inference.engine import WARMUP_STEPS
+
+    progs = sampler._programs
+    check(sampler.step_program == "graph" and bool(progs)
+          and all(p.path == "graph" and p.captures == int(p.steps_run > WARMUP_STEPS)
+                  for p in progs.values()),
+          f"{name}: step_program {sampler.step_program}, programs (path, captures, steps) "
+          f"{ {k: (p.path, p.captures, p.steps_run) for k, p in progs.items()} }")
+    return {str(k): {"captures": p.captures, "capture_ms": p.capture_ms or 0.0,
+                     "pool_mb": (p.pool_bytes or 0) / 1e6, "replays": p.steps_run}
+            for k, p in progs.items()}
+
+
+def _program_line(stats: dict) -> str:
+    return "; ".join(f"{k} {v['captures']} capture ({v['capture_ms']:.1f} ms, a pool of "
+                     f"{v['pool_mb']:.1f} MB), {v['replays']} steps"
+                     for k, v in stats.items())
+
+
+def _gaps_us(stamps: list, per_call: int) -> dict:
+    """The host's median us between replays of one program whose calls
+    replay ``per_call`` times: inside a call and between two calls (the
+    eager work between two potentials, such as a leapfrog step)."""
+    gaps = [(b - a) * 1e6 for a, b in zip(stamps, stamps[1:])]
+    inside = sorted(g for i, g in enumerate(gaps) if (i + 1) % per_call)
+    between = sorted(g for i, g in enumerate(gaps) if not (i + 1) % per_call)
+    median = lambda v: v[len(v) // 2] if v else float("nan")  # noqa: E731
+    return {"inside_us": median(inside), "between_us": median(between)}
+
+
+def _profiled_busy(fn) -> float:
+    """The device's busy share (%) of the window of ``fn``'s kernels under
+    torch.profiler (``_busy``)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _busy(prof)[1]
+
+
+def _warm_hmc(h) -> None:
+    """An untimed draw of ``h``, then first CE sums until its CE-sum
+    program is captured too (a program captures at its fourth step, and
+    the first CE sums take one step a batch, once a chain under scan)."""
+    h.sample(num_samples=1)
+    ce = h.potential_program(False, h._resolved_chain_strategy == "vmap")
+    while ce.path == "graph" and not ce.captures:
+        h._initial_ce_sums(h._theta0.clone())
+
+
+def _hmc_twins(name, make, draws: int) -> dict:
+    """HMC graphed against its eager twin under deterministic cuDNN: two
+    samplers from ``make()`` (one seed and init), the second with its
+    programs hidden (the plain potentials, HMC's path before its programs),
+    ``draws`` draws each with the generator reseeded to one value; the
+    graphed one after ``_warm_hmc`` (both its programs captured), its
+    gradient program's replays stamped on the host clock. The ensembles and
+    accept rates must be equal bit for bit. Then one more draw of each
+    under torch.profiler: the device's busy share."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out, runs = {}, {}
+    try:
+        for path in ("graph", "eager"):
+            h = make()
+            if path == "eager":
+                h.potential_program = lambda grad, batched: None
+            else:
+                _warm_hmc(h)
+                prog = h.potential_program(True, h._resolved_chain_strategy == "vmap")
+                prog.graph = _TimedGraph(prog.graph)
+            h._gen.manual_seed(7)
+            ens, sec = _timed_sample(h, num_samples=draws)
+            if path == "graph":
+                stamps, prog.graph = prog.graph.stamps, prog.graph.graph
+                out["gap"] = _gaps_us(stamps, h._batches.shape[0])
+                out["programs"] = _program_stats(f"{name} twin", h)
+            theta = h._theta0.clone()
+            ll = h._initial_ce_sums(theta)
+            busy = _profiled_busy(lambda: h._draw(theta, ll))
+            grads = draws * h.chains * (h.L + 1)
+            runs[path] = ens, h.accept_rate
+            out[path] = {"s_per_draw": sec / draws, "grads_per_s": grads / sec,
+                         "busy_pct": busy}
+            del h
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (got, got_acc), (want, want_acc) = runs["graph"], runs["eager"]
+    diff = max(float((got.state[k].double() - v.double()).abs().max())
+               for k, v in want.state.items())
+    check(diff == 0.0 and got_acc == want_acc,
+          f"{name}: the graphed draws {diff:.3g} from the eager twin's (accept {got_acc} / "
+          f"{want_acc}), deterministic cuDNN")
+    out.update(max_abs_diff=diff, draws=draws,
+               ratio=out["graph"]["grads_per_s"] / out["eager"]["grads_per_s"])
+    return out
+
+
+def _twin_line(t: dict, unit: str = "full-batch gradients/s") -> str:
+    g, e = t["graph"], t["eager"]
+    rate = "grads_per_s" if "grads_per_s" in g else "proposals_per_s"
+    return (f"graphed vs eager twin, {t['draws']} draw(s) from one state and draws under "
+            f"deterministic cuDNN, bit-equal (largest difference {t['max_abs_diff']:.3g}): "
+            f"{g[rate]:.1f} against {e[rate]:.1f} {unit} ({t['ratio']:.2f}x), "
+            f"{g['s_per_draw']:.4f} against {e['s_per_draw']:.4f} s a draw, the device busy "
+            f"{g['busy_pct']:.1f}% against {e['busy_pct']:.1f}%; the host between replays "
+            f"{t['gap']['inside_us']:.1f} us inside a potential, {t['gap']['between_us']:.1f} "
+            f"between two (medians); programs: {_program_line(t['programs'])}")
+
+
 def hmc_tuned_run(device) -> dict:
     """(a) HMC on MLP200MNIST at the reference's tuned values over 60,000
-    synthetic MNIST images (float32, grad_batch 4096), TF32 allowed around it
-    (HMC turns it off in its potential): a cold start from the init, then
-    the cut chain from a 1-epoch SGD warm start, Prediction on its kept
-    draws, and its first draw's float32 log ratio against float64."""
+    synthetic MNIST images (float32, grad_batch 4096: 15 replays a
+    potential), TF32 allowed around it (HMC turns it off in its potential):
+    a cold start from the init, then the cut chain from a 1-epoch SGD warm
+    start, Prediction on its kept draws, and its first draw's float32 log
+    ratio against float64; both runs' potentials through their programs,
+    one capture each; then HE_TWIN_DRAWS draws from the warm start graphed
+    against the eager twin (``_hmc_twins``)."""
     from ursabench_tpu_torch import data, inference, models, time_script
 
     splits, c = data.loaders("MNIST", None, batch_size=BATCH, use_validation=False,
@@ -2604,13 +2744,24 @@ def hmc_tuned_run(device) -> dict:
     # for the record: the float32 model's own error in the data term
     ce64 = [_ce_sum_f64(hmc.module, t, splits["train"], device) for t in (theta, th)]
     ce_err = abs((float(ll_cur) - float(ll_new)) - (ce64[0] - ce64[1]))
+    programs = {"cold": _program_stats("HMC cold", cold), "warm": _program_stats("HMC", hmc)}
+    warm = hmc._theta0
+
+    def make():
+        h = inference.HMC({**tuned, "num_samples": HE_TWIN_DRAWS, "burn": 0}, model=build(),
+                          train=splits["train"], seed=0, device=device)
+        h._theta0 = warm.clone()
+        return h
+
+    twins = _hmc_twins("HMC MLP200MNIST", make, HE_TWIN_DRAWS)
     grads = HE_DRAWS * (hmc.L + 1)
     out = {"accept_rate": hmc.accept_rate, "cold_accept_rate": cold.accept_rate,
            "cold_log_ratios": cold_ratios, "sample_s": sample_s,
            "s_per_draw": sample_s / HE_DRAWS, "grads_per_s": grads / sample_s,
            "log_ratio": float(log_ratio), "log_ratio_f64": ratio64, "log_ratio_err": ratio_err,
            "ce_diff_err_vs_f64_model": ce_err, "metrics": metrics,
-           "warm_sgd_losses": [float(x) for x in sgd.epoch_losses]}
+           "warm_sgd_losses": [float(x) for x in sgd.epoch_losses],
+           "programs": programs, "twins": twins}
     print(f"  (a) HMC MLP200MNIST / MNIST {HE_MNIST_TRAIN}, tuned step {hmc.step_size:.4g}, "
           f"L {hmc.L}, tau {hmc.tau:g}, mass {hmc.mass:.4g}: cold start accept rate "
           f"{cold.accept_rate:.3f} over {HE_COLD_DRAWS} draws (log ratios "
@@ -2619,14 +2770,19 @@ def hmc_tuned_run(device) -> dict:
           f"{hmc.accept_rate:.3f}, {sample_s / HE_DRAWS:.4f} s/draw, {grads / sample_s:.1f} "
           f"full-batch gradients/s; first log ratio {float(log_ratio):.6f}, float64 "
           f"{ratio64:.6f} (|diff| {ratio_err:.3g}), CE-sum difference vs a float64 model "
-          f"{ce_err:.3g}; {ens.num_members} members: {json.dumps(metrics)}", flush=True)
+          f"{ce_err:.3g}; {ens.num_members} members: {json.dumps(metrics)}; step_program "
+          f"{hmc.step_program}, programs: {_program_line(programs['warm'])}", flush=True)
+    print(f"  (a) {_twin_line(twins)}", flush=True)
     return out
 
 
 def hmc_conv_run(device) -> dict:
-    """(b) HMC on PreResNet-20 at full width and depth, 2 chains, over 2,048
-    synthetic CIFAR-10 images: eval-mode BatchNorm and cuDNN convolutions in
-    the potential; members = kept draws x 2."""
+    """(b) HMC on PreResNet-20 at full width and depth, 2 chains (in turn:
+    "auto" picks scan), over 2,048 synthetic CIFAR-10 images: eval-mode
+    BatchNorm and cuDNN convolutions in the potential, one replay a
+    potential (grad_batch 4096 > 2,048); members = kept draws x 2; one
+    capture a program; then HE_CONV_TWIN_DRAWS draws graphed against the
+    eager twin (``_hmc_twins``)."""
     from ursabench_tpu_torch import data, inference, models
 
     cfg = models.get_model("PreResNet20")
@@ -2641,20 +2797,97 @@ def hmc_conv_run(device) -> dict:
     check(ens.num_members == kept * HE_CONV_CHAINS,
           f"HMC x{HE_CONV_CHAINS} chains: {ens.num_members} members, not {kept} x 2")
     metrics = _predict("HMC PreResNet-20", ens, splits["test"], c)
+    programs = _program_stats("HMC PreResNet-20", hmc)
+    accept = hmc.accept_rate
+    del hmc, ens  # its graphs' pools, before the twins capture theirs
+    twins = _hmc_twins("HMC PreResNet-20", lambda: inference.HMC(
+        {**HE_CONV_HYP, "num_samples": HE_CONV_TWIN_DRAWS}, model=cfg.build(c),
+        train=splits["train"], seed=1, device=device, chains=HE_CONV_CHAINS),
+        HE_CONV_TWIN_DRAWS)
     grads = HE_CONV_HYP["num_samples"] * HE_CONV_CHAINS * (HE_CONV_HYP["L"] + 1)
     print(f"  (b) HMC PreResNet-20 x{HE_CONV_CHAINS} chains, {HE_CONV_TRAIN} images, L "
-          f"{HE_CONV_HYP['L']}: {ens.num_members} members in {sample_s:.2f} s, "
-          f"{grads / sample_s:.1f} full-batch gradients/s, accept rate {hmc.accept_rate:.3f}; "
-          f"{json.dumps(metrics)}", flush=True)
-    return {"sample_s": sample_s, "members": ens.num_members, "accept_rate": hmc.accept_rate,
-            "grads_per_s": grads / sample_s, "metrics": metrics}
+          f"{HE_CONV_HYP['L']}: {kept * HE_CONV_CHAINS} members in {sample_s:.2f} s, "
+          f"{grads / sample_s:.1f} full-batch gradients/s, accept rate {accept:.3f}; "
+          f"{json.dumps(metrics)}; programs: {_program_line(programs)}", flush=True)
+    print(f"  (b) {_twin_line(twins)}", flush=True)
+    return {"sample_s": sample_s, "members": kept * HE_CONV_CHAINS, "accept_rate": accept,
+            "grads_per_s": grads / sample_s, "metrics": metrics, "programs": programs,
+            "twins": twins}
+
+
+def _pca_twin(pca) -> dict:
+    """One draw of ``pca``'s chains from its current state graphed against
+    its eager twin under deterministic cuDNN: density programs captured in
+    that mode (by a warm-up draw from the same state), then the draw
+    through them, its programs' replays stamped on the host clock, then
+    with them hidden (the plain densities), each from the same state and
+    streams: the points, log densities and bracket counts bit for bit;
+    seconds and proposals/s of each, and the busy share of one density call
+    of each. The sampler's own programs, state and bracket record are put
+    back after."""
+    gens = [g.get_state() for g in pca._gens]
+    theta, lp, done = pca.current_theta.clone(), pca.current_lnpdf.clone(), len(pca.bracket_iters)
+    kept, deterministic = pca._programs, torch.backends.cudnn.deterministic
+
+    def restore():
+        for g, st in zip(pca._gens, gens):
+            g.set_state(st)
+        pca.current_theta, pca.current_lnpdf = theta.clone(), lp.clone()
+
+    out, runs = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        pca._programs = {}
+        restore()
+        pca.sample_iterative(update_bn=False)  # the programs' warm-up steps and captures
+        for path in ("graph", "eager"):
+            restore()
+            if path == "eager":
+                pca.density_program = lambda rows: None
+            else:
+                timed = {k: _TimedGraph(p.graph) for k, p in pca._programs.items()}
+                for k, p in pca._programs.items():
+                    p.graph = timed[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pca.sample_iterative(update_bn=False)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            if path == "graph":
+                for k, p in pca._programs.items():
+                    p.graph = timed[k].graph
+                out["gap"] = _gaps_us(timed[None].stamps, pca._batches.shape[0])
+            props = sum(pca.bracket_iters[-1])
+            runs[path] = (pca.current_theta.clone(), pca.current_lnpdf.clone(),
+                          pca.bracket_iters[-1])
+            out[path] = {"s_per_draw": sec, "proposals": props, "proposals_per_s": props / sec}
+        del pca.density_program
+        out["graph"]["busy_pct"] = _profiled_busy(lambda: pca.lnpdf(theta[0]))
+        out["eager"]["busy_pct"] = _profiled_busy(lambda: pca._plain_lnpdf(theta[0]))
+        out["programs"] = _program_stats("PCA-ESS twin", pca)
+    finally:
+        pca.__dict__.pop("density_program", None)
+        torch.backends.cudnn.deterministic = deterministic
+        pca._programs = kept
+        restore()
+        del pca.bracket_iters[done:]
+    (gt, gl, gi), (et, el, ei) = runs["graph"], runs["eager"]
+    diff = max(float((gt - et).abs().max()), float((gl - el).abs().max()))
+    check(diff == 0.0 and gi == ei,
+          f"PCA-ESS: the graphed draw {diff:.3g} from the eager twin's, brackets {gi} / {ei}, "
+          "deterministic cuDNN")
+    out.update(max_abs_diff=diff, draws=1, brackets=gi,
+               ratio=out["graph"]["proposals_per_s"] / out["eager"]["proposals_per_s"])
+    return out
 
 
 def pca_wrn_run(device) -> dict:
     """(c) The PCA-subspace ESS sampler on WideResNet-28x10 bf16 at full
     width and depth over the samplers phase's synthetic CIFAR-100 cut, 2
-    chains, 3 draws: the SWA's trained BatchNorm buffers untouched by every
-    log-density call, Prediction finite."""
+    chains (in turn: "auto" picks scan), 3 draws: the SWA's trained
+    BatchNorm buffers untouched by every log-density call, every density
+    through its program (one capture across the draws), Prediction finite;
+    then one draw graphed against the eager twin (``_pca_twin``)."""
     from ursabench_tpu_torch import data, inference, models, time_script
     from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN
 
@@ -2698,15 +2931,19 @@ def pca_wrn_run(device) -> dict:
         check(bool(torch.isfinite(t).all()), f"PCA-ESS: non-finite ensemble entry {k}")
     metrics = _predict("PCA-ESS", ens, splits["test"], c)
     ess_s = sample_s - state["swa_s"]
+    programs, calls = _program_stats("PCA-ESS", pca), state["calls"]
+    twin = _pca_twin(pca)
     out = {"rank": pca.subspace.rank, "bracket_iters": pca.bracket_iters,
-           "lnpdf_calls": state["calls"], "sample_s": sample_s, "swa_s": state["swa_s"],
-           "ess_s_per_draw": ess_s / draws, "metrics": metrics}
+           "lnpdf_calls": calls, "sample_s": sample_s, "swa_s": state["swa_s"],
+           "ess_s_per_draw": ess_s / draws, "metrics": metrics, "programs": programs,
+           "twin": twin}
     print(f"  (c) PCA-ESS WRN-28x10 bf16 x{HE_PCA_CHAINS} chains: SWA {pca.swa.epochs_run} "
           f"epochs in {state['swa_s']:.2f} s, subspace rank {pca.subspace.rank}; {draws} draws: "
-          f"bracket proposals per draw and chain {pca.bracket_iters}, {state['calls']} "
+          f"bracket proposals per draw and chain {pca.bracket_iters}, {calls} "
           f"full-data log densities, {ess_s / draws:.2f} s a draw (both chains, the last with "
-          f"its BatchNorm refresh); SWA's BatchNorm buffers unchanged; {json.dumps(metrics)}",
-          flush=True)
+          f"its BatchNorm refresh); SWA's BatchNorm buffers unchanged; {json.dumps(metrics)}; "
+          f"programs: {_program_line(programs)}", flush=True)
+    print(f"  (c) {_twin_line(twin, 'proposals/s')} (brackets {twin['brackets']})", flush=True)
     return out
 
 
@@ -3447,8 +3684,11 @@ def _ch_model(device, name, dataset, n, dtype, counts, launches: list) -> list:
 
 def _ch_hmc(device) -> dict:
     """HMC x CH_ROWS chains on MLP200MNIST over 10,240 images, in the turns
-    CH_ORDER from the same seed: gradients/s, s a draw, the accept rate;
-    vmap's draws against scan's (the same accepts)."""
+    CH_ORDER from the same seed after ``_warm_hmc`` (the captures, untimed):
+    gradients/s, s a draw, the accept rate;
+    vmap's draws against scan's (the same accepts); each strategy's
+    potentials through its programs (the chains in turn share one; one
+    batched program under vmap), one capture each."""
     from ursabench_tpu_torch import inference, models
 
     split, c = _ch_split("MLP200MNIST", "MNIST", 10240)
@@ -3456,6 +3696,8 @@ def _ch_hmc(device) -> dict:
                              train=split, seed=1, device=device, chains=CH_ROWS,
                              chain_strategy=k) for k in ("scan", "vmap")}
     secs, runs = {"scan": [], "vmap": []}, {}
+    for h in hmcs.values():
+        _warm_hmc(h)
     for k in CH_ORDER:
         hmcs[k]._gen.manual_seed(7)  # every run draws the same momenta and uniforms
         ens, sec = _timed_sample(hmcs[k])
@@ -3469,14 +3711,17 @@ def _ch_hmc(device) -> dict:
           f"{worst:.3g} apart")
     return {"grads_per_s": {k: [grads / v for v in secs[k]] for k in secs},
             "s_per_draw": {k: [v / CH_HMC["num_samples"] for v in secs[k]] for k in secs},
-            "accept_rate": runs["scan"][1], "rel_diff": worst}
+            "accept_rate": runs["scan"][1], "rel_diff": worst,
+            "programs": {k: _program_stats(f"chains: HMC {k}", h) for k, h in hmcs.items()}}
 
 
 def _ch_pca(device) -> dict:
     """PCA-ESS x CH_ROWS chains on PreResNet-20 over 2,048 images: the SWA
     phase and a first draw, then one check draw in turn and in lock step from
     the same state and streams (the same points and bracket counts), then
-    draws timed in the turns CH_ORDER (in turn, lock step)."""
+    draws timed in the turns CH_ORDER (in turn, lock step); every density
+    through its program, one capture each across the draws (``lnpdf``'s and
+    one a row count of ``lnpdf_chains``)."""
     from ursabench_tpu_torch import inference, models
 
     split, c = _ch_split("PreResNet20", "CIFAR10", 2048)
@@ -3508,7 +3753,7 @@ def _ch_pca(device) -> dict:
         secs[k].append(time.perf_counter() - t0)
         props[k].append(pca.bracket_iters[-1])
     return {"s_per_draw": secs, "proposals": props, "check_brackets": check_draw["scan"][1],
-            "rel_diff": worst}
+            "rel_diff": worst, "programs": _program_stats("chains: PCA-ESS", pca)}
 
 
 def _ch_sweep(device, launches: list) -> dict:
@@ -3587,13 +3832,15 @@ def chains_phase(device) -> dict:
     print(f"    HMC MLP200MNIST x{CH_ROWS} chains, 10,240 images, L {CH_HMC['L']}: gradients/s "
           f"scan {fmt(h['grads_per_s']['scan'])}, vmap {fmt(h['grads_per_s']['vmap'])}; s a "
           f"draw scan {fmt(h['s_per_draw']['scan'], 4)}, vmap {fmt(h['s_per_draw']['vmap'], 4)}; "
-          f"accept rate {h['accept_rate']:.3f} (both); draws {h['rel_diff']:.2e} apart",
+          f"accept rate {h['accept_rate']:.3f} (both); draws {h['rel_diff']:.2e} apart; "
+          f"programs: " + "; ".join(f"{k} {_program_line(v)}" for k, v in h["programs"].items()),
           flush=True)
     print(f"    PCA-ESS PreResNet-20 x{CH_ROWS} chains, 2,048 images: s a draw in turn "
           f"{fmt(p['s_per_draw']['scan'], 3)}, lock step {fmt(p['s_per_draw']['vmap'], 3)}; "
           f"proposals a draw by chain {p['proposals']['scan']} / {p['proposals']['vmap']}; "
           f"check draw: brackets {p['check_brackets']} in both, points {p['rel_diff']:.2e} "
-          "apart", flush=True)
+          f"apart; programs by row count (None: lnpdf): {_program_line(p['programs'])}",
+          flush=True)
     print(f"    MethodSweep SGHMC K={CH_ROWS} PreResNet-20, 2,048 images: step-forwards/s scan "
           f"{fmt(w['step_forwards_per_s']['scan'])}, vmap {fmt(w['step_forwards_per_s']['vmap'])}"
           f"; K1 {out['launches']} launches, one a step in every epoch", flush=True)

@@ -300,7 +300,12 @@ class _EpochSampler(_Inference):
     is a new object (a sweep's) or the split's batches no longer fit it (a
     stream of another transfer layout); update_hyp, the noise gate, a
     second ``sample()``, a checkpoint restore and a stream of the same
-    layout in place of the split keep it."""
+    layout in place of the split keep it. The full-batch samplers, which
+    run no epochs, follow the same rule for their potentials: HMC's
+    ``step_program`` and the PCA subspace sampler's are ``"graph"`` off a
+    mesh, where every CE sum, gradient and log density runs through
+    ``engine.make_potential_fn``'s programs, and ``"eager"`` on one, where
+    they run their plain versions with the mesh's all-reduces."""
 
     _HYP_KEYS: tuple = ()
     _LR_FN = None  # (hyp, epoch, batch_idx, step) -> lr

@@ -68,9 +68,12 @@ pass over a split; ``eval_loss`` is the mean cross entropy over a split in
 eval mode. ``make_bn_refresh_fn`` and ``make_eval_loss_fn`` are the two as
 programs (the JAX package's compiled passes), built once and called for
 every set of weights; ``bn_refresh`` and ``eval_loss`` stay as their plain
-versions. Every program here and the tasks' BMA pass share ``_Captured``:
-a step read from device buffers, captured once as a CUDA graph on the card
-and replayed, run eagerly on the CPU.
+versions. ``make_potential_fn`` is the full-batch samplers' potential as a
+program: HMC's CE sum with and without its gradient, and PCA-ESS's
+train-mode density, over the resident train split a ``grad_batch`` (or
+batch) at a time, one or C weight rows. Every program here and the tasks'
+BMA pass share ``_Captured``: a step read from device buffers, captured
+once as a CUDA graph on the card and replayed, run eagerly on the CPU.
 """
 
 from __future__ import annotations
@@ -671,6 +674,13 @@ class _Captured:
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
         self.captures += 1
+
+
+def live_pool(programs) -> Optional[object]:
+    """The memory pool of a live graph among ``programs`` (``_Captured``
+    programs that never run at the same time), for a new capture to share;
+    None when no graph lives (a new pool)."""
+    return next((p.graph.pool() for p in programs if p.graph is not None), None)
 
 
 class _ChainMasks:
@@ -1328,3 +1338,130 @@ def make_eval_loss_fn(module: nn.Module, split) -> _LossProgram:
     ``state`` (by default the module's own) as ``eval_loss`` does. Build it
     once a split and call it for every state."""
     return _LossProgram(module, split)
+
+
+POTENTIAL_VARIANTS = {  # variant -> (train-mode forward, backward, Kahan sum)
+    "grad": (False, True, True),  # HMC's CE sum and its gradient (_grad_u)
+    "ce": (False, False, True),  # HMC's CE sum alone (the chain's first)
+    "density": (True, False, False),  # PCA-ESS's tempered log density's CE sum
+}
+
+
+class _PotentialProgram(_Captured):
+    """``make_potential_fn``'s program: a CE sum over a resident split in
+    the index batches of ``plan`` (the last filled up with index 0, those
+    rows masked out by ``valid``), a step a batch, replayed once for each
+    batch a call.
+
+    The weights lie in a static flat buffer, ``flat`` ((P,) under the
+    module's own parameters, or (C, P) under ``views``, each parameter's (C,
+    *shape) view of it, run by one ``ChainForward``), which a call copies
+    its argument into; with ``grads`` (the "grad" variant) the flat
+    gradient buffer, zeroed at the start of a call, that every parameter's
+    ``.grad`` views (``flatten_parameters`` and ``stacked_leaves`` bind
+    them), so the backward adds into it in place. The step gathers batch i
+    by a device counter, normalizes, runs the forward in the variant's mode
+    with the dropout masks bound, takes the masked cross entropy's sum,
+    backpropagates it in the "grad" variant, adds it into device ``total``
+    and ``comp`` buffers (Kahan's sum, or a plain one for "density") in the
+    plain versions' order of operations, and advances the counter. A model
+    whose dropout is active in that mode draws each batch's masks from
+    ``make_generator(device, 0, bi)`` into static buffers before the step,
+    as the plain versions draw them."""
+
+    def __init__(self, module: nn.Module, images: torch.Tensor, labels: torch.Tensor,
+                 spec: ImageSpec, plan: torch.Tensor, valid: torch.Tensor, *, variant: str,
+                 flat: torch.Tensor, grads: Optional[torch.Tensor] = None,
+                 views: Optional[Dict[str, torch.Tensor]] = None,
+                 pool: Callable[[], object] = lambda: None):
+        super().__init__(flat.device, pool)
+        self.training, self.grad, self.kahan = POTENTIAL_VARIANTS[variant]
+        if self.grad != (grads is not None):
+            raise ValueError(f"the 'grad' variant needs grads and the others take none; "
+                             f"got {variant!r}")
+        self.module, self.spec = module, spec
+        self.images, self.labels, self.plan, self.valid = images, labels, plan, valid
+        self.flat, self.grads, self.views = flat, grads, views
+        self.forward = None if views is None else ChainForward(module)
+        shape = flat.shape[:-1]  # () or (C,)
+        self.batch = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.total = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        self.comp = torch.zeros_like(self.total)
+        self.calls = _dropout_probe(module, spec, plan.shape[1], self.training)
+        self.masks = [torch.zeros(s, dtype=torch.bool, device=self.device) for _, s in self.calls]
+
+    def __call__(self, weights: torch.Tensor) -> torch.Tensor:
+        """The CE sum at ``weights`` (shaped as ``flat``): a 0-dim or (C,)
+        float32 tensor; in the "grad" variant its gradient is left in
+        ``grads``."""
+        with torch.no_grad():
+            self.flat.copy_(weights)
+        if self.grads is not None:
+            self.grads.zero_()
+        self.batch.zero_()
+        self.total.zero_()
+        self.comp.zero_()
+        was_training = self.module.training
+        self.module.train(self.training)
+        try:
+            with torch.set_grad_enabled(self.grad):
+                for bi in range(self.plan.shape[0]):
+                    if self.calls:
+                        _draw_into(self.masks, self.calls, make_generator(self.device, 0, bi))
+                    self._advance()
+        finally:
+            self.module.train(was_training)
+        return self.total.clone()
+
+    def _step(self) -> None:
+        i = self.batch.view(1)
+        b = self.plan.index_select(0, i).squeeze(0)
+        valid = self.valid.index_select(0, i).squeeze(0)
+        x = normalize(self.images.index_select(0, b), self.spec).permute(0, 3, 1, 2).contiguous()
+        y = self.labels.index_select(0, b)
+        layers = [layer for layer, _ in self.calls]
+        if self.views is None:
+            with dropout_masks(layers, self.masks):
+                logits = self.module(x)
+            ce = F.cross_entropy(logits.to(torch.float32), y, reduction="none")
+            s = torch.sum(ce * valid)
+            if self.grad:
+                s.backward()
+        else:
+            logits, _ = self.forward(self.views, x, x_batched=False, layers=layers,
+                                     masks=self.masks)
+            rows = logits.shape[0]
+            ce = F.cross_entropy(logits.to(torch.float32).flatten(0, 1), y.repeat(rows),
+                                 reduction="none").view(rows, -1)
+            s = torch.sum(ce * valid, dim=1)
+            if self.grad:
+                backward_into_views(s.sum())
+        if self.kahan:
+            val = s.detach() - self.comp
+            t = self.total + val
+            self.comp.copy_((t - self.total) - val)
+            self.total.copy_(t)
+        else:
+            self.total.add_(s)
+        self.batch.add_(1)
+
+
+def make_potential_fn(module: nn.Module, images: torch.Tensor, labels: torch.Tensor,
+                      spec: ImageSpec, plan: torch.Tensor, valid: torch.Tensor, *, variant: str,
+                      flat: torch.Tensor, grads: Optional[torch.Tensor] = None,
+                      views: Optional[Dict[str, torch.Tensor]] = None,
+                      pool: Callable[[], object] = lambda: None) -> _PotentialProgram:
+    """A full-batch potential over the resident split ``images`` /
+    ``labels`` as one program (the JAX package's scan over the data inside
+    its compiled HMC chunk and ESS transition): ``fn(weights)`` is the CE
+    sum at ``weights``, over the (num_batches, batch) index ``plan`` with
+    its 0/1 ``valid`` mask. ``variant`` (``POTENTIAL_VARIANTS``): "grad",
+    eval mode, Kahan-summed, its gradient left in ``grads``; "ce", the same
+    without it; "density", train mode (BatchNorm's batch statistics), a
+    plain sum. ``flat`` is the static weight buffer that ``module``'s
+    parameters view, or, with ``views`` ((C, *shape) views of a (C, P)
+    ``flat``: leaves whose ``.grad`` views ``grads`` in the "grad" variant),
+    C rows as one ``ChainForward``. ``pool`` as ``_Captured`` takes it.
+    Build it once and call it for every set of weights."""
+    return _PotentialProgram(module, images, labels, spec, plan, valid, variant=variant,
+                             flat=flat, grads=grads, views=views, pool=pool)

@@ -41,6 +41,7 @@ from torch.func import functional_call, vmap
 
 from ..models.common import dropout_calls, dropout_layers, dropout_masks
 from ..util import StateDict, index_state_dict, make_generator, stack_state_dicts
+from .engine import live_pool
 
 # How each evaluation path runs on the card. "graph": a program whose step is
 # captured once as a CUDA graph and replayed (engine._Captured; on the CPU the
@@ -210,8 +211,7 @@ class Ensemble:
         """The memory pool of a live graph of this ensemble's programs, which
         never run at the same time: a new capture shares it (None: no graph
         lives, a new pool)."""
-        return next((p.graph.pool() for p in self._programs.values() if p.graph is not None),
-                    None)
+        return live_pool(self._programs.values())
 
     def strategy(self, batch_size: int, input_shape) -> str:
         """The members' layout on batches of ``batch_size`` NCHW images of

@@ -17,6 +17,21 @@ TF32 is off inside every potential and gradient evaluation (the flags are
 restored after): the accept compares energy differences built from float32
 gradients, as in the JAX package.
 
+Off a mesh (``step_program`` ``"graph"``) the potential is a program
+(``engine.make_potential_fn``, the counterpart of the JAX package's scan
+over the data inside its compiled chunk): theta is copied into the static
+flat parameter buffer, and one index batch's step (gather by a device
+counter, normalize, forward, the masked CE sum, backward into the flat
+gradient buffer, the Kahan update) is replayed once a batch; on the card it
+is captured once as a CUDA graph, with TF32 off, on the CPU it runs
+eagerly. One program serves the gradient and one the CE sum alone, for one
+chain's theta (C chains in turn share it) or for (C, P) under ``"vmap"``.
+A model with dropout on in eval mode draws each batch's masks into static
+buffers before its replay. The leapfrog arithmetic and the accept stay as
+a few eager device operations between gradients. ``_ce_sum`` and
+``_ce_sums`` run the same steps from Python: the programs' plain versions,
+and the path of a mesh.
+
 Each trajectory is the half-step leapfrog, one gradient per step. The last
 step's gradient pass also yields the CE sum at the proposal, which the
 JAX package evaluates in a separate forward pass. The log ratio is formed
@@ -63,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -73,7 +89,7 @@ from ..models.common import dropout_generator, dropout_layers
 from ..util import make_generator
 from .base import _Inference
 from .engine import (ChainForward, _sharded_batches, backward_into_views, flatten_parameters,
-                     stacked_leaves)
+                     live_pool, make_potential_fn, stacked_leaves)
 from .ensemble import Ensemble
 
 def _sq_diff_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -118,6 +134,7 @@ class HMC(_Inference):
             self._forward = ChainForward(self.module)
         self._has_dropout = bool(dropout_layers(self.module))
         self._resume_state = None
+        self._programs: dict = {}  # (variant, batched) -> make_potential_fn's program
         self._setup(hyperparameters)
 
     def _replicates(self, mesh) -> bool:
@@ -139,6 +156,9 @@ class HMC(_Inference):
         batches = _sharded_batches(n, bsz, self.mesh, self.device)
         self._valid = (batches >= 0).to(torch.float32)
         self._batches = batches.clamp_min(0)
+        # a program keeps its capture while the index batches keep their shape
+        self._programs = {k: p for k, p in self._programs.items()
+                          if p.plan.shape == self._batches.shape}
         run = self.next_seed()
         theta0 = []
         for c in self.chain_ids:
@@ -154,6 +174,39 @@ class HMC(_Inference):
         self._setup(hyperparameters)
 
     # -- potential ---------------------------------------------------------------
+
+    @property
+    def step_program(self) -> str:
+        """How the potential runs: ``"graph"`` off a mesh, through
+        ``engine.make_potential_fn``'s programs (``potential_program``: on
+        the card one index batch's step captured once and replayed a batch
+        at a time, on the CPU run eagerly); ``"eager"`` on a mesh, through
+        ``_ce_sum`` and ``_ce_sums`` with their all-reduce over 'data'
+        (gloo's collectives are not captured)."""
+        return "eager" if self.mesh is not None else "graph"
+
+    def potential_program(self, grad: bool, batched: bool):
+        """The potential's program (None when ``step_program`` is
+        ``"eager"``): the CE sum with its gradient (``grad``) or alone, at
+        one chain's (P,) theta or, ``batched``, at every chain's (C, P)
+        under ``"vmap"``. Built at first use, kept across draws, samples
+        and an ``update_hyp`` that keeps the index batches' shape; the
+        programs share the pool of one that is captured (they share
+        ``_params`` and never run at once)."""
+        if self.step_program != "graph":
+            return None
+        key = ("grad" if grad else "ce", batched)
+        prog = self._programs.get(key)
+        if prog is None:
+            ref = weakref.ref(self)  # no cycle between the sampler and its programs
+            flat, grads = ((self._chain_params, self._chain_grads) if batched
+                           else (self._params, self._grads))
+            prog = self._programs[key] = make_potential_fn(
+                self.module, self._images, self._labels, self.train.spec, self._batches,
+                self._valid, variant=key[0], flat=flat, grads=grads if grad else None,
+                views=self._leaves if batched else None,
+                pool=lambda: live_pool(ref()._programs.values()))
+        return prog
 
     def _reduce(self, total: torch.Tensor, grads: torch.Tensor, grad: bool) -> torch.Tensor:
         """On a data mesh, the local CE sums (and with ``grad`` the local
@@ -228,14 +281,24 @@ class HMC(_Inference):
                 total = t
         return self._reduce(total, self._chain_grads, grad)
 
+    def _ce(self, theta: torch.Tensor, grad: bool) -> torch.Tensor:
+        """The CE sum at ``theta``, (P,), or every chain's at once from (C,
+        P) under ``"vmap"``: through the potential's program, or through
+        ``_ce_sum`` / ``_ce_sums`` where ``step_program`` is ``"eager"``;
+        with ``grad`` its gradient is left in ``self._grads`` /
+        ``self._chain_grads``."""
+        batched = theta.dim() == 2
+        prog = self.potential_program(grad, batched)
+        if prog is None:
+            return (self._ce_sums if batched else self._ce_sum)(theta, grad)
+        with float32_matmuls():
+            return prog(theta)
+
     def _grad_u(self, theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(CE sum, gradient of the potential) at ``theta``: (P,) for one
         chain, or every chain's at once from (C, P) under ``"vmap"``."""
-        if theta.dim() == 2:
-            ce = self._ce_sums(theta, grad=True)
-            return ce, self._chain_grads + self.tau * theta
-        ce = self._ce_sum(theta, grad=True)
-        return ce, self._grads + self.tau * theta
+        ce = self._ce(theta, grad=True)
+        return ce, (self._chain_grads if theta.dim() == 2 else self._grads) + self.tau * theta
 
     # -- transition --------------------------------------------------------------
 
@@ -296,8 +359,8 @@ class HMC(_Inference):
 
     def _initial_ce_sums(self, theta: torch.Tensor) -> torch.Tensor:
         if self._resolved_chain_strategy == "vmap":
-            return self._ce_sums(theta, grad=False)
-        return torch.stack([self._ce_sum(t, grad=False) for t in theta])
+            return self._ce(theta, grad=False)
+        return torch.stack([self._ce(t, grad=False) for t in theta])
 
     # -- mid-chain checkpoints ----------------------------------------------------
 

@@ -16,7 +16,18 @@ of the cross entropy. It runs on the SWA's evaluation module, whose
 running statistics the train-mode forwards overwrite and which
 ``SWA._variables_at`` copies again from the trained ones before every
 member: the trained statistics themselves are never written. Every bracket
-proposal is one full-data pass and one host read.
+proposal is one full-data pass and one host read. Off a mesh
+(``step_program`` ``"graph"``) the pass is a program (``engine.
+make_potential_fn``'s "density" variant, the counterpart of the densities
+inside the JAX package's compiled transition): the weights are copied into
+a static buffer and one batch's step (gather by a device counter,
+normalize, the train-mode forward, the masked CE sum) is replayed once a
+batch, captured once as a CUDA graph on the card and run eagerly on the
+CPU; one program serves ``lnpdf`` and one each row count of
+``lnpdf_chains``. The bracket loop stays on the host: its trip count
+depends on the data. ``_plain_lnpdf`` and ``_plain_lnpdf_chains`` run the
+same steps from Python: the programs' plain versions, and the path of a
+mesh.
 
 Each chain draws its prior samples and bracket uniforms from its own CPU
 generator (seeded ``derive_seed(run, "ess", c)``, the counterpart of the JAX
@@ -48,6 +59,9 @@ data mesh evaluates another (local-statistics) density than one process.
 
 from __future__ import annotations
 
+import weakref
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -56,7 +70,8 @@ from ..models.common import dropout_generator, dropout_layers
 from ..ops.ess import elliptical_slice, elliptical_slice_chains
 from ..util import derive_seed, make_generator, stack_state_dicts
 from .base import _Inference
-from .engine import ChainForward, _sharded_batches, stacked_views
+from .engine import (ChainForward, _sharded_batches, live_pool, make_potential_fn,
+                     stacked_views)
 from .ensemble import Ensemble
 from .subspaces import SubspaceModel
 from .swa import SWA
@@ -110,6 +125,7 @@ class PCASubspaceSampler(_Inference):
         self._batches = batches.clamp_min(0)
         self._has_dropout = bool(dropout_layers(self.module))
         self._forward = ChainForward(self.swa._eval_module)
+        self._programs: dict = {}  # rows (None: lnpdf) -> make_potential_fn's program
         self.subspace_constructed = False
         self.subspace = None
         self.current_theta = None
@@ -122,10 +138,67 @@ class PCASubspaceSampler(_Inference):
 
     # -- the tempered full-data log density -------------------------------------
 
+    @property
+    def step_program(self) -> str:
+        """How the log density runs: ``"graph"`` off a mesh, through
+        ``engine.make_potential_fn``'s "density" programs
+        (``density_program``: on the card one batch's step captured once
+        and replayed a batch at a time, on the CPU run eagerly);
+        ``"eager"`` on a mesh, through ``_plain_lnpdf`` and
+        ``_plain_lnpdf_chains`` with their all-reduce over 'data'."""
+        return "eager" if self.mesh is not None else "graph"
+
+    def density_program(self, rows: Optional[int]):
+        """The log density's program (None when ``step_program`` is
+        ``"eager"``): on the SWA's evaluation module's own flat weights
+        (``rows`` None, ``lnpdf``), or on a static (rows, P) buffer as one
+        ``ChainForward`` (``lnpdf_chains`` at ``rows`` chains). One program
+        a row count, built at first use and kept across draws; they share
+        the pool of one that is captured (they never run at once)."""
+        if self.step_program != "graph":
+            return None
+        prog = self._programs.get(rows)
+        if prog is None:
+            ref = weakref.ref(self)  # no cycle between the sampler and its programs
+            module, flat, views = self.swa._eval_module, self.swa._eval_params, None
+            if rows is not None:
+                flat = torch.zeros(rows, flat.numel(), device=self.device)
+                views = stacked_views(module, flat)
+            prog = self._programs[rows] = make_potential_fn(
+                module, self.swa._images, self.swa._labels, self.train.spec, self._batches,
+                self._valid, variant="density", flat=flat, views=views,
+                pool=lambda: live_pool(ref()._programs.values()))
+        return prog
+
     @torch.no_grad()
     def lnpdf(self, theta: torch.Tensor) -> torch.Tensor:
         """``-CE_sum / temperature`` at subspace coordinates ``theta``
-        (rank,), a 0-dim tensor on the device."""
+        (rank,), a 0-dim tensor on the device: ``density_program(None)`` at
+        the weights ``mean + cov_factor^T theta``, or ``_plain_lnpdf`` where
+        ``step_program`` is ``"eager"``."""
+        prog = self.density_program(None)
+        if prog is None:
+            return self._plain_lnpdf(theta)
+        return -prog(self.subspace(theta)) / self.temperature
+
+    @torch.no_grad()
+    def lnpdf_chains(self, theta: torch.Tensor) -> torch.Tensor:
+        """``lnpdf`` at every row of ``theta`` (C', rank) at once, a (C',)
+        tensor: ``density_program(C')``, one batched train-mode forward a
+        batch of the split whose batch statistics are returned, not
+        written, or ``_plain_lnpdf_chains`` where ``step_program`` is
+        ``"eager"``. A lock-step draw's C' shrinks proposal by proposal, and
+        each C' has its program: the batched forward keeps the shape (and
+        so the bits) of the plain version at C'."""
+        prog = self.density_program(theta.shape[0])
+        if prog is None:
+            return self._plain_lnpdf_chains(theta)
+        return -prog(self.subspace.mean + theta @ self.subspace.cov_factor) / self.temperature
+
+    @torch.no_grad()
+    def _plain_lnpdf(self, theta: torch.Tensor) -> torch.Tensor:
+        """``lnpdf``'s plain version, a batch at a time from Python (the
+        path of a mesh)."""
         module = self.swa._eval_module
         self.swa._eval_params.copy_(self.subspace(theta))
         module.train()
@@ -143,10 +216,9 @@ class PCASubspaceSampler(_Inference):
         return -self._over_data(total) / self.temperature
 
     @torch.no_grad()
-    def lnpdf_chains(self, theta: torch.Tensor) -> torch.Tensor:
-        """``lnpdf`` at every row of ``theta`` (C', rank) at once, a (C',)
-        tensor: one batched train-mode forward a batch of the split, whose
-        batch statistics are returned, not written."""
+    def _plain_lnpdf_chains(self, theta: torch.Tensor) -> torch.Tensor:
+        """``lnpdf_chains``' plain version, a batch at a time from Python
+        (the path of a mesh)."""
         module = self.swa._eval_module
         weights = self.subspace.mean + theta @ self.subspace.cov_factor  # (C', P)
         params = stacked_views(module, weights)

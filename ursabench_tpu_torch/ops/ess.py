@@ -2,11 +2,12 @@
 
 Counterpart of ``ursabench_tpu/ops/ess.py``, which runs the bracket-shrink
 loop as one compiled ``lax.while_loop``. Here the loop is a Python loop:
-each proposal is a full-data evaluation of ``lnpdf``, and whether it is
-accepted decides the next proposal, so every proposal costs one host read
-(one device sync): its comparison with the slice height. The bracket's
-angles are scalars on the host, in float32 as the JAX package computes
-them.
+each proposal is a full-data evaluation of ``lnpdf`` (in the PCA subspace
+sampler a captured program replayed a batch at a time, off a mesh), and
+whether it is accepted decides the next proposal, so every proposal costs
+one host read (one device sync): its comparison with the slice height.
+The bracket's angles are scalars on the host, in float32 as the JAX
+package computes them.
 
 ``elliptical_slice_chains`` is the lock-step transition of C chains (the
 JAX package's vmapped while loop): one batched ``lnpdf`` over the chains
