@@ -171,11 +171,10 @@ Phases, each ending with its seconds:
    once across every draw (one a variant and row count: its capture ms and
    pool printed); then each is graphed against its eager twin (the programs
    hidden: the plain potentials) from one state and one set of draws under
-   deterministic cuDNN, bit-equal: 3 tuned MLP200MNIST draws from the warm
-   start, 2 PreResNet-20 x2 draws, one PCA-ESS WRN draw of both chains;
-   gradients/s or proposals/s, s a draw, the device's busy share of a draw
-   (of a density call for PCA-ESS) under torch.profiler, and the host's
-   median gap between replays inside a potential and between two; (d) HMC
+   deterministic cuDNN, bit-equal: one tuned MLP200MNIST draw from the warm
+   start, one PreResNet-20 x2 draw, one PCA-ESS WRN draw of both chains (the
+   check alone: the twins' rates, busy shares and host gaps were recorded in
+   PERF.md by the runs that added the programs); (d) HMC
    (checkpoint every 2 draws, killed after 4 of 6), SGLD (every epoch) and
    PCA-ESS on MLP200MNIST killed and resumed: each equal to its
    uninterrupted run within 1e-6 of its largest weight (the largest
@@ -257,7 +256,16 @@ batch's; SGHMC x2 on PreResNet-20 on (2, 1) checkpointed every 2 epochs,
 killed and resumed bit-equal, rank 0's file against one process's; one HMC
 chain and one PCA-ESS chain on MLP200MNIST (4,096 images) on (2, 1),
 replicated on both ranks (the chain axis does not divide one chain), each
-bit-equal to one process on both; K1 once a step on each rank; the seconds
+bit-equal to one process on both; every one of these runs through the
+sharded programs (step_program "graph" on every mesh), and on each rank
+each program is held to its eager twin (the program hidden) bit for bit
+under deterministic cuDNN and captured once: PreResNet-20 SGHMC over 2,048
+images on (2, 1) x2 chains (one graph a step) and on (1, 2) x1 (two graphs
+a step, the all-reduces between them: 2 a step against the eager step's
+3), 2 epochs each, the last one's steps/s printed; the streamed programs
+against stream_steps; HMC's (1, 2) potential program against _ce_sum;
+PCA-ESS's (1, 2) density program against _plain_lnpdf, its SWA phase
+through the cut epoch program; K1 once a step on each rank; the seconds
 are two processes on one card, no scaling figure; (c) NCCL at a world size
 of 1 under ``torchrun --standalone``: one all-reduce, then ``cli run --mesh
 auto`` as it is and with ``--stream`` (the result keys and values of runs
@@ -267,9 +275,9 @@ resumes); (d) three ranks sharing the card under ``torchrun --standalone``
 ranks 0-1 and rank 2 idles and writes nothing; rank 0's results within the
 runner's limits (rtol 2e-4, atol 1e-5; 2e-3 on the model-uncertainty
 AUROCs) of one process's; its JSON under smoke_out/mesh/.
-Every sampler these phases run reports step_program by the rule
-(inference/base.py): "eager" on a mesh, else "graph" (the epoch samplers'
-epochs, HMC's potentials and PCA-ESS's log densities as programs).
+Every sampler these phases run reports step_program "graph", off a mesh
+and on every mesh (inference/base.py: the epoch samplers' epochs, HMC's
+potentials and PCA-ESS's log densities as programs).
 Then a JSON line describing each kernel (its launches on the main path,
 K1's summed over the slice, graph vs eager, the ImageNet slice, the samplers, the
 experiment, the hypopt, the hmc_ess, the stream, the chains and the mesh
@@ -415,10 +423,12 @@ HE_CONV_TRAIN, HE_CONV_TEST, HE_CONV_CHAINS = 2048, 512, 2
 HE_PCA_CUT = {"swag_burn_in_epochs": 1, "num_swag_iterates": 20, "num_samples": 3}
 HE_PCA_CHAINS = 2
 # each run's potentials graphed against their eager twin (the programs hidden)
-# from one state and one set of draws under deterministic cuDNN: (a) HE_TWIN_DRAWS
-# tuned MLP200MNIST draws from the warm start, (b) HE_CONV_TWIN_DRAWS PreResNet-20
-# x2 draws, (c) one PCA-ESS WRN draw of both chains
-HE_TWIN_DRAWS, HE_CONV_TWIN_DRAWS = 3, 2
+# from one state and one set of draws under deterministic cuDNN, bit for bit
+# (the check alone: their timing and profiled draws, recorded in PERF.md, were
+# cut to make room for the mesh phase's programs): (a) HE_TWIN_DRAWS tuned
+# MLP200MNIST draws from the warm start, (b) HE_CONV_TWIN_DRAWS PreResNet-20 x2
+# draws, (c) one PCA-ESS WRN draw of both chains
+HE_TWIN_DRAWS, HE_CONV_TWIN_DRAWS = 1, 1
 # (d) kill and resume, MLP200MNIST on MNIST_TRAIN images
 HE_RESUME = {
     "HMC": ({"step_size": 2e-4, "num_samples": 6, "L": 3, "tau": 100.0, "burn": 0,
@@ -489,6 +499,11 @@ MESH_PCA = {"swag_lr": 0.02, "swag_wd": 5e-4, "lr_init": 0.05, "num_samples": 2,
 MESH_POTENTIAL = 1e-5  # HMC's CE sum and gradient on (1, 2) against one process, relative
 MESH_ORACLE = 1e-5  # PCA-ESS's log density on (1, 2) against the local-BN oracle, relative
 MESH_HYP = {"lr": 0.05, "prior_std": 1.0, "num_samples": 1, "alpha": 0.1, "burn_in_epochs": 0}
+# (b) on the ranks, each sharded program against its eager twin (the program
+# hidden) under deterministic cuDNN: PreResNet-20 SGHMC over MESH_TWIN_TRAIN
+# images (16 steps an epoch) on (2, 1) x2 chains and (1, 2) x1, MESH_TWIN_EPOCHS
+# epochs each, the last one timed (two ranks on one card: no scaling figure)
+MESH_TWIN_TRAIN, MESH_TWIN_EPOCHS = 2048, 2
 MESH_CKPT_HYP = {**MESH_HYP, "num_samples": 2, "burn_in_epochs": 1}  # 3 epochs of 4 steps
 MESH_PRR_GAP = 1e-5  # PreResNet-20 on (2, 1) against one process: ||a - b|| / ||b||
 MESH_TIMEOUT = 300  # seconds for the two ranks, or for one torchrun command
@@ -2580,27 +2595,6 @@ def _program_line(stats: dict) -> str:
                      for k, v in stats.items())
 
 
-def _gaps_us(stamps: list, per_call: int) -> dict:
-    """The host's median us between replays of one program whose calls
-    replay ``per_call`` times: inside a call and between two calls (the
-    eager work between two potentials, such as a leapfrog step)."""
-    gaps = [(b - a) * 1e6 for a, b in zip(stamps, stamps[1:])]
-    inside = sorted(g for i, g in enumerate(gaps) if (i + 1) % per_call)
-    between = sorted(g for i, g in enumerate(gaps) if not (i + 1) % per_call)
-    median = lambda v: v[len(v) // 2] if v else float("nan")  # noqa: E731
-    return {"inside_us": median(inside), "between_us": median(between)}
-
-
-def _profiled_busy(fn) -> float:
-    """The device's busy share (%) of the window of ``fn``'s kernels under
-    torch.profiler (``_busy``)."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return _busy(prof)[1]
-
-
 def _warm_hmc(h) -> None:
     """An untimed draw of ``h``, then first CE sums until its CE-sum
     program is captured too (a program captures at its fourth step, and
@@ -2614,12 +2608,11 @@ def _warm_hmc(h) -> None:
 def _hmc_twins(name, make, draws: int) -> dict:
     """HMC graphed against its eager twin under deterministic cuDNN: two
     samplers from ``make()`` (one seed and init), the second with its
-    programs hidden (the plain potentials, HMC's path before its programs),
-    ``draws`` draws each with the generator reseeded to one value; the
-    graphed one after ``_warm_hmc`` (both its programs captured), its
-    gradient program's replays stamped on the host clock. The ensembles and
-    accept rates must be equal bit for bit. Then one more draw of each
-    under torch.profiler: the device's busy share."""
+    programs hidden (the plain potentials), ``draws`` draws each with the
+    generator reseeded to one value; the graphed one after ``_warm_hmc``
+    (both its programs captured). The ensembles and accept rates must be
+    equal bit for bit. (Their rates and busy shares were recorded in
+    PERF.md by the runs that added the programs; the check alone stays.)"""
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     out, runs = {}, {}
@@ -2630,21 +2623,10 @@ def _hmc_twins(name, make, draws: int) -> dict:
                 h.potential_program = lambda grad, batched: None
             else:
                 _warm_hmc(h)
-                prog = h.potential_program(True, h._resolved_chain_strategy == "vmap")
-                prog.graph = _TimedGraph(prog.graph)
             h._gen.manual_seed(7)
-            ens, sec = _timed_sample(h, num_samples=draws)
+            runs[path] = h.sample(num_samples=draws), h.accept_rate
             if path == "graph":
-                stamps, prog.graph = prog.graph.stamps, prog.graph.graph
-                out["gap"] = _gaps_us(stamps, h._batches.shape[0])
                 out["programs"] = _program_stats(f"{name} twin", h)
-            theta = h._theta0.clone()
-            ll = h._initial_ce_sums(theta)
-            busy = _profiled_busy(lambda: h._draw(theta, ll))
-            grads = draws * h.chains * (h.L + 1)
-            runs[path] = ens, h.accept_rate
-            out[path] = {"s_per_draw": sec / draws, "grads_per_s": grads / sec,
-                         "busy_pct": busy}
             del h
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -2654,21 +2636,14 @@ def _hmc_twins(name, make, draws: int) -> dict:
     check(diff == 0.0 and got_acc == want_acc,
           f"{name}: the graphed draws {diff:.3g} from the eager twin's (accept {got_acc} / "
           f"{want_acc}), deterministic cuDNN")
-    out.update(max_abs_diff=diff, draws=draws,
-               ratio=out["graph"]["grads_per_s"] / out["eager"]["grads_per_s"])
+    out.update(max_abs_diff=diff, draws=draws)
     return out
 
 
-def _twin_line(t: dict, unit: str = "full-batch gradients/s") -> str:
-    g, e = t["graph"], t["eager"]
-    rate = "grads_per_s" if "grads_per_s" in g else "proposals_per_s"
+def _twin_line(t: dict) -> str:
     return (f"graphed vs eager twin, {t['draws']} draw(s) from one state and draws under "
-            f"deterministic cuDNN, bit-equal (largest difference {t['max_abs_diff']:.3g}): "
-            f"{g[rate]:.1f} against {e[rate]:.1f} {unit} ({t['ratio']:.2f}x), "
-            f"{g['s_per_draw']:.4f} against {e['s_per_draw']:.4f} s a draw, the device busy "
-            f"{g['busy_pct']:.1f}% against {e['busy_pct']:.1f}%; the host between replays "
-            f"{t['gap']['inside_us']:.1f} us inside a potential, {t['gap']['between_us']:.1f} "
-            f"between two (medians); programs: {_program_line(t['programs'])}")
+            f"deterministic cuDNN, bit-equal (largest difference {t['max_abs_diff']:.3g}); "
+            f"programs: {_program_line(t['programs'])}")
 
 
 def hmc_tuned_run(device) -> dict:
@@ -2819,12 +2794,10 @@ def _pca_twin(pca) -> dict:
     """One draw of ``pca``'s chains from its current state graphed against
     its eager twin under deterministic cuDNN: density programs captured in
     that mode (by a warm-up draw from the same state), then the draw
-    through them, its programs' replays stamped on the host clock, then
-    with them hidden (the plain densities), each from the same state and
-    streams: the points, log densities and bracket counts bit for bit;
-    seconds and proposals/s of each, and the busy share of one density call
-    of each. The sampler's own programs, state and bracket record are put
-    back after."""
+    through them, then with them hidden (the plain densities), each from
+    the same state and streams: the points, log densities and bracket
+    counts bit for bit. The sampler's own programs, state and bracket
+    record are put back after."""
     gens = [g.get_state() for g in pca._gens]
     theta, lp, done = pca.current_theta.clone(), pca.current_lnpdf.clone(), len(pca.bracket_iters)
     kept, deterministic = pca._programs, torch.backends.cudnn.deterministic
@@ -2844,26 +2817,10 @@ def _pca_twin(pca) -> dict:
             restore()
             if path == "eager":
                 pca.density_program = lambda rows: None
-            else:
-                timed = {k: _TimedGraph(p.graph) for k, p in pca._programs.items()}
-                for k, p in pca._programs.items():
-                    p.graph = timed[k]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             pca.sample_iterative(update_bn=False)
-            torch.cuda.synchronize()
-            sec = time.perf_counter() - t0
-            if path == "graph":
-                for k, p in pca._programs.items():
-                    p.graph = timed[k].graph
-                out["gap"] = _gaps_us(timed[None].stamps, pca._batches.shape[0])
-            props = sum(pca.bracket_iters[-1])
             runs[path] = (pca.current_theta.clone(), pca.current_lnpdf.clone(),
                           pca.bracket_iters[-1])
-            out[path] = {"s_per_draw": sec, "proposals": props, "proposals_per_s": props / sec}
         del pca.density_program
-        out["graph"]["busy_pct"] = _profiled_busy(lambda: pca.lnpdf(theta[0]))
-        out["eager"]["busy_pct"] = _profiled_busy(lambda: pca._plain_lnpdf(theta[0]))
         out["programs"] = _program_stats("PCA-ESS twin", pca)
     finally:
         pca.__dict__.pop("density_program", None)
@@ -2876,8 +2833,7 @@ def _pca_twin(pca) -> dict:
     check(diff == 0.0 and gi == ei,
           f"PCA-ESS: the graphed draw {diff:.3g} from the eager twin's, brackets {gi} / {ei}, "
           "deterministic cuDNN")
-    out.update(max_abs_diff=diff, draws=1, brackets=gi,
-               ratio=out["graph"]["proposals_per_s"] / out["eager"]["proposals_per_s"])
+    out.update(max_abs_diff=diff, draws=1, brackets=gi)
     return out
 
 
@@ -2943,7 +2899,7 @@ def pca_wrn_run(device) -> dict:
           f"full-data log densities, {ess_s / draws:.2f} s a draw (both chains, the last with "
           f"its BatchNorm refresh); SWA's BatchNorm buffers unchanged; {json.dumps(metrics)}; "
           f"programs: {_program_line(programs)}", flush=True)
-    print(f"  (c) {_twin_line(twin, 'proposals/s')} (brackets {twin['brackets']})", flush=True)
+    print(f"  (c) {_twin_line(twin)} (brackets {twin['brackets']})", flush=True)
     return out
 
 
@@ -3944,6 +3900,7 @@ def _mesh_work(device, chain_mesh, data_mesh, tmp: str) -> dict:
     if data_mesh is not None:
         out["pca"] = _mesh_pca(device, data_mesh)
         out["stream"] = _mesh_stream(device, data_mesh)
+        out["twins"] = _mesh_twins(device, chain_mesh, data_mesh)
     _sync(device)
     out.update(k1=sghmc_update_flat.launches, seconds=time.perf_counter() - t0)
     return out
@@ -3972,15 +3929,37 @@ def _mesh_hmc(device, train, c, chain_mesh, data_mesh) -> dict:
                              train=train, seed=2, chains=chains, device=device,
                              chain_strategy="scan", mesh=mesh)
 
+    from ursabench_tpu_torch.inference.engine import WARMUP_STEPS
+
     one = hmc(1, data_mesh)
-    ce = one._ce_sum(one._theta0[0].clone(), grad=True)
+    theta = one._theta0[0].clone()
+    ce = one._ce_sum(theta, grad=True)
     out = {"ce": float(ce), "grad": one._grads.detach().cpu().clone(),
            "batches": tuple(one._batches.shape)}
+    for _ in range(WARMUP_STEPS + 2):  # its warm-up steps, the capture and a replay
+        ce_graph = one._ce(theta, grad=True)
+    out["graph_equal"] = (torch.equal(ce_graph, ce)
+                          and bool((one._grads.cpu() == out["grad"]).all()))
     out["one_chain"] = _flat_members(one.sample())
+    out["programs"] = _captures(one._programs)
     two = hmc(2, chain_mesh)
     out["two_chains"] = _flat_members(two.sample())
     out["accept"] = (one.accept_rate, two.accept_rate)
     return out
+
+
+def _captures(programs: dict) -> dict:
+    """Each program's (path, captures, steps run, segments), by key."""
+    return {str(k): (p.path, p.captures, p.steps_run, p.segments) for k, p in programs.items()}
+
+
+def _captured_once(programs: dict) -> bool:
+    """Whether every program of ``_captures`` is graphed and captured once,
+    or not at all where it ran no more than its warm-up steps."""
+    from ursabench_tpu_torch.inference.engine import WARMUP_STEPS
+
+    return all(path == "graph" and captures == int(steps > WARMUP_STEPS)
+               for path, captures, steps, _ in programs.values())
 
 
 def _mesh_replicated(device, train, c, chain_mesh) -> dict:
@@ -4044,10 +4023,15 @@ def _mesh_pca(device, data_mesh) -> dict:
                                      mesh=data_mesh)
     ens = p.sample()
     theta = p.current_theta[0]
-    got = float(p.lnpdf(theta))
+    got_t = p.lnpdf(theta)
+    got = float(got_t)
+    graph_equal = torch.equal(got_t, p._plain_lnpdf(theta))
     want = _local_bn_lnpdf(p, theta, data_mesh.shape["data"])
     whole = _local_bn_lnpdf(p, theta, 1)
+    programs = {**_captures(p._programs),
+                "swa": _captures({"epoch": p.swa._program})["epoch"]}
     return {"lnpdf": got, "oracle": want, "whole": whole, "proposals": p.bracket_iters,
+            "graph_equal": graph_equal, "programs": programs,
             "swa_epochs": p.swa.epochs_run, "metrics": _mesh_metrics(ens, splits["test"], c),
             "seconds": time.perf_counter() - t0}
 
@@ -4083,18 +4067,84 @@ def _mesh_stream(device, data_mesh) -> dict:
     want = [b._state.params, b._state.momentum, *b.module.buffers()]
     out = {}
     for m in (1, STREAM_CHUNK):
-        stream = native.HostStreamingSplit(train.images, train.labels, BATCH, train.spec,
-                                           seed=7, chunk_batches=m, mesh=data_mesh)
-        a = sampler(stream)
-        _sync(device)
-        t0 = time.perf_counter()
-        a._run_epoch(noise_on=True)
-        _sync(device)
-        out[m] = {"equal": all(torch.equal(x, y) for x, y in zip(
-                      [a._state.params, a._state.momentum, *a.module.buffers()], want)),
+        runs = {}
+        for path in ("graph", "eager"):  # the program, then stream_steps
+            stream = native.HostStreamingSplit(train.images, train.labels, BATCH, train.spec,
+                                               seed=7, chunk_batches=m, mesh=data_mesh)
+            a = sampler(stream)
+            if path == "eager":
+                a.epoch_program = lambda: None
+            _sync(device)
+            t0 = time.perf_counter()
+            a._run_epoch(noise_on=True)
+            _sync(device)
+            runs[path] = (a, stream, time.perf_counter() - t0)
+        (a, stream, sec), (e, _, _) = runs["graph"], runs["eager"]
+        state = [a._state.params, a._state.momentum, *a.module.buffers()]
+        out[m] = {"equal": all(torch.equal(x, y) for x, y in zip(state, want)),
+                  "eager_equal": all(torch.equal(x, y) for x, y in zip(
+                      state, [e._state.params, e._state.momentum, *e.module.buffers()])),
+                  "programs": _captures({"stream": a._program}),
                   "bytes_per_step": stream.stats["bytes"] / nb, "steps": nb,
-                  "seconds": time.perf_counter() - t0, "params": a._state.params.cpu()}
+                  "seconds": sec, "params": a._state.params.cpu()}
     out["batch_bytes"] = BATCH * (int(np.prod(train.images.shape[1:])) + 4)
+    return out
+
+
+def _mesh_twins(device, chain_mesh, data_mesh) -> dict:
+    """On a rank: PreResNet-20 SGHMC over MESH_TWIN_TRAIN CIFAR-10 images
+    (crops, flips, the noise on) on the chain mesh (x2 chains, one a rank)
+    and on the data mesh (x1), through its epoch program and through its
+    eager twin (``train_steps``, the program hidden), MESH_TWIN_EPOCHS
+    epochs each from one seed: bit for bit under deterministic cuDNN; one
+    capture a program; the last epoch's steps/s and its ``dist.all_reduce``
+    calls a step."""
+    import torch.distributed as dist
+
+    from ursabench_tpu_torch import data, inference, models
+    from ursabench_tpu_torch.data.transforms import CIFAR_TRAIN
+
+    splits, c = data.loaders("CIFAR10", None, batch_size=BATCH, use_validation=False,
+                             transform_train=CIFAR_TRAIN, synthetic_n_train=MESH_TWIN_TRAIN,
+                             synthetic_n_test=BATCH)
+    train = splits["train"]
+    out = {}
+    for name, mesh, chains in (("chain", chain_mesh, 2), ("data", data_mesh, 1)):
+        runs = {}
+        for path in ("graph", "eager"):
+            s = inference.SGHMC(MESH_HYP, model=models.get_model("PreResNet20").build(c),
+                                train=train, seed=9, chains=chains, device=device,
+                                chain_strategy="scan", mesh=mesh)
+            if path == "eager":
+                s.epoch_program = lambda: None
+            for _ in range(MESH_TWIN_EPOCHS - 1):
+                s._run_epoch(noise_on=True)
+            calls, all_reduce = [], dist.all_reduce
+
+            def counted(tensor, *a, **kw):
+                calls.append(tensor.numel())
+                return all_reduce(tensor, *a, **kw)
+
+            dist.all_reduce = counted
+            try:
+                _sync(device)
+                t0 = time.perf_counter()
+                s._run_epoch(noise_on=True)
+                _sync(device)
+                sec = time.perf_counter() - t0
+            finally:
+                dist.all_reduce = all_reduce
+            runs[path] = s
+            out.setdefault(name, {})[path] = {
+                "steps_per_s": train.num_batches / sec,
+                "all_reduces_a_step": len(calls) / train.num_batches}
+        g, e = runs["graph"], runs["eager"]
+        out[name].update(
+            equal=all(torch.equal(x, y) for x, y in zip(
+                [g._state.params, g._state.momentum, *g.module.buffers(), *g.epoch_losses],
+                [e._state.params, e._state.momentum, *e.module.buffers(), *e.epoch_losses])),
+            programs=_captures({"epoch": g._program}), steps=g._state.step,
+            step_program=g.step_program)
     return out
 
 
@@ -4327,6 +4377,35 @@ def _mesh_checks(ranks: list, one: dict) -> dict:
         check(all(x["bytes_per_step"] == ranks[0]["stream"]["batch_bytes"] / 2 for x in st),
               f"mesh: streamed bytes a step {[x['bytes_per_step'] for x in st]}, not half a "
               f"batch's {ranks[0]['stream']['batch_bytes']}")
+    # every sharded program on the ranks against its eager twin, bit for bit under
+    # deterministic cuDNN, captured once; a data mesh's step all-reduces the
+    # gradient buffer and one packed float32 buffer between its two replays
+    for rank, r in enumerate(ranks):
+        for name, segments, calls in (("chain", 1, (0.0, 0.0)), ("data", 2, (2.0, 3.0))):
+            t = r["twins"][name]
+            check(t["equal"] and t["step_program"] == "graph"
+                  and _captured_once(t["programs"])
+                  and t["programs"]["epoch"][3] == segments
+                  and t["steps"] == MESH_TWIN_EPOCHS * MESH_TWIN_TRAIN // BATCH,
+                  f"mesh: rank {rank}'s graphed PreResNet-20 epoch on the {name} mesh against "
+                  f"its eager twin: equal {t['equal']}, programs {t['programs']}")
+            got = (t["graph"]["all_reduces_a_step"], t["eager"]["all_reduces_a_step"])
+            check(got == calls, f"mesh: rank {rank}'s {name} mesh all-reduces a step "
+                                f"(graphed, eager) {got}, expected {calls}")
+        for m in (1, STREAM_CHUNK):
+            st = r["stream"][m]
+            check(st["eager_equal"] and _captured_once(st["programs"])
+                  and st["programs"]["stream"][3] == 2,
+                  f"mesh: rank {rank}'s streamed program (M={m}) against stream_steps: "
+                  f"{st['eager_equal']}, {st['programs']}")
+        check(r["pca"]["graph_equal"] and _captured_once(r["pca"]["programs"])
+              and r["pca"]["programs"]["swa"][3] == 2,
+              f"mesh: rank {rank}'s PCA-ESS density program on (1, 2) against _plain_lnpdf: "
+              f"{r['pca']['graph_equal']}, {r['pca']['programs']}")
+    for r in ranks + [one]:
+        check(r["hmc"]["graph_equal"] and _captured_once(r["hmc"]["programs"]),
+              f"mesh: HMC's potential program against _ce_sum: {r['hmc']['graph_equal']}, "
+              f"{r['hmc']['programs']}")
     # checkpoints on (2, 1)
     for r in ranks + [one]:
         check(r["resume"]["resumed"] and r["resume"]["equal"],
@@ -4353,6 +4432,9 @@ def _mesh_checks(ranks: list, one: dict) -> dict:
                                                               "proposals", "seconds")},
             "oracle_gap": oracle_gap, "file_gap": file_gap,
             "replicated_accept": rep["hmc_accept"],
+            "twins": [{name: {path: r["twins"][name][path]["steps_per_s"]
+                              for path in ("graph", "eager")} for name in ("chain", "data")}
+                      for r in ranks],
             "stream": {m: [{k: r["stream"][m][k] for k in ("bytes_per_step", "seconds")}
                            for r in ranks] for m in (1, STREAM_CHUNK)}}
 
@@ -4426,8 +4508,10 @@ def mesh_phase(device, row_len: int) -> dict:
     got = _mesh_checks(ranks, one)
     steps = MESH_TRAIN // BATCH + MESH_MLP_TRAIN // BATCH
     resume_steps = (3 + 2 + 1) * MESH_TRAIN // BATCH  # uninterrupted, killed, resumed
-    stream_steps = 3 * MESH_STREAM_TRAIN // BATCH  # resident, per batch, chunked
-    want = [steps + resume_steps + stream_steps] * 2 + [steps + resume_steps]
+    # resident; per batch and chunked, each graphed and eager
+    stream_steps = 5 * MESH_STREAM_TRAIN // BATCH
+    twin_steps = 4 * MESH_TWIN_EPOCHS * MESH_TWIN_TRAIN // BATCH  # 2 meshes, graphed and eager
+    want = [steps + resume_steps + stream_steps + twin_steps] * 2 + [steps + resume_steps]
     check([r["k1"] for r in ranks] + [one["k1"]] == want,
           f"mesh: K1 launches {[r['k1'] for r in ranks]} / {one['k1']}, expected {want}")
     pca, st = got["pca"], got["stream"]
@@ -4457,6 +4541,20 @@ def mesh_phase(device, row_len: int) -> dict:
           f"one process's; one HMC chain (accept rate {got['replicated_accept']}) and one "
           f"PCA-ESS chain on MLP200MNIST replicated over (2, 1), bit-equal to one process "
           f"on both ranks; K1 {want} launches (ranks, one process)", flush=True)
+    rates = "; ".join(
+        f"rank {i}: " + ", ".join(f"{name} mesh {t[name]['graph']:.1f} graphed / "
+                                  f"{t[name]['eager']:.1f} eager" for name in t)
+        for i, t in enumerate(got["twins"]))
+    print(f"      sharded programs on both ranks against their eager twins under deterministic "
+          f"cuDNN, bit-equal, each captured once: PreResNet-20 SGHMC over "
+          f"{MESH_TWIN_TRAIN} images on (2, 1) x2 chains (one graph a step) and (1, 2) x1 (two "
+          f"graphs a step, the gradient buffer and one packed float32 buffer all-reduced "
+          f"between them: 2 all-reduces a step against the eager step's 3); the streamed "
+          f"program (M=1, {STREAM_CHUNK}) against stream_steps; HMC's (1, 2) potential "
+          f"program against _ce_sum; PCA-ESS's (1, 2) density program against _plain_lnpdf, "
+          f"its SWA through the cut epoch program. Steps/s of the timed epoch "
+          f"({MESH_TWIN_TRAIN // BATCH} steps): {rates} (two processes sharing one card, gloo "
+          f"syncing the host at each collective: not a scaling figure)", flush=True)
     out["two_ranks"] = {"seconds": two_s, "k1": [r["k1"] for r in ranks] + [one["k1"]],
                         **{k: v for k, v in got.items() if k != "stream"},
                         "stream": got["stream"]}

@@ -9,7 +9,7 @@ counter, for one chain, chains in turn and batched, a sweep's K rows, SGD,
 SWA and cSGHMC across the epochs where its noise gate and cyclic rate
 change. The program is built once per state and hyperparameter dict and
 survives ``update_hyp`` and a second ``sample()``; models with dropout and
-streamed splits take their programs, meshes stay on the eager path. The schedules in their
+streamed splits take their programs, and so do meshes. The schedules in their
 device form (epoch, batch and step as 0-dim tensors) against the JAX
 package's; K1's plain path with its seed in a tensor; the launch counts of a
 kernel captured into a graph."""
@@ -222,7 +222,7 @@ def test_dropout_models_and_streamed_splits_stay_eager():
     on the eager path, is gone: both report ``"graph"``, build their
     program at the first epoch (the streamed program for the stream, the
     dropout model's drawing its masks before each step) and run their
-    epochs through it. Only meshes stay eager (``test_meshes_stay_eager``)."""
+    epochs through it, as meshes do (``test_meshes_stay_eager``)."""
     _, ts, c = _splits("MNIST")
     mcd = sgd_map.MCdropout(MCD_HYP, model=tmodels.get_model("MLP200MNIST").build(c),
                             train=ts["train"], device="cpu", model_name="MLP200MNIST")
@@ -242,7 +242,7 @@ def test_dropout_models_and_streamed_splits_stay_eager():
 def _mesh_step_programs():
     """On a world of two: the step programs of SGHMC on a (2, 1) chain mesh
     and a (1, 2) data mesh (one epoch each), and of one chain replicated
-    over (2, 1)."""
+    over (2, 1); whether each built no program; whether it stepped."""
     _, ts, c = _splits("MNIST")
     out = {}
     for name, mesh, chains in (("chain", parallel.Mesh(2, 1), 2),
@@ -256,11 +256,12 @@ def _mesh_step_programs():
 
 
 def test_meshes_stay_eager(tmp_path):
-    """On any mesh of two ranks (gloo: its collectives are not captured)
-    the epoch samplers run ``train_steps``."""
+    """No mesh stays eager any more: on any mesh of two ranks the epoch
+    samplers run their program, a data mesh's step cut at its all-reduces
+    (``tests/test_torch_mesh_program.py`` holds it to ``train_steps``)."""
     for rank in _spawn("test_torch_epoch_program:_mesh_step_programs", 2,
                        pathlib.Path(tmp_path)):
-        assert rank == {k: ("eager", True, True) for k in ("chain", "data", "replicated")}
+        assert rank == {k: ("graph", False, True) for k in ("chain", "data", "replicated")}
 
 
 # -- the schedules in device form ------------------------------------------------------

@@ -46,8 +46,8 @@ def _hmc(name, c, split, chains, strategy, hyp=HYP, seed=0):
 
 
 def _hide_programs(sampler):
-    """``sampler`` on its plain potentials: the programs hidden, as on a
-    mesh (``step_program`` "eager")."""
+    """``sampler`` on its plain potentials: the programs hidden (an eager
+    twin)."""
     if isinstance(sampler, hmc.HMC):
         sampler.potential_program = lambda grad, batched: None
     else:
@@ -309,13 +309,12 @@ def test_pca_sample_through_programs_equals_eager(strategy):
     assert (set(programs) == {None}) == (strategy == "scan") and programs
 
 
-# -- (e) step_program: "graph" off a mesh, "eager" on one -------------------------
+# -- (e) step_program: "graph" off a mesh and on one -------------------------------
 
 def test_step_program_names_the_path():
-    """Off a mesh HMC and PCA-ESS report "graph" and build their programs;
-    on a mesh (one chain replicated over a (2, 1) chain axis) "eager", no
-    program, and the same ensemble bit for bit through the plain
-    potentials."""
+    """Off a mesh and on one (one chain replicated over a (2, 1) chain
+    axis) HMC and PCA-ESS report "graph" and build their programs, and
+    draw the same ensemble bit for bit."""
     _, ts_, c = _splits(synthetic_n_train=64)
     hmcs, pcas = {}, {}
     for where, mesh in (("off", None), ("on", _fake_mesh())):
@@ -326,9 +325,10 @@ def test_step_program_names_the_path():
         hmcs[where], pcas[where] = (h, h.sample()), (p, p.sample())
     for samplers in (hmcs, pcas):
         (off, want), (on, got) = samplers["off"], samplers["on"]
-        assert off.step_program == "graph" and on.step_program == "eager"
-        assert off._programs and all(p.steps_run for p in off._programs.values())
-        assert not on._programs and on.replicated
+        assert off.step_program == on.step_program == "graph"
+        for s in (off, on):
+            assert s._programs and all(p.steps_run for p in s._programs.values())
+        assert on.replicated and sorted(on._programs, key=str) == sorted(off._programs, key=str)
         assert all(torch.equal(got.state[k], v) for k, v in want.state.items())
-    assert hmcs["on"][0].potential_program(True, False) is None
-    assert pcas["on"][0].density_program(None) is None
+    assert hmcs["on"][0].potential_program(True, False) is hmcs["on"][0]._programs[("grad", False)]
+    assert pcas["on"][0].density_program(None) is pcas["on"][0]._programs[None]

@@ -115,6 +115,10 @@ def check_mesh(mesh, chains: int, batch_size: Optional[int], replicate: bool = F
 
 
 class _Inference:
+    # how the steps run: through the captured programs of ``engine``, off a
+    # mesh and on every mesh (``_EpochSampler``'s docstring)
+    step_program = "graph"
+
     def __init__(
         self,
         hyperparameters: Optional[dict],
@@ -286,26 +290,26 @@ class _EpochSampler(_Inference):
     mesh (ValueError otherwise).
 
     On a mesh ``self.modules`` are this rank's chains (``chain_ids``) and
-    ``self.chains`` counts every rank's; the epoch is ``engine.
-    train_steps``'s (or ``stream_steps``') sharded one.
+    ``self.chains`` counts every rank's; the epoch is the sharded one of
+    ``engine.train_steps`` (or ``stream_steps``).
 
-    ``step_program`` says how an epoch runs: ``"graph"``, through
+    ``step_program`` is ``"graph"``: every epoch runs through
     ``engine.make_epoch_fn``'s program, resident or streamed, with or
-    without dropout (its step captured once as a CUDA graph on the card and
-    replayed, a model with dropout drawing its masks into static buffers
-    before each replay; run eagerly on the CPU), or ``"eager"``, through
-    ``train_steps`` or ``stream_steps``, a step at a time from Python: by a
-    fixed rule, on a mesh (its collectives are not captured). The program
-    is built at the first epoch and again only when ``_state`` or ``_hyp``
-    is a new object (a sweep's) or the split's batches no longer fit it (a
+    without dropout, off a mesh or on any mesh (its step captured once as
+    a CUDA graph on the card and replayed, a model with dropout drawing its
+    masks into static buffers before each replay, a data mesh's step cut
+    at its all-reduces, which run between two replays; run eagerly on the
+    CPU). ``train_steps`` and ``stream_steps`` are its plain versions, run
+    only where ``epoch_program`` is hidden (an eager twin). The program is
+    built at the first epoch and again only when ``_state`` or ``_hyp`` is
+    a new object (a sweep's) or the split's batches no longer fit it (a
     stream of another transfer layout); update_hyp, the noise gate, a
     second ``sample()``, a checkpoint restore and a stream of the same
     layout in place of the split keep it. The full-batch samplers, which
-    run no epochs, follow the same rule for their potentials: HMC's
-    ``step_program`` and the PCA subspace sampler's are ``"graph"`` off a
-    mesh, where every CE sum, gradient and log density runs through
-    ``engine.make_potential_fn``'s programs, and ``"eager"`` on one, where
-    they run their plain versions with the mesh's all-reduces."""
+    run no epochs, follow the same rule for their potentials: HMC's and
+    the PCA subspace sampler's CE sums, gradients and log densities run
+    through ``engine.make_potential_fn``'s programs, on a mesh followed by
+    their one all-reduce over 'data'."""
 
     _HYP_KEYS: tuple = ()
     _LR_FN = None  # (hyp, epoch, batch_idx, step) -> lr
@@ -372,19 +376,11 @@ class _EpochSampler(_Inference):
         """The host generator of the steps' noise seeds of run ``run``."""
         return torch.Generator().manual_seed(derive_seed(run, "noise"))
 
-    @property
-    def step_program(self) -> str:
-        """``"graph"`` or ``"eager"``: how the next epoch runs (class
-        docstring)."""
-        return "eager" if self.mesh is not None else "graph"
-
     def epoch_program(self):
         """The ``engine.make_epoch_fn`` program of the epochs, resident or
-        streamed (None when ``step_program`` is ``"eager"``), built on
-        first use and rebuilt when ``_state``, ``_hyp`` or the chain
-        strategy is a new one, or the split no longer fits it."""
-        if self.step_program != "graph":
-            return None
+        streamed, on the sampler's mesh, built on first use and rebuilt when
+        ``_state``, ``_hyp`` or the chain strategy is a new one, or the
+        split no longer fits it."""
         prog, split = self._program, self.train
         if (prog is None or prog.state is not self._state or prog.hyp is not self._hyp
                 or prog.chain_strategy != self._resolved_chain_strategy
@@ -392,7 +388,7 @@ class _EpochSampler(_Inference):
             self._program = make_epoch_fn(
                 self._state, split, self._images, self._labels, hyp=self._hyp,
                 noise_on=self._noise_gate, lr_fn=self._LR_FN, update_fn=self._UPDATE_FN,
-                chain_strategy=self._resolved_chain_strategy)
+                chain_strategy=self._resolved_chain_strategy, mesh=self.mesh)
         return self._program
 
     def _run_epoch(self, noise_on: Optional[bool] = None) -> torch.Tensor:
@@ -416,7 +412,7 @@ class _EpochSampler(_Inference):
         dropout_seeds = ([s for gen, rows in self._dropout_gens
                           for s in torch.randint(0, 2 ** 63 - 1, (rows,), generator=gen).tolist()
                           ][self._dropout_rows] if self._has_dropout else None)
-        program = self.epoch_program()
+        program = self.epoch_program()  # None only where a test hides it: the plain path
         if program is not None:
             loss = program(split if self._streamed else idx, epoch=self.epochs_run, seeds=seeds,
                            aug=aug, dropout_seeds=dropout_seeds)

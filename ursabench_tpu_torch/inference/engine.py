@@ -19,7 +19,7 @@ the batch plan: each transfer is copied into a static buffer and the one
 captured step replayed once for each of its batches. ``train_steps`` runs
 the resident epoch step by step from Python (``train_step``, the step
 from normalize on) and ``stream_steps`` the streamed one: the programs'
-plain versions, and the path of device meshes.
+plain versions.
 
 C chains each have their own module (and so their own BatchNorm buffers),
 batch plan, crops, flips and dropout streams. Their parameters, momenta and
@@ -44,8 +44,9 @@ The gradient buffer is zeroed with ``zero_()`` before each step, never set
 to None.
 
 On a device mesh (``parallel.Mesh``, the ``mesh`` argument of the three step
-functions and of ``stream_steps``, whose split streams a data rank's rows
-of every batch) the state is one rank's block of chains (``TrainState.row_offset``
+functions, of ``stream_steps`` and of the three program makers, whose
+split streams a data rank's rows of every batch) the state is one rank's
+block of chains (``TrainState.row_offset``
 and ``total_rows`` place it in the global buffer, so K1 draws that block's
 noise) and every step follows the JAX package's sharded epoch
 (``ursabench_tpu/inference/engine.py:317-480``): each data rank of a chain
@@ -61,7 +62,15 @@ replicas stay equal; each data rank draws its own dropout stream (JAX's
 (chains, batches, batch) plan, and a data rank takes its slice of them, so
 a sharded epoch equals the one-process epoch up to the order of the sums
 (the JAX package folds ``data_idx`` into its augmentation key instead: the
-same distribution through another stream).
+same distribution through another stream). The programs run the same
+sharded step, as the JAX package jits its ``shard_map``: on a chain mesh
+it has no collective and is captured as it is; on a data mesh it is cut
+at its collectives (``_Captured``): the forward, backward and BatchNorm
+fold are one captured segment, the all-reduces of the gradient buffer
+and of one static buffer a dtype holding the losses and the running
+statistics (``parallel.mesh.StaticReduce``) run eagerly between its
+replay and the second segment's, which averages the statistics and runs
+the update.
 
 ``bn_refresh`` recomputes BatchNorm's running statistics with one exact
 pass over a split; ``eval_loss`` is the mean cross entropy over a split in
@@ -93,6 +102,7 @@ from ..data.transforms import ImageSpec, augment_normalized, normalize
 from ..kernels import launches
 from ..models.common import (BatchNorm2d, batch_stats_out, dropout_calls, dropout_generator,
                              dropout_layers, dropout_masks)
+from ..parallel.mesh import StaticReduce
 from ..util import StateDict, make_generator
 
 if TYPE_CHECKING:
@@ -598,18 +608,28 @@ class _Captured:
 
     ``_step`` reads every input from the device (static buffers and device
     counters that it advances), so a replay computes what an eager step
-    would from the buffers' current values. ``pool`` returns, when the step
-    is captured, the memory pool of a live graph of other programs that
-    never run at the same time (``CUDAGraph.pool()``), to share it, or None
-    for a private pool. ``captures``
-    counts the captures, ``capture_ms`` is the last one's time on the host
-    clock, ``pool_bytes`` what the allocator reserved for the graph's pool
-    in it (its intermediates), ``steps_run`` the steps run."""
+    would from the buffers' current values. A step with collectives (a
+    program on a data mesh) is cut there into two segments, ``_step`` and
+    ``_step_after``, with the eager ``_hook`` between them (its
+    all-reduces): each segment is captured once into its own graph, the
+    second sharing the first's pool, and a step replays the first, runs the
+    hook on the current stream (a warm-up step: on the side stream) and
+    replays the second. What crosses the cut lies in static buffers. A step
+    without a hook is one graph. ``pool`` returns, when the step is
+    captured, the memory pool of a live graph of other programs that never
+    run at the same time (``CUDAGraph.pool()``), to share it, or None for a
+    private pool. ``captures`` counts the captures (one for both segments),
+    ``segments`` is 1 or 2, ``capture_ms`` is the last capture's time on the
+    host clock, ``pool_bytes`` what the allocator reserved for the graphs'
+    pool in it (their intermediates), ``steps_run`` the steps run."""
+
+    _hook: Optional[Callable[[], None]] = None
 
     def __init__(self, device: torch.device, pool: Callable[[], object] = lambda: None):
         self.device = device
         self.pool = pool
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_after: Optional[torch.cuda.CUDAGraph] = None
         self.captures = 0
         self.capture_ms: Optional[float] = None
         self.pool_bytes: Optional[int] = None
@@ -623,25 +643,44 @@ class _Captured:
         """``"graph"`` on the card, ``"eager"`` on the CPU."""
         return "eager" if self._side is None else "graph"
 
+    @property
+    def segments(self) -> int:
+        """The step's captured segments: 2 with a hook between them, else 1."""
+        return 1 if self._hook is None else 2
+
     def _step(self) -> None:
         raise NotImplementedError
+
+    def _step_after(self) -> None:
+        """The step's second segment, after the hook."""
+        raise NotImplementedError
+
+    def _run_step(self) -> None:
+        """The whole step, uncaptured, on the current stream."""
+        self._step()
+        if self._hook is not None:
+            self._hook()
+            self._step_after()
 
     def _advance(self, eager: bool = False) -> None:
         """One step: a replay, or a warm-up step and the capture first; with
         ``eager`` (and on the CPU) the step itself on the current stream."""
         if eager or self._side is None:
-            self._step()
+            self._run_step()
         elif self.graph is None and self._warmed < WARMUP_STEPS:
             current = torch.cuda.current_stream(self.device)
             self._side.wait_stream(current)  # a warm-up step, on a side stream as a capture wants
             with torch.cuda.stream(self._side):
-                self._step()
+                self._run_step()
             current.wait_stream(self._side)
             self._warmed += 1
         else:
             if self.graph is None:
                 self._capture()
             self.graph.replay()
+            if self._hook is not None:
+                self._hook()
+                self._graph_after.replay()
             launches.replayed(self._captured_launches)
         self.steps_run += 1
 
@@ -656,6 +695,7 @@ class _Captured:
         reserved = torch.cuda.memory_reserved(self.device)  # the pool maps segments of its own
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        after = None if self._hook is None else torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -665,6 +705,12 @@ class _Captured:
                     self._step()
                 finally:
                     graph.capture_end()
+                if after is not None:  # always replayed after the first: it may reuse its memory
+                    after.capture_begin(pool=graph.pool())
+                    try:
+                        self._step_after()
+                    finally:
+                        after.capture_end()
         finally:
             if collecting:
                 gc.enable()
@@ -672,7 +718,7 @@ class _Captured:
         torch.cuda.synchronize(self.device)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.graph = graph
+        self.graph, self._graph_after = graph, after
         self.captures += 1
 
 
@@ -691,11 +737,13 @@ class _ChainMasks:
     generator for the batch, layer after layer, as ``train_step`` draws
     them (``_dropout_gen``); ``per_chain[c]`` binds chain c's layers to its
     rows (``dropout_masks``, the scan step), ``batched`` chain 0's layers to
-    the whole buffers (the vmap step). Empty without active dropout."""
+    the whole buffers (the vmap step). Empty without active dropout. On a
+    data mesh ``batch_size`` is the rank's rows and each data rank draws
+    its own stream, as ``train_step`` does."""
 
     def __init__(self, modules: Sequence[nn.Module], spec: ImageSpec, batch_size: int,
-                 device: torch.device):
-        self.device = device
+                 device: torch.device, mesh: Optional["Mesh"] = None):
+        self.device, self.mesh = device, mesh
         self.calls = [_dropout_probe(m, spec, batch_size, training=True) for m in modules]
         self.masks = [torch.zeros((len(modules),) + shape, dtype=torch.bool, device=device)
                       for _, shape in self.calls[0]]
@@ -706,7 +754,7 @@ class _ChainMasks:
     def draw(self, seeds: Sequence[int], batch_idx: int) -> None:
         for c, calls in enumerate(self.calls):
             _draw_into([m[c] for m in self.masks], calls,
-                       _dropout_gen(self.device, seeds[c], batch_idx, None))
+                       _dropout_gen(self.device, seeds[c], batch_idx, self.mesh))
 
 
 class _TrainProgram(_Captured):
@@ -726,20 +774,34 @@ class _TrainProgram(_Captured):
     learning rate from the epoch, batch and step counters, the first-step
     flag from the global one on the device, the update (K1 reads its seed,
     ``seeds[i]``, from device memory), the losses into row i, both counters
-    advanced. Nothing in the step reads the host or copies from it."""
+    advanced. Nothing in the step reads the host or copies from it.
+
+    On a device mesh (``mesh``) the state is the rank's block of chains
+    and ``batch_size`` the rank's rows of a batch; a call takes the draws
+    of the whole batch and keeps this rank's columns (``mesh.data_rows``),
+    as ``train_steps`` does. On a data mesh the step is ``train_step``'s
+    sharded one, cut at its collectives: the first segment runs the
+    forward and backward (the BatchNorm statistics folded) and packs the
+    losses and the running statistics into the static buffers of a
+    ``parallel.mesh.StaticReduce``; the hook all-reduces the gradient
+    buffer and those buffers over 'data' (one collective a dtype); the
+    second segment unpacks them (the statistics' mean copied back) and runs
+    the update. A chain mesh's step has no collective and stays one
+    graph."""
 
     chain_strategy: Optional[str] = None
 
     def __init__(self, state: TrainState, *, spec: ImageSpec, num_batches: int, batch_size: int,
-                 hyp: dict, noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn):
+                 hyp: dict, noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn,
+                 mesh: Optional["Mesh"] = None):
         device = state.params.device
         super().__init__(device)
         chains = len(state.modules)
-        shape = (chains, num_batches, batch_size)
+        self.shape = (chains, num_batches, batch_size)
         self.state, self.hyp, self.noise_on, self.spec = state, hyp, noise_on, spec
-        self.lr_fn, self.update_fn = lr_fn, update_fn
+        self.lr_fn, self.update_fn, self.mesh = lr_fn, update_fn, mesh
         crop = spec.random_crop_pad > 0
-        self.aug = (tuple(torch.zeros(shape, dtype=dt, device=device) if on else None
+        self.aug = (tuple(torch.zeros(self.shape, dtype=dt, device=device) if on else None
                           for on, dt in ((crop, torch.int64), (crop, torch.int64),
                                          (spec.random_flip, torch.bool)))
                     if spec.augments else None)
@@ -748,8 +810,17 @@ class _TrainProgram(_Captured):
         self.batch = torch.zeros((), dtype=torch.int64, device=device)  # in the epoch
         self.step = torch.zeros((), dtype=torch.int64, device=device)  # global
         self.losses = torch.zeros((num_batches, chains), dtype=state.params.dtype, device=device)
-        self.dropout = _ChainMasks(state.modules, spec, batch_size, device)
+        self.dropout = _ChainMasks(state.modules, spec, batch_size, device, mesh)
         self._dropout_seeds: Optional[Sequence[int]] = None
+        self._reduce = None  # the data mesh's StaticReduce, made at the first step
+        if _data_shards(mesh) > 1:
+            self._hook = self._exchange
+
+    def _columns(self, t: torch.Tensor) -> torch.Tensor:
+        """Draws of whole batches as (C, num_batches, batch), this rank's
+        columns of each batch on a data mesh."""
+        t = t.reshape(self.shape[:2] + (-1,))
+        return t if self.mesh is None else t[..., self.mesh.data_rows(t.shape[-1])]
 
     def _begin(self, *, epoch: int, seeds, aug: Optional[tuple],
                dropout_seeds: Optional[Sequence[int]]) -> None:
@@ -760,7 +831,7 @@ class _TrainProgram(_Captured):
         if self.aug is not None:
             for buf, a in zip(self.aug, aug):
                 if buf is not None:
-                    buf.copy_(a.reshape(buf.shape))
+                    buf.copy_(self._columns(a))
         seeds = torch.as_tensor(seeds, dtype=torch.int64)
         if self._side is not None:  # no wait for the card: a pinned, asynchronous copy
             seeds = seeds.pin_memory()
@@ -785,8 +856,28 @@ class _TrainProgram(_Captured):
             return None
         return tuple(None if a is None else a.index_select(1, i).squeeze(1) for a in self.aug)
 
-    def _update(self, losses: torch.Tensor, i: torch.Tensor) -> None:
-        state = self.state
+    def _finish(self, losses: torch.Tensor) -> None:
+        """The end of the first segment: the update, or on a data mesh the
+        losses and the BatchNorm statistics packed for the hook."""
+        if self._hook is None:
+            self._update(losses)
+            return
+        if self._reduce is None:
+            self._reduce = StaticReduce(self.mesh, "data", [losses], self.state.bn_buffers())
+        self._reduce.pack([losses])
+
+    def _exchange(self) -> None:
+        """The hook of a data mesh: the gradient buffer and the packed
+        buffers summed over 'data', in place (``_reduce_over_data``'s
+        collectives)."""
+        self.mesh.all_reduce(self.state.grads, "data")
+        self._reduce.reduce()
+
+    def _step_after(self) -> None:
+        self._update(self._reduce.unpack()[0])
+
+    def _update(self, losses: torch.Tensor) -> None:
+        state, i = self.state, self.batch.view(1)
         lr = self.lr_fn(self.hyp, self.epoch, self.batch, self.step)
         self.update_fn(state, self.hyp, lr=lr, noise_on=self.noise_on,
                        is_first_step=self.step == 0, seed=self.seeds.index_select(0, i))
@@ -809,35 +900,40 @@ class _EpochProgram(_TrainProgram):
     counter, gathers, normalizes, augments and permutes to NCHW, runs the
     forward, cross entropy and backward (each chain in turn, or every chain
     as one batched pass under ``"vmap"``) with the masks bound, and ends in
-    the update (``_TrainProgram``)."""
+    the update (``_TrainProgram``; on a data mesh after the hook's
+    all-reduces)."""
 
     def __init__(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor, *,
                  spec: ImageSpec, num_batches: int, batch_size: int, hyp: dict,
                  noise_on: torch.Tensor, lr_fn: LrFn, update_fn: UpdateFn,
-                 chain_strategy: Optional[str] = None):
-        super().__init__(state, spec=spec, num_batches=num_batches, batch_size=batch_size,
-                         hyp=hyp, noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn)
+                 chain_strategy: Optional[str] = None, mesh: Optional["Mesh"] = None):
+        shards = _data_shards(mesh)
+        if batch_size % shards:
+            raise ValueError(f"a batch of {batch_size} does not split over {shards} data ranks")
+        super().__init__(state, spec=spec, num_batches=num_batches,
+                         batch_size=batch_size // shards, hyp=hyp, noise_on=noise_on,
+                         lr_fn=lr_fn, update_fn=update_fn, mesh=mesh)
         self.images, self.labels, self.chain_strategy = images, labels, chain_strategy
-        self.plan = torch.zeros((len(state.modules), num_batches, batch_size), dtype=torch.int64,
-                                device=self.device)
+        self.batch_size = batch_size
+        self.plan = torch.zeros(self.shape, dtype=torch.int64, device=self.device)
 
     def fits(self, split) -> bool:
         """Whether ``split``'s epochs take this program (its batches and spec)."""
-        return (self.plan.shape[1:] == (split.num_batches, split.batch_size)
+        return ((self.shape[1], self.batch_size) == (split.num_batches, split.batch_size)
                 and self.spec == split.spec)
 
     def __call__(self, idx: torch.Tensor, *, epoch: int, seeds, aug: Optional[tuple] = None,
                  dropout_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
         """One epoch of every chain, in place, from this epoch's draws (as
         ``train_steps`` takes them: ``idx`` (C, num_batches, batch) or, for
-        one chain, (num_batches, batch); ``aug`` shaped like it; ``seeds``
-        the (num_batches,) int64 noise seeds, a tensor or a list;
-        ``dropout_seeds[c]`` chain c's dropout seed, needed by a model with
-        dropout only). Returns the mean training loss, a 0-dim tensor for
-        one chain and (C,) for C, on the device; advances ``state.step`` by
-        the epoch's steps."""
-        chains, num_batches, _ = self.plan.shape
-        self.plan.copy_(idx.reshape(self.plan.shape))
+        one chain, (num_batches, batch), whole batches also on a data mesh;
+        ``aug`` shaped like it; ``seeds`` the (num_batches,) int64 noise
+        seeds, a tensor or a list; ``dropout_seeds[c]`` chain c's dropout
+        seed, needed by a model with dropout only). Returns the mean
+        training loss, a 0-dim tensor for one chain and (C,) for C, on the
+        device; advances ``state.step`` by the epoch's steps."""
+        chains, num_batches, _ = self.shape
+        self.plan.copy_(self._columns(idx))
         self._begin(epoch=epoch, seeds=seeds, aug=aug, dropout_seeds=dropout_seeds)
         for i in range(num_batches):
             self._run(i)
@@ -846,14 +942,14 @@ class _EpochProgram(_TrainProgram):
         return mean[0] if chains == 1 else mean
 
     def _step(self) -> None:
-        """The step that the graph captures; every input is read from the
-        device."""
+        """The step (on a data mesh its first segment) that the graph
+        captures; every input is read from the device."""
         state = self.state
         state.grads.zero_()
         i = self.batch.view(1)
         rows = self.plan.index_select(1, i).squeeze(1)  # (C, batch)
         aug = self._step_aug(i)
-        kw = dict(spec=self.spec, batch_idx=None, dropout_seeds=None, mesh=None)
+        kw = dict(spec=self.spec, batch_idx=None, dropout_seeds=None, mesh=self.mesh)
         if self.chain_strategy == "vmap":
             losses = _vmap_loss_backward(state, self.images, self.labels, rows, aug=aug,
                                          masks=self.dropout.batched, **kw)
@@ -862,28 +958,29 @@ class _EpochProgram(_TrainProgram):
                        for r in rows]
             losses = _chains_loss_backward(state, batches, aug=_per_chain(aug, len(batches)),
                                            masks=self.dropout.per_chain, **kw)
-        self._update(losses, i)
+        self._finish(losses)
 
 
 def make_epoch_fn(state: TrainState, split, images: Optional[torch.Tensor] = None,
                   labels: Optional[torch.Tensor] = None, *, hyp: dict, noise_on: torch.Tensor,
-                  lr_fn: LrFn, update_fn: UpdateFn,
-                  chain_strategy: Optional[str] = None) -> _TrainProgram:
-    """The epoch program (the JAX package's ``make_epoch_fn``) of
-    ``state``'s chains: over a resident ``split`` whose ``images`` and
-    ``labels`` lie on their device, one chain, or C chains in turn or, with
-    ``chain_strategy`` ``"vmap"``, batched, in the split's batches and with
-    the crops and flips its spec draws; a split with ``epoch`` (a
-    ``data.native.HostStreamingSplit``) goes to ``make_streaming_step_fn``
-    or, with M > 1 batches a transfer, ``make_streaming_chunk_fn``. Device
-    meshes take ``train_steps`` and ``stream_steps`` instead."""
+                  lr_fn: LrFn, update_fn: UpdateFn, chain_strategy: Optional[str] = None,
+                  mesh: Optional["Mesh"] = None) -> _TrainProgram:
+    """The epoch program (the JAX package's ``make_epoch_fn``, or on a
+    ``mesh`` its ``_make_sharded_epoch_fn``) of ``state``'s chains: over a
+    resident ``split`` whose ``images`` and ``labels`` lie on their device,
+    one chain, or C chains in turn or, with ``chain_strategy`` ``"vmap"``,
+    batched, in the split's batches and with the crops and flips its spec
+    draws; a split with ``epoch`` (a ``data.native.HostStreamingSplit``,
+    made with the same mesh) goes to ``make_streaming_step_fn`` or, with
+    M > 1 batches a transfer, ``make_streaming_chunk_fn``."""
     if hasattr(split, "epoch"):
         maker = make_streaming_chunk_fn if split.chunk_batches > 1 else make_streaming_step_fn
-        return maker(state, split, hyp=hyp, noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn)
+        return maker(state, split, hyp=hyp, noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn,
+                     mesh=mesh)
     return _EpochProgram(state, images, labels, spec=split.spec,
                          num_batches=split.num_batches, batch_size=split.batch_size, hyp=hyp,
                          noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn,
-                         chain_strategy=chain_strategy)
+                         chain_strategy=chain_strategy, mesh=mesh)
 
 
 # transfers the host may queue ahead of the card in a streamed program: each
@@ -893,7 +990,8 @@ STREAM_AHEAD = 2
 
 def _transfer_layout(split) -> tuple:
     """``(shape, dtype, num_batches)`` of a streamed split's transfers: (M,
-    batch, H, W, C) uint8 or float32, and the batches of an epoch."""
+    batch, H, W, C) uint8 or float32 (a data rank's rows of each batch),
+    and the batches of an epoch."""
     shape = (split.chunk_batches, split.local_batch) + tuple(split.images.shape[1:])
     dtype = torch.uint8 if split.transfer_dtype == "uint8" else torch.float32
     return shape, dtype, split.num_batches
@@ -917,19 +1015,22 @@ class _StreamProgram(_TrainProgram):
     ``i % M`` of the transfer, for the epoch's batch counter i, normalized
     on the device (uint8) or taken as it is (float32), row i of the crops
     and flips; forward, cross entropy and backward with the masks bound;
-    then the update (``_TrainProgram``). One step is captured and replayed
-    M times a transfer, whatever M. The host runs at most ``STREAM_AHEAD``
-    transfers ahead of the card. The epoch's loss is the mean of the
-    transfers' mean losses, reduced as ``stream_steps`` reduces it."""
+    then the update (``_TrainProgram``; on a data mesh, whose split streams
+    the rank's rows of every batch, after the hook's all-reduces). One step
+    is captured and replayed M times a transfer, whatever M. The host runs
+    at most ``STREAM_AHEAD`` transfers ahead of the card. The epoch's loss
+    is the mean of the transfers' mean losses, reduced as ``stream_steps``
+    reduces it."""
 
     def __init__(self, state: TrainState, split, *, hyp: dict, noise_on: torch.Tensor,
-                 lr_fn: LrFn, update_fn: UpdateFn):
+                 lr_fn: LrFn, update_fn: UpdateFn, mesh: Optional["Mesh"] = None):
         if len(state.modules) != 1:
             raise ValueError("host-streaming epochs are single-chain")
         self.layout = _transfer_layout(split)
         shape, dtype, num_batches = self.layout
         super().__init__(state, spec=split.spec, num_batches=num_batches, batch_size=shape[1],
-                         hyp=hyp, noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn)
+                         hyp=hyp, noise_on=noise_on, lr_fn=lr_fn, update_fn=update_fn,
+                         mesh=mesh)
         self.x = torch.zeros(shape, dtype=dtype, device=self.device)
         self.y = torch.zeros(shape[:2], dtype=torch.int64, device=self.device)
 
@@ -970,40 +1071,45 @@ class _StreamProgram(_TrainProgram):
         return torch.stack(chunk_means).mean(0)[0]
 
     def _step(self) -> None:
-        """The step that the graph captures; every input is read from the
-        device."""
+        """The step (on a data mesh its first segment) that the graph
+        captures; every input is read from the device."""
         self.state.grads.zero_()
         i = self.batch.view(1)
         row = torch.remainder(i, self.x.shape[0])
         batch = (self.x.index_select(0, row).squeeze(0), self.y.index_select(0, row).squeeze(0))
         losses = _chains_loss_backward(
             self.state, [batch], spec=self.spec, batch_idx=None,
-            aug=_per_chain(self._step_aug(i), 1), dropout_seeds=None, mesh=None,
+            aug=_per_chain(self._step_aug(i), 1), dropout_seeds=None, mesh=self.mesh,
             masks=self.dropout.per_chain)
-        self._update(losses, i)
+        self._finish(losses)
 
 
 def make_streaming_step_fn(state: TrainState, split, *, hyp: dict, noise_on: torch.Tensor,
-                           lr_fn: LrFn, update_fn: UpdateFn) -> _StreamProgram:
+                           lr_fn: LrFn, update_fn: UpdateFn,
+                           mesh: Optional["Mesh"] = None) -> _StreamProgram:
     """The streamed epoch of one chain over a ``HostStreamingSplit`` that
     moves a batch a transfer, as one program (the JAX package's
-    ``make_streaming_step_fn``, one compiled step a batch, with its
-    ``run_streaming_epoch``): ``fn(split, epoch=, seeds=, aug=,
-    dropout_seeds=)`` runs an epoch as ``stream_steps`` does."""
+    ``make_streaming_step_fn``, one compiled step a batch, or on a data
+    ``mesh``, whose rows the split streams, its
+    ``make_sharded_streaming_step_fn``, with its ``run_streaming_epoch``):
+    ``fn(split, epoch=, seeds=, aug=, dropout_seeds=)`` runs an epoch as
+    ``stream_steps`` does."""
     if split.chunk_batches != 1:
         raise ValueError(f"{split.chunk_batches} batches a transfer: use make_streaming_chunk_fn")
     return _StreamProgram(state, split, hyp=hyp, noise_on=noise_on, lr_fn=lr_fn,
-                          update_fn=update_fn)
+                          update_fn=update_fn, mesh=mesh)
 
 
 def make_streaming_chunk_fn(state: TrainState, split, *, hyp: dict, noise_on: torch.Tensor,
-                            lr_fn: LrFn, update_fn: UpdateFn) -> _StreamProgram:
+                            lr_fn: LrFn, update_fn: UpdateFn,
+                            mesh: Optional["Mesh"] = None) -> _StreamProgram:
     """The chunked streamed epoch (the JAX package's
     ``make_streaming_chunk_fn``, one compiled scan over a staged chunk of M
-    batches): the same program as ``make_streaming_step_fn``'s, its one
-    captured step replayed M times a transfer."""
+    batches, or on a data ``mesh`` its ``make_sharded_streaming_chunk_fn``):
+    the same program as ``make_streaming_step_fn``'s, its one captured step
+    replayed M times a transfer."""
     return _StreamProgram(state, split, hyp=hyp, noise_on=noise_on, lr_fn=lr_fn,
-                          update_fn=update_fn)
+                          update_fn=update_fn, mesh=mesh)
 
 
 def stream_steps(

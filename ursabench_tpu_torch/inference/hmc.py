@@ -17,9 +17,9 @@ TF32 is off inside every potential and gradient evaluation (the flags are
 restored after): the accept compares energy differences built from float32
 gradients, as in the JAX package.
 
-Off a mesh (``step_program`` ``"graph"``) the potential is a program
-(``engine.make_potential_fn``, the counterpart of the JAX package's scan
-over the data inside its compiled chunk): theta is copied into the static
+The potential is a program (``engine.make_potential_fn``, the counterpart
+of the JAX package's scan over the data inside its compiled chunk, off a
+mesh and on one: ``step_program`` ``"graph"``): theta is copied into the static
 flat parameter buffer, and one index batch's step (gather by a device
 counter, normalize, forward, the masked CE sum, backward into the flat
 gradient buffer, the Kahan update) is replayed once a batch; on the card it
@@ -29,8 +29,8 @@ chain's theta (C chains in turn share it) or for (C, P) under ``"vmap"``.
 A model with dropout on in eval mode draws each batch's masks into static
 buffers before its replay. The leapfrog arithmetic and the accept stay as
 a few eager device operations between gradients. ``_ce_sum`` and
-``_ce_sums`` run the same steps from Python: the programs' plain versions,
-and the path of a mesh.
+``_ce_sums`` run the same steps from Python: the programs' plain versions
+(run only where a test hides the programs).
 
 Each trajectory is the half-step leapfrog, one gradient per step. The last
 step's gradient pass also yields the CE sum at the proposal, which the
@@ -58,8 +58,10 @@ On a device mesh (``mesh``) the potential is data-parallel, as in the JAX
 package: ``grad_batch`` is rounded down to a multiple of the data axis
 (``max(data, bsz - bsz % data)``), and each data rank takes its
 ``bsz / data`` columns of every index batch, Kahan-sums its own cross
-entropy and backpropagates it into its own gradient buffer; one
-all-reduce over 'data' of the CE sums and the gradient buffer then gives
+entropy and backpropagates it into its own gradient buffer (the
+potential's program replays over the rank's columns, as off a mesh); one
+all-reduce over 'data' of the CE sums and the gradient buffer, outside
+any graph, once a potential as the JAX package's one ``psum``, then gives
 every data rank the full-batch sum and gradient (the all-reduce of local
 gradients, never a gradient through a collective). The chains block over
 'chain' (``mesh.chain_block``) where the chain axis divides them; one
@@ -175,26 +177,16 @@ class HMC(_Inference):
 
     # -- potential ---------------------------------------------------------------
 
-    @property
-    def step_program(self) -> str:
-        """How the potential runs: ``"graph"`` off a mesh, through
-        ``engine.make_potential_fn``'s programs (``potential_program``: on
-        the card one index batch's step captured once and replayed a batch
-        at a time, on the CPU run eagerly); ``"eager"`` on a mesh, through
-        ``_ce_sum`` and ``_ce_sums`` with their all-reduce over 'data'
-        (gloo's collectives are not captured)."""
-        return "eager" if self.mesh is not None else "graph"
-
     def potential_program(self, grad: bool, batched: bool):
-        """The potential's program (None when ``step_program`` is
-        ``"eager"``): the CE sum with its gradient (``grad``) or alone, at
-        one chain's (P,) theta or, ``batched``, at every chain's (C, P)
-        under ``"vmap"``. Built at first use, kept across draws, samples
-        and an ``update_hyp`` that keeps the index batches' shape; the
-        programs share the pool of one that is captured (they share
-        ``_params`` and never run at once)."""
-        if self.step_program != "graph":
-            return None
+        """The potential's program (``engine.make_potential_fn``: on the
+        card one index batch's step captured once and replayed a batch at a
+        time, on the CPU run eagerly; on a data mesh over this rank's
+        columns): the CE sum with its gradient (``grad``) or alone, at one
+        chain's (P,) theta or, ``batched``, at every chain's (C, P) under
+        ``"vmap"``. Built at first use, kept across draws, samples and an
+        ``update_hyp`` that keeps the index batches' shape; the programs
+        share the pool of one that is captured (they share ``_params`` and
+        never run at once)."""
         key = ("grad" if grad else "ce", batched)
         prog = self._programs.get(key)
         if prog is None:
@@ -283,16 +275,17 @@ class HMC(_Inference):
 
     def _ce(self, theta: torch.Tensor, grad: bool) -> torch.Tensor:
         """The CE sum at ``theta``, (P,), or every chain's at once from (C,
-        P) under ``"vmap"``: through the potential's program, or through
-        ``_ce_sum`` / ``_ce_sums`` where ``step_program`` is ``"eager"``;
-        with ``grad`` its gradient is left in ``self._grads`` /
-        ``self._chain_grads``."""
+        P) under ``"vmap"``: through the potential's program and, on a data
+        mesh, its all-reduce (``_reduce``), or through ``_ce_sum`` /
+        ``_ce_sums`` where a test hides the program; with ``grad`` its
+        gradient is left in ``self._grads`` / ``self._chain_grads``."""
         batched = theta.dim() == 2
         prog = self.potential_program(grad, batched)
         if prog is None:
             return (self._ce_sums if batched else self._ce_sum)(theta, grad)
         with float32_matmuls():
-            return prog(theta)
+            total = prog(theta)
+        return self._reduce(total, self._chain_grads if batched else self._grads, grad)
 
     def _grad_u(self, theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(CE sum, gradient of the potential) at ``theta``: (P,) for one

@@ -16,18 +16,18 @@ of the cross entropy. It runs on the SWA's evaluation module, whose
 running statistics the train-mode forwards overwrite and which
 ``SWA._variables_at`` copies again from the trained ones before every
 member: the trained statistics themselves are never written. Every bracket
-proposal is one full-data pass and one host read. Off a mesh
-(``step_program`` ``"graph"``) the pass is a program (``engine.
-make_potential_fn``'s "density" variant, the counterpart of the densities
-inside the JAX package's compiled transition): the weights are copied into
+proposal is one full-data pass and one host read. The pass is a program
+(``engine.make_potential_fn``'s "density" variant, the counterpart of the
+densities inside the JAX package's compiled transition, off a mesh and on
+one: ``step_program`` ``"graph"``): the weights are copied into
 a static buffer and one batch's step (gather by a device counter,
 normalize, the train-mode forward, the masked CE sum) is replayed once a
 batch, captured once as a CUDA graph on the card and run eagerly on the
 CPU; one program serves ``lnpdf`` and one each row count of
 ``lnpdf_chains``. The bracket loop stays on the host: its trip count
 depends on the data. ``_plain_lnpdf`` and ``_plain_lnpdf_chains`` run the
-same steps from Python: the programs' plain versions, and the path of a
-mesh.
+same steps from Python: the programs' plain versions (run only where a
+test hides the programs).
 
 Each chain draws its prior samples and bracket uniforms from its own CPU
 generator (seeded ``derive_seed(run, "ess", c)``, the counterpart of the JAX
@@ -50,8 +50,11 @@ replicated, every chain row running all of them (the JAX package's
 ``c_ax = None``), each chain with its generator ``ess<c>`` of its global
 chain id; the log density is data-parallel, each data rank taking its
 columns of every batch (the batch rounded down to a multiple of the data
-axis) and one all-reduce over 'data' summing the cross entropy. ESS has no
-gradient, so that value is the whole of the reduction. The batch
+axis: the density's program replays over the rank's columns) and one
+all-reduce over 'data', outside any graph, summing the cross entropy,
+once a density as the JAX package's one ``psum``. ESS has no gradient, so
+that value is the whole of the reduction. The data-parallel SWA phase
+runs its epochs through the sharded epoch program. The batch
 statistics are then
 each data rank's own, as under JAX's ``shard_map``: on a BatchNorm net a
 data mesh evaluates another (local-statistics) density than one process.
@@ -138,25 +141,16 @@ class PCASubspaceSampler(_Inference):
 
     # -- the tempered full-data log density -------------------------------------
 
-    @property
-    def step_program(self) -> str:
-        """How the log density runs: ``"graph"`` off a mesh, through
-        ``engine.make_potential_fn``'s "density" programs
-        (``density_program``: on the card one batch's step captured once
-        and replayed a batch at a time, on the CPU run eagerly);
-        ``"eager"`` on a mesh, through ``_plain_lnpdf`` and
-        ``_plain_lnpdf_chains`` with their all-reduce over 'data'."""
-        return "eager" if self.mesh is not None else "graph"
-
     def density_program(self, rows: Optional[int]):
-        """The log density's program (None when ``step_program`` is
-        ``"eager"``): on the SWA's evaluation module's own flat weights
-        (``rows`` None, ``lnpdf``), or on a static (rows, P) buffer as one
-        ``ChainForward`` (``lnpdf_chains`` at ``rows`` chains). One program
-        a row count, built at first use and kept across draws; they share
-        the pool of one that is captured (they never run at once)."""
-        if self.step_program != "graph":
-            return None
+        """The log density's program (``engine.make_potential_fn``'s
+        "density" variant: on the card one batch's step captured once and
+        replayed a batch at a time, on the CPU run eagerly; on a data mesh
+        over this rank's columns): on the SWA's evaluation module's own
+        flat weights (``rows`` None, ``lnpdf``), or on a static (rows, P)
+        buffer as one ``ChainForward`` (``lnpdf_chains`` at ``rows``
+        chains). One program a row count, built at first use and kept
+        across draws; they share the pool of one that is captured (they
+        never run at once)."""
         prog = self._programs.get(rows)
         if prog is None:
             ref = weakref.ref(self)  # no cycle between the sampler and its programs
@@ -174,31 +168,32 @@ class PCASubspaceSampler(_Inference):
     def lnpdf(self, theta: torch.Tensor) -> torch.Tensor:
         """``-CE_sum / temperature`` at subspace coordinates ``theta``
         (rank,), a 0-dim tensor on the device: ``density_program(None)`` at
-        the weights ``mean + cov_factor^T theta``, or ``_plain_lnpdf`` where
-        ``step_program`` is ``"eager"``."""
+        the weights ``mean + cov_factor^T theta`` and its all-reduce over
+        'data', or ``_plain_lnpdf`` where a test hides the program."""
         prog = self.density_program(None)
         if prog is None:
             return self._plain_lnpdf(theta)
-        return -prog(self.subspace(theta)) / self.temperature
+        return -self._over_data(prog(self.subspace(theta))) / self.temperature
 
     @torch.no_grad()
     def lnpdf_chains(self, theta: torch.Tensor) -> torch.Tensor:
         """``lnpdf`` at every row of ``theta`` (C', rank) at once, a (C',)
         tensor: ``density_program(C')``, one batched train-mode forward a
         batch of the split whose batch statistics are returned, not
-        written, or ``_plain_lnpdf_chains`` where ``step_program`` is
-        ``"eager"``. A lock-step draw's C' shrinks proposal by proposal, and
-        each C' has its program: the batched forward keeps the shape (and
-        so the bits) of the plain version at C'."""
+        written, and its all-reduce over 'data', or ``_plain_lnpdf_chains``
+        where a test hides the program. A lock-step draw's C' shrinks
+        proposal by proposal, and each C' has its program: the batched
+        forward keeps the shape (and so the bits) of the plain version at
+        C'."""
         prog = self.density_program(theta.shape[0])
         if prog is None:
             return self._plain_lnpdf_chains(theta)
-        return -prog(self.subspace.mean + theta @ self.subspace.cov_factor) / self.temperature
+        total = prog(self.subspace.mean + theta @ self.subspace.cov_factor)
+        return -self._over_data(total) / self.temperature
 
     @torch.no_grad()
     def _plain_lnpdf(self, theta: torch.Tensor) -> torch.Tensor:
-        """``lnpdf``'s plain version, a batch at a time from Python (the
-        path of a mesh)."""
+        """``lnpdf``'s plain version, a batch at a time from Python."""
         module = self.swa._eval_module
         self.swa._eval_params.copy_(self.subspace(theta))
         module.train()
@@ -217,8 +212,7 @@ class PCASubspaceSampler(_Inference):
 
     @torch.no_grad()
     def _plain_lnpdf_chains(self, theta: torch.Tensor) -> torch.Tensor:
-        """``lnpdf_chains``' plain version, a batch at a time from Python
-        (the path of a mesh)."""
+        """``lnpdf_chains``' plain version, a batch at a time from Python."""
         module = self.swa._eval_module
         weights = self.subspace.mean + theta @ self.subspace.cov_factor  # (C', P)
         params = stacked_views(module, weights)

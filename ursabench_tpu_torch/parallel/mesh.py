@@ -187,6 +187,68 @@ class Mesh:
         self.all_reduce(torch.zeros(1, device=_collective_device()), "all")
 
 
+class StaticReduce:
+    """The all-reduce over one axis of a fixed list of tensors through static
+    flat buffers, one a dtype, made once (a captured program's collectives,
+    run between the replays of its two segments).
+
+    ``pack(sums)`` copies this step's ``sums`` and the ``means`` into their
+    slices (one ``cat`` a buffer); ``reduce()`` runs one ``dist.all_reduce``
+    a buffer, in place; ``unpack()`` divides the ``means``' slice of each
+    buffer by the axis's ranks (JAX's ``pmean``, in the buffer's dtype, as
+    ``Mesh.all_reduce_many(mean=True)`` divides), copies it back into the
+    ``means`` and returns the summed ``sums``, views of the buffers shaped
+    as the tensors given. ``pack`` and ``unpack`` launch device work only,
+    so a CUDA graph captures them; ``reduce`` runs eagerly between two
+    replays. The reduction is elementwise, so each value is the sum (or
+    mean) that ``Mesh.all_reduce`` or ``all_reduce_many`` gives it: bit for
+    bit where the sum over ranks does not depend on a value's place in the
+    buffer (two ranks)."""
+
+    def __init__(self, mesh: Mesh, axis: str, sums: Sequence[torch.Tensor],
+                 means: Sequence[torch.Tensor]):
+        self.mesh, self.axis, self.means = mesh, axis, list(means)
+        entries = [(t, False) for t in sums] + [(t, True) for t in self.means]
+        by_dtype: Dict[torch.dtype, List[int]] = defaultdict(list)
+        for j, (t, _) in enumerate(entries):
+            by_dtype[t.dtype].append(j)
+        views: List[Optional[torch.Tensor]] = [None] * len(entries)
+        self.buffers: List[tuple] = []  # (flat buffer, its entries' indices)
+        self._mean_slices: List[torch.Tensor] = []
+        for dtype, js in by_dtype.items():
+            buf = torch.zeros(sum(entries[j][0].numel() for j in js), dtype=dtype,
+                              device=entries[js[0]][0].device)
+            offset, first_mean = 0, None
+            for j in js:  # the sums first, then the means: one slice to divide
+                t, mean = entries[j]
+                if mean and first_mean is None:
+                    first_mean = offset
+                views[j] = buf[offset: offset + t.numel()].view(t.shape)
+                offset += t.numel()
+            self.buffers.append((buf, js))
+            if first_mean is not None:
+                self._mean_slices.append(buf[first_mean:])
+        self.sums = views[:len(sums)]
+        self._mean_views = views[len(sums):]
+
+    def pack(self, sums: Sequence[torch.Tensor]) -> None:
+        values = list(sums) + self.means
+        for buf, js in self.buffers:
+            torch.cat([values[j].reshape(-1) for j in js], out=buf)
+
+    def reduce(self) -> None:
+        for buf, _ in self.buffers:
+            self.mesh.all_reduce(buf, self.axis)
+
+    def unpack(self) -> List[torch.Tensor]:
+        span = self.mesh._span(self.axis)
+        for s in self._mean_slices:
+            s /= span
+        if self.means:
+            torch._foreach_copy_(self.means, self._mean_views)
+        return self.sums
+
+
 def _collective_device() -> torch.device:
     """Where a collective of host data runs: the rank's card under NCCL,
     the host under gloo."""

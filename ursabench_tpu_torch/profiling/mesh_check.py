@@ -1,39 +1,47 @@
-"""Sharded SGHMC over the cards of one host, one process a card (NCCL),
-against one process on one card: agreement and rate.
+"""Sharded SGHMC and HMC over the cards of one host, one process a card
+(NCCL), against one process on one card: agreement and rate, each on the
+eager path (the programs hidden: ``train_steps`` and the plain potentials,
+a step at a time from Python) and through the captured programs.
 
     torchrun --standalone --nproc_per_node 4 -m ursabench_tpu_torch.profiling.mesh_check \\
         [--out FILE]
 
 With N ranks, float32 with TF32 off and cuDNN deterministic, over a full
 CIFAR-10 epoch of synthetic images (50,000, batch 128, crop and flip: 391
-steps):
+steps), each part on both paths (eager, then graphed):
 
 1. **chain mesh** (N, 1): SGHMC x N chains of PreResNet-20, one chain a
    rank, one noisy epoch; the gathered chains against the N chains in one
-   process on rank 0's card, ||a - b|| / ||b|| (each chain keeps its
-   global identity, and K1 draws each rank's block of the noise: 0 is the
-   expected gap). Then the rate: N chains on N cards against the N chains
-   on one card under ``chain_strategy`` "scan" (rank 0's card) and "vmap"
-   (rank 1's, at the same time), aggregate step-forwards/s.
+   process on one card, ||a - b|| / ||b|| (each chain keeps its global
+   identity, and K1 draws each rank's block of the noise: 0 is the
+   expected gap, and the graphed one must be 0). Then the rate: N chains
+   on N cards against the N chains on one card under ``chain_strategy``
+   "scan" and "vmap", aggregate step-forwards/s. A rank's graphed step has
+   no collective: one graph.
 2. **data mesh** (1, N): SGHMC x1 chain of MLP200MNIST over 4,096 MNIST
    images, each batch split over the N ranks, one noisy epoch, against one
    process (rtol 2e-4, atol 1e-5: the all-reduced gradient sums in another
-   order), the data ranks' replicas bit-equal; then PreResNet-20's rate on
-   (1, N) against one card (BatchNorm local to each rank's rows, so this
-   is a rate only).
+   order), the data ranks' replicas bit-equal, the graphed epoch bit-equal
+   to the eager one; then PreResNet-20's rate on (1, N) against one card
+   (BatchNorm local to each rank's rows, so this is a rate only). The
+   graphed step is two graphs with the all-reduces of the gradient buffer
+   and of one packed buffer of the losses and BatchNorm statistics between
+   them.
 3. **HMC's data-parallel potential** (1, N): MLP200MNIST over 60,000
    MNIST images in gradient batches of 4,096 (4,096 / N rows a rank), the
    CE sum and its gradient at the init against one card's (||a - b|| /
-   ||b|| within 1e-5: the all-reduce sums in another order); then
-   full-batch gradient evaluations a second (``HMC._grad_u``: every batch's
-   forward and backward, one all-reduce of the CE sum and the gradient)
-   against one card.
+   ||b|| within 1e-5: the all-reduce sums in another order), the graphed
+   potential bit-equal to the eager one; then full-batch gradient
+   evaluations a second (``HMC._grad_u``: every batch's forward and
+   backward, one all-reduce of the CE sum and the gradient) against one
+   card.
 
-Every rate is taken in ``REPEATS`` windows of whole epochs, each at least
-``WINDOW_S`` seconds long (the epoch count set from an untimed epoch, every
-rank's longest), from the host clock around the cards' (and, on a mesh,
-every rank's) finish; the result gives each window's rate, their median
-and their spread, (max - min) / median.
+The one-card rows run at the same time, each on its own rank's card
+(``_one_card``). Every rate is taken in ``REPEATS`` windows of whole
+epochs, each at least ``WINDOW_S`` seconds long (the epoch count set from
+an untimed epoch, every rank's longest on a mesh), from the host clock
+around the cards' (and, on a mesh, every rank's) finish; the result gives
+each window's rate, their median and their spread, (max - min) / median.
 
 Rank 0 prints the card line of every rank, one JSON line of the results,
 and writes it to ``--out``; exits non-zero if a check fails. Needs the
@@ -64,6 +72,7 @@ WINDOW_S = 10.0  # the shortest timed window
 REPEATS = 3  # timed windows a rate
 CHAIN_GAP = 1e-5  # the chain mesh against one process, ||a - b|| / ||b||
 POTENTIAL_GAP = 1e-5  # HMC's CE sum and gradient on (1, N) against one card
+PATHS = ("eager", "graph")  # the plain step-by-step path (the programs hidden), the programs
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -80,12 +89,18 @@ def _splits(dataset: str, n: int):
                         synthetic_n_train=n, synthetic_n_test=BATCH, **kw)
 
 
-def _sampler(device, name, split, classes, chains, mesh, strategy="scan"):
+def _sampler(device, name, split, classes, chains, mesh, strategy="scan", eager=False):
+    """SGHMC through its epoch program, or with ``eager`` through
+    ``train_steps``, a step at a time from Python (the program hidden: the
+    path every mesh took before its programs)."""
     from .. import inference, models
 
-    return inference.SGHMC(HYP, model=models.get_model(name).build(classes), train=split,
-                           seed=0, chains=chains, device=device, chain_strategy=strategy,
-                           mesh=mesh)
+    s = inference.SGHMC(HYP, model=models.get_model(name).build(classes), train=split,
+                        seed=0, chains=chains, device=device, chain_strategy=strategy,
+                        mesh=mesh)
+    if eager:
+        s.epoch_program = lambda: None
+    return s
 
 
 def _epoch(sampler):
@@ -123,11 +138,26 @@ def _rate(unit, device, group: bool, scale: float) -> dict:
             "spread": (max(rates) - min(rates)) / median}
 
 
-def _hmc(device, split, classes, mesh):
+def _hmc(device, split, classes, mesh, eager=False):
+    """HMC through its potential programs, or with ``eager`` through the
+    plain potentials (the programs hidden)."""
     from .. import inference, models
 
-    return inference.HMC(HMC_HYP, model=models.get_model("MLP200MNIST").build(classes),
-                         train=split, seed=0, device=device, mesh=mesh)
+    h = inference.HMC(HMC_HYP, model=models.get_model("MLP200MNIST").build(classes),
+                      train=split, seed=0, device=device, mesh=mesh)
+    if eager:
+        h.potential_program = lambda grad, batched: None
+    return h
+
+
+def _one_card(tasks: list, rank: int, world: int) -> dict:
+    """The one-card rows, spread over the ranks: rank r runs ``tasks[r::world]``
+    (name, fn) on its own card at the same time as the others; every rank's
+    results, gathered."""
+    mine = {name: fn() for name, fn in tasks[rank::world]}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    return {k: v for r in every for k, v in r.items()}
 
 
 def run(device) -> dict:
@@ -141,68 +171,127 @@ def run(device) -> dict:
            "images": CIFAR_IMAGES, "window_s": WINDOW_S, "repeats": REPEATS}
     chain_mesh, data_mesh = parallel.Mesh(world, 1), parallel.Mesh(1, world)
 
-    # 1. the chain mesh: agreement, then N chains on N cards
+    # 1. the chain mesh: agreement, then N chains on N cards, eager and graphed
     splits, c = _splits("CIFAR10", CIFAR_IMAGES)
     steps = splits["train"].num_batches
-    s = _sampler(device, "PreResNet20", splits["train"], c, world, chain_mesh)
-    s._run_epoch(noise_on=True)
-    sharded = chain_mesh.chain_rows(s._state.params)
-    out["chain_mesh"] = {"chains": world, "steps": steps,
-                         "step_forwards_per_s": _rate(_epoch(s), device, True, steps * world)}
-    del s
-    one = {}  # the N chains on one card: "scan" on rank 0's, "vmap" on rank 1's
-    if rank == 0:
-        ref = _sampler(device, "PreResNet20", splits["train"], c, world, None)
-        ref._run_epoch(noise_on=True)
-        out["chain_gap"] = _rel(sharded, ref._state.params)
-        one["scan"] = _rate(_epoch(ref), device, False, steps * world)
-        del ref
-    elif rank == 1:
-        ref = _sampler(device, "PreResNet20", splits["train"], c, world, None, "vmap")
-        one["vmap"] = _rate(_epoch(ref), device, False, steps * world)
-        del ref
-    ones = [None] * world
-    dist.all_gather_object(ones, one)
-    out["chain_mesh"]["one_card"] = {**ones[0], **ones[1]}
+    sharded = {}
+    out["chain_mesh"] = {"chains": world, "steps": steps}
+    for path in PATHS:
+        s = _sampler(device, "PreResNet20", splits["train"], c, world, chain_mesh,
+                     eager=path == "eager")
+        s._run_epoch(noise_on=True)
+        sharded[path] = chain_mesh.chain_rows(s._state.params)
+        rate = _rate(_epoch(s), device, True, steps * world)
+        if path == "eager":
+            out["chain_mesh"]["step_forwards_per_s"] = rate
+        else:
+            out["chain_mesh"]["graph"] = {"step_forwards_per_s": rate,
+                                          "captures": s._program.captures,
+                                          "segments": s._program.segments}
+        del s
+
+    def one_chains(strategy, path):  # the N chains on one card; the first epoch's gap
+        def fn():
+            ref = _sampler(device, "PreResNet20", splits["train"], c, world, None, strategy,
+                           eager=path == "eager")
+            ref._run_epoch(noise_on=True)
+            gap = _rel(sharded[path], ref._state.params) if strategy == "scan" else None
+            return {"gap": gap, **_rate(_epoch(ref), device, False, steps * world)}
+        return (f"{strategy}_{path}", fn)
+
+    one = _one_card([one_chains(st, path) for st in ("scan", "vmap") for path in PATHS],
+                    rank, world)
+    out["chain_gap"] = one["scan_eager"].pop("gap")
+    out["chain_gap_graph"] = one["scan_graph"].pop("gap")
+    for k in ("vmap_eager", "vmap_graph"):
+        one[k].pop("gap")
+    out["chain_mesh"]["one_card"] = {"scan": one["scan_eager"], "vmap": one["vmap_eager"]}
+    out["chain_mesh"]["graph"]["one_card"] = {"scan": one["scan_graph"],
+                                              "vmap": one["vmap_graph"]}
 
     # 2. the data mesh: agreement on MLP200MNIST, then PreResNet-20's rate
     mnist, cm = _splits("MNIST", MLP_IMAGES)
-    m = _sampler(device, "MLP200MNIST", mnist["train"], cm, 1, data_mesh)
-    m._run_epoch(noise_on=True)
-    params = m._state.params.clone()
-    replicas = params.new_zeros((world,) + tuple(params.shape))
-    replicas[rank] = params
-    data_mesh.all_reduce(replicas, "data")
-    out["replicas_equal"] = all(torch.equal(replicas[0], r) for r in replicas)
-    p = _sampler(device, "PreResNet20", splits["train"], c, 1, data_mesh)
-    out["data_mesh"] = {"steps_per_s": _rate(_epoch(p), device, True, steps)}
-    del p
+    params = {}
+    for path in PATHS:
+        m = _sampler(device, "MLP200MNIST", mnist["train"], cm, 1, data_mesh,
+                     eager=path == "eager")
+        m._run_epoch(noise_on=True)
+        params[path] = m._state.params.clone()
+        replicas = params[path].new_zeros((world,) + tuple(params[path].shape))
+        replicas[rank] = params[path]
+        data_mesh.all_reduce(replicas, "data")
+        out["replicas_equal" + ("_graph" if path == "graph" else "")] = all(
+            torch.equal(replicas[0], r) for r in replicas)
+        del m
+    out["mlp_graph_equals_eager"] = torch.equal(params["graph"], params["eager"])
+    out["data_mesh"] = {}
+    for path in PATHS:
+        p = _sampler(device, "PreResNet20", splits["train"], c, 1, data_mesh,
+                     eager=path == "eager")
+        rate = _rate(_epoch(p), device, True, steps)
+        if path == "eager":
+            out["data_mesh"]["steps_per_s"] = rate
+        else:
+            out["data_mesh"]["graph"] = {"steps_per_s": rate, "captures": p._program.captures,
+                                         "segments": p._program.segments}
+        del p
     if rank == 0:
-        ref = _sampler(device, "MLP200MNIST", mnist["train"], cm, 1, None)
-        ref._run_epoch(noise_on=True)
-        excess = ((params - ref._state.params).abs()
-                  - (1e-5 + 2e-4 * ref._state.params.abs())).max()
-        out["mlp_within_tolerance"] = bool(excess <= 0)
-        out["mlp_gap"] = _rel(params, ref._state.params)
-        out["data_mesh"]["one_card"] = _rate(
-            _epoch(_sampler(device, "PreResNet20", splits["train"], c, 1, None)), device,
-            False, steps)
+        for path in PATHS:
+            ref = _sampler(device, "MLP200MNIST", mnist["train"], cm, 1, None,
+                           eager=path == "eager")
+            ref._run_epoch(noise_on=True)
+            excess = ((params[path] - ref._state.params).abs()
+                      - (1e-5 + 2e-4 * ref._state.params.abs())).max()
+            suffix = "_graph" if path == "graph" else ""
+            out["mlp_within_tolerance" + suffix] = bool(excess <= 0)
+            out["mlp_gap" + suffix] = _rel(params[path], ref._state.params)
+
+    def one_data(path):
+        return (path, lambda: _rate(_epoch(_sampler(device, "PreResNet20", splits["train"], c,
+                                                    1, None, eager=path == "eager")),
+                                    device, False, steps))
+
+    one = _one_card([one_data(path) for path in PATHS], rank, world)
+    out["data_mesh"]["one_card"] = one["eager"]
+    out["data_mesh"]["graph"]["one_card"] = one["graph"]
 
     # 3. HMC's data-parallel potential: agreement, then gradients a second
     mnist, cm = _splits("MNIST", HMC_IMAGES)
-    h = _hmc(device, mnist["train"], cm, data_mesh)
-    theta = h._theta0[0].clone()
-    ce, grad = h._grad_u(theta)
-    ce, grad = ce.clone(), grad.clone()
-    out["hmc"] = {"images": HMC_IMAGES, "batches": list(h._batches.shape),
-                  "gradients_per_s": _rate(lambda: h._grad_u(theta), device, True, 1)}
-    del h
-    if rank == 0:
-        ref = _hmc(device, mnist["train"], cm, None)
-        ce1, grad1 = ref._grad_u(theta)
-        out["hmc"]["ce_gap"] = _rel(ce, ce1)
-        out["hmc"]["grad_gap"] = _rel(grad, grad1)
-        out["hmc"]["one_card"] = _rate(lambda: ref._grad_u(theta), device, False, 1)
+    got = {}
+    out["hmc"] = {"images": HMC_IMAGES}
+    for path in PATHS:
+        h = _hmc(device, mnist["train"], cm, data_mesh, eager=path == "eager")
+        theta = h._theta0[0].clone()
+        ce, grad = h._grad_u(theta)
+        got[path] = ce.clone(), grad.clone()
+        rate = _rate(lambda h=h: h._grad_u(theta), device, True, 1)
+        out["hmc"]["batches"] = list(h._batches.shape)
+        if path == "eager":
+            out["hmc"]["gradients_per_s"] = rate
+        else:
+            prog = h._programs[("grad", False)]
+            out["hmc"]["graph"] = {"gradients_per_s": rate, "captures": prog.captures}
+        del h
+    out["hmc"]["graph_equals_eager"] = all(torch.equal(a, b) for a, b in
+                                           zip(got["graph"], got["eager"]))
+
+    def one_hmc(path):
+        def fn():
+            ref = _hmc(device, mnist["train"], cm, None, eager=path == "eager")
+            theta = ref._theta0[0].clone()
+            ce1, grad1 = ref._grad_u(theta)
+            return {"ce_gap": _rel(got[path][0], ce1), "grad_gap": _rel(got[path][1], grad1),
+                    **_rate(lambda: ref._grad_u(theta), device, False, 1)}
+        return (path, fn)
+
+    one = _one_card([one_hmc(path) for path in PATHS], rank, world)
+    for path in PATHS:
+        row = one[path]
+        gaps = {k: row.pop(k) for k in ("ce_gap", "grad_gap")}
+        if path == "eager":
+            out["hmc"].update(gaps, one_card=row)
+        else:
+            out["hmc"]["graph"].update(gaps, one_card=row)
     dist.barrier()
     return out
 
@@ -224,15 +313,23 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    dist_rank = dist.get_rank()
     try:
         out = run(device)
     finally:
         dist.destroy_process_group()
-    if "chain_gap" not in out:
-        return 0  # ranks other than 0
+    if dist_rank != 0:
+        return 0
+    graph = out["hmc"]["graph"]
     ok = (out["chain_gap"] <= CHAIN_GAP and out["mlp_within_tolerance"]
           and out["replicas_equal"] and out["hmc"]["ce_gap"] <= POTENTIAL_GAP
-          and out["hmc"]["grad_gap"] <= POTENTIAL_GAP)
+          and out["hmc"]["grad_gap"] <= POTENTIAL_GAP
+          and out["chain_gap_graph"] == 0.0 and out["mlp_within_tolerance_graph"]
+          and out["replicas_equal_graph"] and out["mlp_graph_equals_eager"]
+          and graph["ce_gap"] <= POTENTIAL_GAP and graph["grad_gap"] <= POTENTIAL_GAP
+          and out["hmc"]["graph_equals_eager"]
+          and out["chain_mesh"]["graph"]["captures"] == out["data_mesh"]["graph"]["captures"]
+          == graph["captures"] == 1)
     out["ok"] = ok
     for line in out["cards"]:
         print(line, flush=True)
