@@ -1,0 +1,363 @@
+"""The harness on the CPU: its files load, a cell added as files is found,
+the result line keeps its schema, the reference models are the port's, no
+run loads JAX, and the tiny cells come out correct, and not correct once
+the program is broken underneath."""
+
+import functools
+import json
+import subprocess
+import sys
+import types
+
+import pytest
+import torch
+
+from portbench import core, run
+from portbench.reference.models import Model
+from portbench.reference.philox import philox4x32_10
+from portbench.tests import tiny
+from portbench.trace import UNTRACED, reduce
+
+BENCH = json.loads((core.CHECKOUT / "BENCHMARK.json").read_text())
+CELLS = [w["name"] for w in BENCH["workloads"]]
+METRICS = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+
+
+@pytest.fixture(scope="module")
+def registry(tmp_path_factory):
+    return tiny.write_root(tmp_path_factory.mktemp("tiny"))
+
+
+# -- the files ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_file_loads_and_agrees_with_the_benchmark(cell):
+    reg = core.Registry()
+    entry = next(w for w in BENCH["workloads"] if w["name"] == cell)
+    wl = reg.json("workloads", cell)
+    assert {k: wl[k] for k in ("config", "traffic", "chips", "why")} == {
+        k: entry[k] for k in ("config", "traffic", "chips", "why")}
+    cfg, tr = reg.json("configs", wl["config"]), reg.json("traffic", wl["traffic"])
+    assert reg.path("drivers", tr["kind"], ".py").is_file()
+    assert wl["limits"] and all(v > 0 for v in wl["limits"].values())
+    assert Model(cfg).parameter_count == cfg["parameters"]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_every_metric_has_a_reader(metric):
+    assert callable(core.Registry().module("metrics", metric).read)
+
+
+def test_configs_are_the_benchmark_files():
+    for c in BENCH["configs"]:
+        cfg = json.loads((core.CHECKOUT / c["file"]).read_text())
+        assert cfg["name"] == c["name"] and c["reduced"] == []
+
+
+def test_a_cell_added_as_files_is_found(tmp_path):
+    """A new configuration, mix, cell and metric in another directory are
+    found by name, with no edit of the harness."""
+    for sub in ("configs", "traffic", "workloads", "metrics"):
+        (tmp_path / sub).mkdir()
+    (tmp_path / "configs" / "new-cfg.json").write_text(json.dumps(tiny.CONFIGS["tiny-preresnet"]))
+    (tmp_path / "traffic" / "new-mix.json").write_text(json.dumps({"kind": "bma_pass"}))
+    (tmp_path / "workloads" / "new-cfg.new-mix.json").write_text(json.dumps(
+        {"config": "new-cfg", "traffic": "new-mix", "chips": 1, "why": "x", "limits": {}}))
+    (tmp_path / "metrics" / "new_metric.x.py").write_text("def read(run):\n    return 7.0\n")
+    bench = dict(BENCH, per_layer=BENCH["per_layer"] + [
+        {"name": "new_metric.x", "unit": "%", "better": "higher", "source": "device_trace",
+         "layer": "device", "moves": "bma_images_per_s", "workloads": ["new-cfg.new-mix"]}])
+    bench["end_to_end"] = [dict(m, workloads=m["workloads"] + ["new-cfg.new-mix"])
+                           if m["name"] == "bma_images_per_s" else m for m in bench["end_to_end"]]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    reg = core.Registry([tmp_path], tmp_path / "BENCHMARK.json")
+    cell = core.Cell.load(reg, "new-cfg.new-mix", 3, "cpu")
+    assert cell.config["depth"] == 8 and cell.traffic["kind"] == "bma_pass"
+    assert type(cell.driver()).__module__.endswith("bma_pass")
+    names = [m["name"] for m in reg.metrics("new-cfg.new-mix", trace=True)]
+    assert "new_metric.x" in names and "device_idle_pct.bma" not in names
+    assert reg.module("metrics", "new_metric.x").read(None) == 7.0
+    assert [m["name"] for m in reg.metrics("new-cfg.new-mix", trace=False)] == [
+        "bma_images_per_s", "setup_s"]
+
+
+def test_result_line_schema():
+    checks = core.judge({"gap": 1e-3, "other": 5.0}, {"gap": 1e-2})
+    assert checks == {"gap": {"value": 1e-3, "limit": 1e-2, "ok": True}}
+    assert not core.judge({"gap": float("nan")}, {"gap": 1.0})["gap"]["ok"]
+    assert not core.judge({}, {"gap": 1.0})["gap"]["ok"]
+    for breakdown in (None, {"device_ops": [["conv", 1.5]], "idle_gaps": []}):
+        line = json.loads(core.result_line(
+            correct=True, attempted=3, failed=0, metrics={"setup_s": {"value": 1.0, "unit": "s"}},
+            device={"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1,
+                    "memory_peak_bytes": 1}, checks=checks, breakdown=breakdown))
+        keys = ["correct", "attempted", "failed", "metrics", "device"]
+        assert list(line) == keys + (["breakdown"] if breakdown else []) + ["checks"]
+        assert line["checks"] == {"gap": {"value": 1e-3, "limit": 1e-2}}
+
+
+# -- the reference -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,name,kw,cfg", [
+    ("preresnet", "PreResNet8", {}, {"depth": 8, "widths": [16, 32, 64], "num_classes": 10}),
+    ("wideresnet", "WideResNet28x10", {"depth": 10, "widen_factor": 1},
+     {"depth": 10, "widths": [16, 32, 64], "num_classes": 100}),
+])
+def test_reference_models_are_the_ports(arch, name, kw, cfg):
+    """Small versions of the port's models, float32 on the CPU, give the
+    reference's logits in train and eval mode from the same tensors."""
+    from ursabench_tpu_torch import models
+
+    model = Model({"reference": arch, "image": [32, 32, 3], **cfg})
+    port = models.get_model(name).build(cfg["num_classes"], **kw)
+    port.init_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in port.modules():
+            if hasattr(m, "running_var"):
+                m.running_mean.uniform_(-0.1, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    tensors = dict(port.state_dict())
+    assert [(n, tuple(p.shape)) for n, p in port.named_parameters()] == [
+        (leaf.name, leaf.shape) for leaf in model.leaves if not leaf.buffer]
+    x = torch.randn(4, 3, 32, 32, generator=torch.Generator().manual_seed(1))
+    for train in (True, False):
+        port.train(train)
+        with torch.no_grad():
+            torch.testing.assert_close(model.forward(tensors, x, train), port(x),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_full_size_models_have_the_ports_leaves():
+    from ursabench_tpu_torch import models
+
+    for c in BENCH["configs"]:
+        cfg = json.loads((core.CHECKOUT / c["file"]).read_text())
+        with torch.device("meta"):
+            port = models.get_model(cfg["model"]).build(cfg["num_classes"])
+        assert {k: tuple(v.shape) for k, v in port.state_dict().items()} == {
+            leaf.name: leaf.shape for leaf in Model(cfg).leaves}
+
+
+def test_philox_known_answers():
+    """Random123's known-answer vectors of Philox4x32-10."""
+    t = lambda v: torch.tensor([v], dtype=torch.int64)  # noqa: E731
+    cases = [((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+             ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6,
+                                                     0x6D5451FD)),
+             ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+              (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
+    for ctr, key, want in cases:
+        got = philox4x32_10(*(t(c) for c in ctr), *key)
+        assert [int(w) for w in got] == list(want)
+
+
+def test_trace_reduce_takes_the_union_and_names_the_gaps():
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    class E:
+        def __init__(self, name, dev, start, dur):
+            self.n, self.d, self.s, self.t = name, dev, start, dur
+
+        def name(self):
+            return self.n
+
+        def device_type(self):
+            return self.d
+
+        def start_ns(self):
+            return self.s
+
+        def duration_ns(self):
+            return self.t
+
+    tr = reduce([E("k_a", cuda, 0, 100), E("k_b", cuda, 50, 100), E("k_a", cuda, 300, 100),
+                 E("aten::randperm", cpu, 160, 100), E("outer", cpu, 0, 600)])
+    assert tr.window_s == pytest.approx(600e-9)
+    assert tr.busy_s == pytest.approx(250e-9)
+    assert tr.device["k_a"] == (2, pytest.approx(200e-9))
+    assert tr.gaps == {"aten::randperm": pytest.approx(150e-9), "outer": pytest.approx(200e-9)}
+    assert tr.kernels("k_") == (3, pytest.approx(300e-9))
+    tr = reduce([E("k", cuda, 10, 10), E("early", cpu, 0, 5)])  # over by the gap's middle
+    assert tr.gaps == {UNTRACED: pytest.approx(10e-9)}
+
+
+# -- JAX stays out -------------------------------------------------------------------
+
+
+def test_banned_names_compare_the_top_level_whole():
+    assert core.banned_modules(["ursabench_tpu_torch", "ursabench_tpu_torch.models",
+                                "jaxtyping", "flaxen"]) == []
+    assert core.banned_modules(["jax", "jax.numpy", "jaxlib.xla", "flax.linen",
+                                "ursabench_tpu.models"]) == [
+        "flax.linen", "jax", "jax.numpy", "jaxlib.xla", "ursabench_tpu.models"]
+
+
+def _modules_after(code: str) -> list:
+    out = subprocess.run([sys.executable, "-c", code + "\nimport sys, json\n"
+                          "print(json.dumps(sorted(sys.modules)))"],
+                         capture_output=True, text=True, cwd=core.CHECKOUT, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(core.CHECKOUT)})
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_cells_imports_load_no_jax(cell):
+    """Every module a run of the cell imports (the harness, its driver, its
+    metrics, the reference and the program's modules the driver uses)."""
+    code = (
+        "import torch\nfrom portbench import core, run, calibrate\n"
+        f"reg = core.Registry(); c = core.Cell.load(reg, {cell!r}, 1, 'cpu'); d = c.driver()\n"
+        "import ursabench_tpu_torch.inference, ursabench_tpu_torch.tasks.base\n"
+        "import ursabench_tpu_torch.data.arrays, ursabench_tpu_torch.kernels.sghmc\n"
+        f"[reg.module('metrics', m['name']) for t in (0, 1) for m in reg.metrics({cell!r}, t)]\n"
+    )
+    assert core.banned_modules(_modules_after(code)) == []
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    code = ("import portbench.reference.models, portbench.reference.sghmc, "
+            "portbench.reference.bma, portbench.reference.philox, portbench.flops")
+    mods = _modules_after(code)
+    assert not [m for m in mods if m.split(".")[0] in ("ursabench_tpu_torch", "ursabench_tpu",
+                                                       "jax")]
+    for path in (core.PACKAGE / "reference").glob("*.py"):
+        imports = [line for line in path.read_text().splitlines()
+                   if line.startswith(("import ", "from "))]
+        assert not [line for line in imports if "ursabench" in line or "portbench" in line
+                    and "portbench.reference" not in line], path
+
+
+def test_the_run_refuses_without_a_card():
+    out = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", CELLS[0],
+                          "--seed", "1", "--seconds", "1"], capture_output=True, text=True,
+                         cwd=core.CHECKOUT, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0 and out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("where", ["a metric reader", "the check"])
+def test_jax_loaded_after_the_window_leaves_no_result(registry, where, monkeypatch, capsys):
+    """A module of JAX that a metric reader or the check loads, once the
+    window has closed: the run exits other than 0 and prints no result."""
+    planted = types.ModuleType("jax")
+    if where == "a metric reader":
+        load = registry.module
+
+        def module(kind, name):
+            if kind == "metrics":
+                monkeypatch.setitem(sys.modules, "jax", planted)
+            return load(kind, name)
+
+        monkeypatch.setattr(registry, "module", module)
+    else:
+        make = core.Cell.driver
+
+        def driver(self):
+            d = make(self)
+            check = d.check
+
+            def planting_check():
+                monkeypatch.setitem(sys.modules, "jax", planted)
+                return check()
+
+            d.check = planting_check
+            return d
+
+        monkeypatch.setattr(core.Cell, "driver", driver)
+    monkeypatch.setattr(run, "run_cell",
+                        functools.partial(run.run_cell, registry=registry, device="cpu"))
+    cell = tiny.tiny_name("preresnet20-cifar10.bma-pass")
+    assert run.main(["--workload", cell, "--seed", str(2 ** 31 + 7), "--seconds", "0.2"]) != 0
+    out = capsys.readouterr()
+    assert out.out.strip() == "" and "jax" in out.err
+
+
+# -- whole runs on the CPU -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("trace", [False, True])
+def test_a_tiny_cell_runs_correct(registry, cell, trace, monkeypatch):
+    if trace:  # the profiler's device trace is the card's: read a stand-in
+        monkeypatch.setattr(run, "traced", _fake_trace)
+    out = run.run_cell(tiny.tiny_name(cell), 2 ** 31 + 5, 0.2, trace, registry, device="cpu")
+    assert out["correct"], out["checks"]
+    assert out["attempted"] > 0 and out["failed"] == 0
+    want = {m["name"] for m in registry.metrics(tiny.tiny_name(cell), trace)}
+    assert set(out["metrics"]) <= want and (trace or set(out["metrics"]) == want)
+    assert set(out["checks"]) == set(tiny.LIMITS[cell])
+
+
+def _fake_trace(fn):
+    from portbench.trace import Trace
+
+    fn()
+    return Trace(window_s=1.0, busy_s=0.9, device={"sghmc_update_kernel": (2, 1e-5)},
+                 gaps={"cudaGraphLaunch": 0.1})
+
+
+def _drop_update(monkeypatch):
+    from ursabench_tpu_torch.inference import sgmcmc
+
+    monkeypatch.setattr(sgmcmc.SGHMC, "_UPDATE_FN", staticmethod(lambda *a, **k: None))
+
+
+def _half_batch_train(monkeypatch):
+    from ursabench_tpu_torch.inference import engine
+
+    real = engine._chains_loss_backward
+
+    def half(state, batches, **kw):
+        batches = [(x[: x.shape[0] // 2], y[: y.shape[0] // 2]) for x, y in batches]
+        aug = kw.get("aug")
+        if aug is not None:
+            kw["aug"] = [tuple(None if a is None else a[: a.shape[0] // 2] for a in c)
+                         for c in aug]
+        return real(state, batches, **kw)
+
+    monkeypatch.setattr(engine, "_chains_loss_backward", half)
+
+
+def _member_logits(monkeypatch, change):
+    from ursabench_tpu_torch.inference.ensemble import Ensemble
+
+    real = Ensemble.member_logits
+    monkeypatch.setattr(Ensemble, "member_logits",
+                        lambda self, x, *a, **k: change(real(self, x, *a, **k)))
+
+
+def _alter_one_answer(monkeypatch):
+    def alter(logits):
+        logits = logits.clone()
+        logits[0, 0, 0] += 3.0
+        return logits
+
+    _member_logits(monkeypatch, alter)
+
+
+def _half_batch_eval(monkeypatch):
+    def half(logits):
+        logits = logits.clone()
+        logits[:, logits.shape[1] // 2:] = 0.0
+        return logits
+
+    _member_logits(monkeypatch, half)
+
+
+FAULTS = {"state unchanged": _drop_update, "half the batch": _half_batch_train,
+          "an answer altered": _alter_one_answer, "half the batch left out": _half_batch_eval}
+CELL_FAULTS = [(c, f) for c in CELLS for f in (
+    ("state unchanged", "half the batch") if c.endswith("sghmc")
+    else ("an answer altered", "half the batch left out"))]
+
+
+@pytest.mark.parametrize("cell,fault", CELL_FAULTS)
+def test_a_broken_program_is_not_correct(registry, cell, fault, monkeypatch):
+    """The run, with the look for the card skipped and the timed path broken
+    underneath, reads ``correct`` false."""
+    FAULTS[fault](monkeypatch)
+    out = run.run_cell(tiny.tiny_name(cell), 2 ** 31 + 6, 0.2, False, registry, device="cpu")
+    assert not out["correct"], out["checks"]
