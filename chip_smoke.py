@@ -526,6 +526,13 @@ def check(cond: bool, msg: str) -> None:
         sys.exit(1)
 
 
+def bma_passes() -> dict:
+    """The process's BMA passes by program path (``tracing``'s ``bma.pass``)."""
+    from ursabench_tpu_torch import tracing
+
+    return tracing.counters()["bma.pass"]["passes"]
+
+
 def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 numbers at |t| (8 significant bits), in float32."""
     a = t.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
@@ -716,7 +723,7 @@ def slice_phase(device):
     sample_s = time.perf_counter() - t0
     task = tasks.Prediction({"in_distribution_test": test}, num_classes,
                             metric_list="ALL")
-    passes = dict(tasks.accumulate_split.passes)
+    passes = bma_passes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     task.update_statistics(ens, output_performance=False)
@@ -1002,10 +1009,10 @@ def _bma_ran(ens, split, smooth, passes_before: dict, passes: int) -> str:
     ran its program as a captured graph (one capture), none eagerly;
     returns a description of the program."""
     from ursabench_tpu_torch.inference.ensemble import EVAL_PROGRAMS
-    from ursabench_tpu_torch.tasks.base import accumulate_split, bma_program
+    from ursabench_tpu_torch.tasks.base import bma_program
 
     prog = bma_program(ens, split, smooth)
-    ran = {k: accumulate_split.passes[k] - v for k, v in passes_before.items()}
+    ran = {k: bma_passes()[k] - v for k, v in passes_before.items()}
     check(prog.path == EVAL_PROGRAMS["bma"] == "graph" and prog.captures == 1
           and ran == {"graph": passes, "eager": 0},
           f"BMA: program {prog.path} with {prog.captures} captures, passes {ran}")
@@ -1396,11 +1403,11 @@ def prediction_phase(device, splits) -> dict:
     from ursabench_tpu_torch.inference.ensemble import EVAL_PROGRAMS
 
     cfg = ProfileConfig("PreResNet20", "CIFAR10", "fp32", 2, BATCH)
-    passes = dict(tasks.accumulate_split.passes)
+    passes = bma_passes()
     res = profile_prediction(cfg, splits, 10, device=device)
     # the latency mode times each eager call (logits_all), by rule: no BMA program
-    check(EVAL_PROGRAMS["latency"] == "eager" and tasks.accumulate_split.passes == passes,
-          f"latency mode: BMA passes {passes} -> {tasks.accumulate_split.passes}")
+    check(EVAL_PROGRAMS["latency"] == "eager" and bma_passes() == passes,
+          f"latency mode: BMA passes {passes} -> {bma_passes()}")
     want_batches = -(-splits["test"].n // BATCH)
     check(res["num_batches"] == want_batches == 79,
           f"{res['num_batches']} latencies, expected {want_batches}")
@@ -1778,7 +1785,7 @@ def samplers_phase(device) -> dict:
                   f"{name}: the training loss did not fall: {losses.tolist()}")
 
         task = tasks.Prediction({"in_distribution_test": test}, num_classes, metric_list="ALL")
-        passes = dict(tasks.accumulate_split.passes)
+        passes = bma_passes()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         task.update_statistics(ens, output_performance=False)
@@ -4670,9 +4677,7 @@ def main() -> int:
     mesh = phase("mesh", mesh_phase, device, n_slice)
 
     # every BMA pass of this process ran its program as a captured graph
-    from ursabench_tpu_torch.tasks.base import accumulate_split
-
-    passes = accumulate_split.passes
+    passes = bma_passes()
     check(passes["eager"] == 0 and passes["graph"] > 0, f"BMA passes by path: {passes}")
     print(f"BMA passes in this process by program path: {json.dumps(passes)}", flush=True)
     kernels = [{

@@ -409,7 +409,7 @@ def test_launch_counts_take_a_captured_launch_at_each_replay(monkeypatch):
     """A wrapper's count takes a launch that runs; a launch made under a
     capture runs nothing then, and counts once for each replay of the graph
     that recorded it (how the program's replays count K1's launches)."""
-    from ursabench_tpu_torch.kernels import launches
+    from ursabench_tpu_torch import tracing
 
     def a():
         pass
@@ -420,16 +420,16 @@ def test_launch_counts_take_a_captured_launch_at_each_replay(monkeypatch):
     a.launches = b.launches = 0
     capturing = [False]
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
-    launches.count(a)
+    tracing.count(a)
     assert (a.launches, b.launches) == (1, 0)
     capturing[0] = True
-    launches.count(a)  # a capture that records nothing counts nothing
-    with launches.record() as captured:
-        launches.count(a)
-        launches.count(b)
-        launches.count(b)
+    tracing.count(a)  # a capture that records nothing counts nothing
+    with tracing.record() as captured:
+        tracing.count(a)
+        tracing.count(b)
+        tracing.count(b)
     capturing[0] = False
     assert (a.launches, b.launches) == (1, 0) and captured == [a, b, b]
     for _ in range(3):
-        launches.replayed(captured)
+        tracing.replayed(captured)
     assert (a.launches, b.launches) == (4, 6)

@@ -22,6 +22,7 @@ from ursabench_tpu.tasks.base import accumulate_split as jaccumulate
 from ursabench_tpu_torch import data as tdata
 from ursabench_tpu_torch import inference
 from ursabench_tpu_torch import models as tmodels
+from ursabench_tpu_torch import tracing
 from ursabench_tpu_torch.inference import engine
 from ursabench_tpu_torch.inference.ensemble import EVAL_PROGRAMS, Ensemble
 from ursabench_tpu_torch.models.common import Dropout, dropout_generator
@@ -73,14 +74,14 @@ def test_pass_program_matches_jax(model, members, smooth):
     jsplit, tsplit, c = _splits(model)
     jens, tens = _ensembles(model, members, c)
     want_p, want_e = jaccumulate(jens, jsplit, smooth_probs=smooth)
-    before = dict(tbase.accumulate_split.passes)
+    before = tracing.counters()["bma.pass"]["passes"]
     got_p, got_e = tbase.accumulate_split(tens, tsplit, smooth_probs=smooth)
     assert got_p.shape == (tsplit.n, c) and got_e.shape == (tsplit.n,)
     np.testing.assert_allclose(got_p, want_p, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got_e, want_e, rtol=1e-6, atol=1e-6)
     prog = tbase.bma_program(tens, tsplit, smooth)
     assert prog.path == "eager" and prog.steps_run == tsplit.num_batches  # the CPU's
-    assert tbase.accumulate_split.passes["eager"] == before["eager"] + 1
+    assert tracing.counters()["bma.pass"]["passes"]["eager"] == before["eager"] + 1
     assert EVAL_PROGRAMS["bma"] == "graph"  # what the card runs
 
 

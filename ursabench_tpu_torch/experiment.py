@@ -63,11 +63,10 @@ import time
 import numpy as np
 import torch
 
-from . import data, inference, models, tasks
+from . import data, inference, models, tasks, tracing
 from .inference.base import _EpochSampler, resolve_device
 from .parallel import Mesh, initialize
 from .parallel.distributed import auto_layout, chain_layout, rank, world_size
-from .tasks.base import accumulate_split
 from .transfer import params_from_jax, params_to_jax
 from .util import json_open_from_file
 from .utils_checkpoint import load_pytree
@@ -247,12 +246,13 @@ def _add(key: str, value) -> None:
 @contextlib.contextmanager
 def _stage(key: str, device: torch.device | None = None):
     """Adds the block's seconds to ``TIMINGS[key]``, after waiting for
-    ``device`` if it is a GPU."""
-    t0 = time.perf_counter()
-    yield
-    if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
-    _add(key, time.perf_counter() - t0)
+    ``device`` if it is a GPU; the block is an ``experiment.<key>`` span."""
+    with tracing.span(f"experiment.{key}"):
+        t0 = time.perf_counter()
+        yield
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        _add(key, time.perf_counter() - t0)
 
 
 def _sample(args, hyp, module, train_split, seed, device, mesh):
@@ -267,13 +267,14 @@ def _run_task(task, ensemble, **kw):
     """The task's statistics of ``ensemble`` and its metrics; their seconds
     go to TIMINGS, split into the BMA passes and the host work."""
     name = type(task).__name__
-    s0, i0, t0 = accumulate_split.seconds, accumulate_split.images, time.perf_counter()
+    before, t0 = tracing.counters()["bma.pass"], time.perf_counter()
     task.update_statistics(ensemble, output_performance=False, **kw)
     out = task.get_performance_metrics()
-    bma = accumulate_split.seconds - s0
+    after = tracing.counters()["bma.pass"]
+    bma = after["seconds"] - before["seconds"]
     _add(f"{name}_bma", bma)
     _add(f"{name}_host", time.perf_counter() - t0 - bma)
-    _add(f"{name}_images", accumulate_split.images - i0)
+    _add(f"{name}_images", after["images"] - before["images"])
     return out
 
 

@@ -42,6 +42,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import tracing
 from ..data.transforms import draw_augment
 from ..models.common import dropout_layers
 from ..util import StateDict, derive_seed, make_generator, stack_state_dicts
@@ -393,10 +394,40 @@ class _EpochSampler(_Inference):
 
     def _run_epoch(self, noise_on: Optional[bool] = None) -> torch.Tensor:
         """One epoch on every chain; ``noise_on`` sets the noise gate first
-        (None keeps it)."""
-        if noise_on is not None:
-            self._noise_gate.fill_(1.0 if noise_on else 0.0)
+        (None keeps it). Counted in ``tracing``'s ``sampler.epoch`` from
+        before its draws to its program's return."""
+        with tracing.span("sampler.epoch"):
+            start = tracing.epoch_start(self.device)
+            if noise_on is not None:
+                self._noise_gate.fill_(1.0 if noise_on else 0.0)
+            split = self.train
+            with tracing.span("sampler.draws"):
+                idx, aug, seeds, dropout_seeds = self._epoch_draws()
+            program = self.epoch_program()  # None only where a test hides it: the plain path
+            if program is not None:
+                loss = program(split if self._streamed else idx, epoch=self.epochs_run,
+                               seeds=seeds, aug=aug, dropout_seeds=dropout_seeds)
+            else:
+                kw = dict(epoch=self.epochs_run, noise_on=self._noise_gate, hyp=self._hyp,
+                          lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds.tolist(),
+                          aug=aug, dropout_seeds=dropout_seeds, mesh=self.mesh)
+                if self._streamed:
+                    loss = stream_steps(self._state, split, **kw)
+                else:
+                    loss = train_steps(self._state, self._images, self._labels, idx,
+                                       spec=split.spec,
+                                       chain_strategy=self._resolved_chain_strategy, **kw)
+            tracing.epoch_end(start)
+        self.epochs_run += 1
+        self.epoch_losses.append(loss)
+        return loss
+
+    def _epoch_draws(self) -> tuple:
+        """An epoch's host draws: the batch plan (None for a streamed
+        epoch), the crops and flips, the steps' noise seeds and the chains'
+        dropout seeds."""
         split = self.train
+        idx = None
         if self._streamed:  # one chain: a streamed epoch refuses a sweep's K rows
             shape = (1, split.num_batches, split.batch_size)
         else:
@@ -412,23 +443,7 @@ class _EpochSampler(_Inference):
         dropout_seeds = ([s for gen, rows in self._dropout_gens
                           for s in torch.randint(0, 2 ** 63 - 1, (rows,), generator=gen).tolist()
                           ][self._dropout_rows] if self._has_dropout else None)
-        program = self.epoch_program()  # None only where a test hides it: the plain path
-        if program is not None:
-            loss = program(split if self._streamed else idx, epoch=self.epochs_run, seeds=seeds,
-                           aug=aug, dropout_seeds=dropout_seeds)
-        else:
-            kw = dict(epoch=self.epochs_run, noise_on=self._noise_gate, hyp=self._hyp,
-                      lr_fn=self._LR_FN, update_fn=self._UPDATE_FN, seeds=seeds.tolist(),
-                      aug=aug, dropout_seeds=dropout_seeds, mesh=self.mesh)
-            if self._streamed:
-                loss = stream_steps(self._state, split, **kw)
-            else:
-                loss = train_steps(self._state, self._images, self._labels, idx,
-                                   spec=split.spec,
-                                   chain_strategy=self._resolved_chain_strategy, **kw)
-        self.epochs_run += 1
-        self.epoch_losses.append(loss)
-        return loss
+        return idx, aug, seeds, dropout_seeds
 
     def _log_val_loss(self, loss, val_loader, debug_val_loss: bool) -> None:
         if debug_val_loss and val_loader is not None:

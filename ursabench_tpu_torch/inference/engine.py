@@ -98,8 +98,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call, vmap
 
+from .. import tracing
 from ..data.transforms import ImageSpec, augment_normalized, normalize
-from ..kernels import launches
 from ..models.common import (BatchNorm2d, batch_stats_out, dropout_calls, dropout_generator,
                              dropout_layers, dropout_masks)
 from ..parallel.mesh import StaticReduce
@@ -604,7 +604,8 @@ class _Captured:
     and every later step is a replay; on the CPU the step runs eagerly every
     time, the program's plain version. A capture that fails raises: nothing
     falls back to the eager step. The kernels' launch counts take each
-    replay's launches (``kernels.launches``).
+    replay's launches (``tracing.replayed``); each capture is counted in
+    ``tracing``'s ``program.capture``, with the warm-up steps before it.
 
     ``_step`` reads every input from the device (static buffers and device
     counters that it advances), so a replay computes what an eager step
@@ -670,18 +671,20 @@ class _Captured:
         elif self.graph is None and self._warmed < WARMUP_STEPS:
             current = torch.cuda.current_stream(self.device)
             self._side.wait_stream(current)  # a warm-up step, on a side stream as a capture wants
-            with torch.cuda.stream(self._side):
+            with tracing.span("program.warmup"), torch.cuda.stream(self._side):
                 self._run_step()
             current.wait_stream(self._side)
             self._warmed += 1
         else:
             if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            if self._hook is not None:
-                self._hook()
-                self._graph_after.replay()
-            launches.replayed(self._captured_launches)
+                with tracing.span("program.capture"):
+                    self._capture()
+            with tracing.span("program.replay"):
+                self.graph.replay()
+                if self._hook is not None:
+                    self._hook()
+                    self._graph_after.replay()
+            tracing.replayed(self._captured_launches)
         self.steps_run += 1
 
     def _capture(self) -> None:
@@ -699,7 +702,7 @@ class _Captured:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with launches.record() as captured, torch.cuda.stream(self._side):
+            with tracing.record() as captured, torch.cuda.stream(self._side):
                 graph.capture_begin(pool=self.pool())
                 try:
                     self._step()
@@ -720,6 +723,7 @@ class _Captured:
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph, self._graph_after = graph, after
         self.captures += 1
+        tracing.captured(type(self).__name__, self.capture_ms, self._warmed)
 
 
 def live_pool(programs) -> Optional[object]:

@@ -32,6 +32,7 @@ lies (``tasks.base.accumulate_split``).
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -39,6 +40,7 @@ import torch
 from torch import nn
 from torch.func import functional_call, vmap
 
+from .. import tracing
 from ..models.common import dropout_calls, dropout_layers, dropout_masks
 from ..util import StateDict, index_state_dict, make_generator, stack_state_dicts
 from .engine import live_pool
@@ -266,12 +268,14 @@ class Ensemble:
             buf.copy_(m)
         return out
 
-    def member_logits(self, x: torch.Tensor, strategy: str, layers=(), masks=()
-                      ) -> torch.Tensor:
+    def member_logits(self, x: torch.Tensor, strategy: str, layers=(), masks=(),
+                      forward_ns: Optional[list] = None) -> torch.Tensor:
         """(S, B, C) eval-mode logits of every member held here on the NCHW
         batch ``x``, in layout ``strategy`` (``"vmap"`` or ``"scan"``);
         ``masks[l]`` (S, *shape) are ``layers[l]``'s keep masks, row i
-        member i's."""
+        member i's. ``forward_ns``, a list, gets the host ns spent inside
+        the members' forwards (each member's ``functional_call``, or the one
+        ``vmap``) appended."""
         module = self.module
         was_training = module.training
         module.eval()
@@ -281,12 +285,25 @@ class Ensemble:
                     with dropout_masks(layers, member_masks):
                         return functional_call(module, state, (x,))
 
-                return vmap(one, in_dims=(0, 0 if masks else None))(self.state, list(masks))
-            out = []
-            for i in range(self.local_members):
-                with dropout_masks(layers, [m[i] for m in masks]):
-                    out.append(functional_call(module, self.member(i), (x,)))
-            return torch.stack(out)
+                with tracing.span("ensemble.member_forward"):
+                    t0 = time.perf_counter_ns()
+                    out = vmap(one, in_dims=(0, 0 if masks else None))(self.state, list(masks))
+                    ns = time.perf_counter_ns() - t0
+            else:
+                outs, ns = [], 0
+                for i in range(self.local_members):
+                    with tracing.span("ensemble.member_state"):
+                        state = self.member(i)
+                    with tracing.span("ensemble.member_forward"), \
+                            dropout_masks(layers, [m[i] for m in masks]):
+                        t0 = time.perf_counter_ns()
+                        outs.append(functional_call(module, state, (x,)))
+                        ns += time.perf_counter_ns() - t0
+                with tracing.span("ensemble.stack"):
+                    out = torch.stack(outs)
+            if forward_ns is not None:
+                forward_ns.append(ns)
+            return out
         finally:
             module.train(was_training)
 
@@ -294,8 +311,15 @@ class Ensemble:
     def logits_all(self, x: torch.Tensor, batch_idx: int = 0) -> torch.Tensor:
         """(S, B, C) eval-mode logits of every member held here for an
         NCHW batch, the ``batch_idx``-th of its pass: ``member_logits`` in
-        ``strategy``'s layout, run eagerly (``EVAL_PROGRAMS``)."""
-        calls = self.dropout_calls(x)
-        masks = self.draw_masks(calls, batch_idx) if calls else ()
-        return self.member_logits(x, self.strategy(x.shape[0], tuple(x.shape[1:])),
-                                  [layer for layer, _ in calls], masks)
+        ``strategy``'s layout, run eagerly (``EVAL_PROGRAMS``). Counted in
+        ``tracing``'s ``ensemble.logits_all``: the call's host ns, and those
+        inside the members' forwards."""
+        with tracing.span("ensemble.logits_all"):
+            t0 = time.perf_counter_ns()
+            calls = self.dropout_calls(x)
+            masks = self.draw_masks(calls, batch_idx) if calls else ()
+            forward_ns = []
+            out = self.member_logits(x, self.strategy(x.shape[0], tuple(x.shape[1:])),
+                                     [layer for layer, _ in calls], masks, forward_ns)
+            tracing.logits_all(time.perf_counter_ns() - t0, sum(forward_ns))
+        return out

@@ -20,7 +20,7 @@ kernel reads from device memory when it runs (a second C entry of the same
 kernel): a CUDA graph that captured the launch then takes each replay's
 seed from that tensor. The two give the same bits for the same seed.
 ``sghmc_update_flat.launches`` counts launches that ran: a captured one at
-each replay of its graph (``kernels/launches.py``).
+each replay of its graph (``tracing.count``).
 
 The library is built and loaded by ``kernels/build.py`` at first use.
 """
@@ -32,7 +32,7 @@ import functools
 
 import torch
 
-from . import launches
+from .. import tracing
 from .build import BUILD_DIR, CSRC, NVCC_FLAGS, Library, load
 
 SOURCE = CSRC / "sghmc_update.cu"
@@ -123,11 +123,11 @@ def sghmc_update_flat(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
             err = lib.sghmc_update_f32(*args, int(seed) & (2 ** 64 - 1), int(offset), stream)
     if err != 0:
         raise RuntimeError(f"sghmc_update_f32 launch failed with CUDA error {err}")
-    launches.count(sghmc_update_flat)
+    tracing.count(sghmc_update_flat)
     return p, v
 
 
-sghmc_update_flat.launches = 0  # kernel launches since the last reset (kernels.launches)
+sghmc_update_flat.launches = 0  # kernel launches since the last reset (tracing.count)
 
 
 def sghmc_update_flat_reference(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor,

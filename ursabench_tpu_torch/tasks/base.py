@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..data.transforms import normalize
 from ..inference.engine import _Captured
 from ..inference.ensemble import Ensemble
@@ -175,18 +176,12 @@ def accumulate_split(ensemble: Ensemble, split, smooth_probs: bool):
     the sums of the whole ensemble (``ensemble.gather()``'s, up to the
     order of the sum).
 
-    Adds the pass's seconds (to the host copy of its sums) to
-    ``accumulate_split.seconds``, its images to ``.images`` and one to
-    ``.passes[path]``, the program's path (``"graph"`` or ``"eager"``)."""
-    t0 = time.perf_counter()
-    prog = bma_program(ensemble, split, smooth_probs)
-    out = prog()
-    accumulate_split.seconds += time.perf_counter() - t0
-    accumulate_split.images += split.n
-    accumulate_split.passes[prog.path] += 1
+    Counted in ``tracing``'s ``bma.pass``: the pass's seconds (to the host
+    copy of its sums), its images and one pass on the program's path
+    (``"graph"`` or ``"eager"``)."""
+    with tracing.span("bma.pass"):
+        t0 = time.perf_counter()
+        prog = bma_program(ensemble, split, smooth_probs)
+        out = prog()
+        tracing.bma_pass(time.perf_counter() - t0, split.n, prog.path)
     return out
-
-
-accumulate_split.seconds = 0.0  # BMA passes' seconds since the last reset
-accumulate_split.images = 0  # and their images
-accumulate_split.passes = {"graph": 0, "eager": 0}  # and the passes, by program path

@@ -10,8 +10,9 @@ the host, as the JAX package computes them.
 ``latency_mode=True`` takes the batches one by one, in order, the last one
 short, and records each batch's wall time in ``latencies``: the ensemble's
 forward plus the device->host copy of its logits (the batch is normalized
-before the clock starts). It is the API that trtprof's run_prediction.py
-expects of the task.
+before the clock starts), each under a ``prediction.request`` span whose
+request is the batch's index. It is the API that trtprof's
+run_prediction.py expects of the task.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..inference.ensemble import Ensemble
 from ..ops import metrics as M
 from ..util import central_smoothing, predictive_entropy, softmax_probs
@@ -78,10 +80,11 @@ class Prediction(_Task):
             x = x.permute(0, 3, 1, 2).contiguous()
             if x.is_cuda:
                 torch.cuda.synchronize(x.device)
-            t0 = time.perf_counter()
-            logits = models.logits_all(x, bi)
-            logits.cpu()  # the timed device->host copy; the logits stay on the device
-            self.latencies.append(time.perf_counter() - t0)
+            with tracing.span("prediction.request", request=bi):
+                t0 = time.perf_counter()
+                logits = models.logits_all(x, bi)
+                logits.cpu()  # the timed device->host copy; the logits stay on the device
+                self.latencies.append(time.perf_counter() - t0)
             p = softmax_probs(logits.to(torch.float32))
             probs_chunks.append(torch.sum(p, dim=0).cpu().numpy())
             ent_chunks.append(torch.sum(predictive_entropy(central_smoothing(p)),
