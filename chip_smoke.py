@@ -83,7 +83,10 @@ Phases, each ending with its seconds:
    modules within 1e-2; then K3a and K3b on the model's own layer1[1].conv1
    (input (128, 256, 56, 56)) against cuDNN's forward and autograd's weight
    gradient of that conv, within 2 bf16 ulps plus 1e-3 of the largest
-   magnitude;
+   magnitude; then every bf16 conv's weight gradient of TVResNet-50 (batch
+   128 at 224x224) and of WideResNet-28x10 (batch 128 at 32x32), each
+   through its layer in the memory format the layer runs, against float32's
+   from the same bf16 operands, within that bound;
 11. the samplers: WideResNet-28x10 at full width and depth (36,546,980
    parameters at 100 classes, bf16 compute) over synthetic CIFAR-100
    (2,048 train and 512 test images, batch 128, crop + flip; cut from
@@ -1547,7 +1550,7 @@ def probe_phase(device) -> dict:
 def model_check(device, test) -> None:
     """K3a and K3b on TVResNet-50's own layer1[1].conv1 (bf16, a real batch
     of 128 at 224^2) against cuDNN's forward of that conv and autograd's
-    weight gradient of it."""
+    weight gradient of it, in the layout the model runs it."""
     import torch.nn.functional as F
 
     from ursabench_tpu_torch import models
@@ -1575,7 +1578,9 @@ def model_check(device, test) -> None:
     g = torch.randn(out.shape, generator=torch.Generator(device=device).manual_seed(1),
                     device=device, dtype=bf16)
     wb = w.clone().requires_grad_(True)
-    F.conv2d(inp, wb).backward(g)
+    fmt = conv.memory_format(inp)  # the layout the model runs this conv in
+    F.conv2d(inp.to(memory_format=fmt), wb.to(memory_format=fmt)).backward(
+        g.to(memory_format=fmt))
     dw = conv1x1_wgrad(rows, g.permute(0, 2, 3, 1).reshape(-1, 64).contiguous())
     torch.cuda.synchronize()
     e_mm = bf16_close(y, out.permute(0, 2, 3, 1).reshape(-1, 64), 2)
@@ -1583,6 +1588,54 @@ def model_check(device, test) -> None:
     print(f"  model check, TVResNet-50 layer1[1].conv1 on rows {tuple(rows.shape)}: K3a vs "
           f"cuDNN max abs err {e_mm:.3g}, K3b vs autograd {e_wg:.3g} (within 2 bf16 ulps "
           f"+ 1e-3 max)", flush=True)
+
+
+def conv_wgrad_check(device) -> None:
+    """Every bf16 conv's weight gradient in TVResNet-50 (a batch of 128 at
+    224^2) and in WideResNet-28x10 (128 at 32^2), each through the layer's
+    own forward, in the memory format the layer runs it in, against float32's
+    from the same bf16 input and output gradient, within 2 bf16 ulps plus
+    1e-3 of its largest magnitude."""
+    import torch.nn.functional as F
+
+    from ursabench_tpu_torch import models
+    from ursabench_tpu_torch.models.common import Conv2d
+
+    bf16 = torch.bfloat16
+    for name, classes, side in (("TVResNet50", 1000, 224), ("WideResNet28x10", 100, 32)):
+        m = models.get_model(name).build(classes, dtype=bf16).to(device).train()
+        m.init_parameters(torch.Generator().manual_seed(0))
+        seen = []
+        hooks = [c.register_forward_hook(lambda c, i, o, n=n: seen.append((n, c, i[0].detach())))
+                 for n, c in m.named_modules() if isinstance(c, Conv2d)]
+        gen = torch.Generator(device=device).manual_seed(2)
+        with torch.no_grad():
+            m(torch.randn(BATCH, 3, side, side, generator=gen, device=device))
+        for h in hooks:
+            h.remove()
+        worst, formats = (0.0, ""), {"channels_last": 0, "nchw": 0}
+        for n, conv, x in seen:
+            conv.weight.grad = None
+            x = x.detach()
+            out = conv(x)
+            g = torch.empty_like(out).copy_(
+                torch.randn(out.shape, generator=gen, device=device, dtype=bf16))
+            out.backward(g)
+            ran = conv.memory_format(x)
+            formats["channels_last" if ran == torch.channels_last else "nchw"] += 1
+            xb = x.to(bf16).float().contiguous()
+            want = torch.nn.grad.conv2d_weight(xb, conv.weight.shape, g.float().contiguous(),
+                                               conv.stride, conv.padding).to(bf16)
+            got = conv.weight.grad.to(bf16)
+            bound = 2 * bf16_ulp(want) + 1e-3 * float(want.float().abs().max())
+            ratio = float(((got.float() - want.float()).abs() / bound).max())
+            worst = max(worst, (ratio, n))
+            bf16_close(got, want, 2)
+        print(f"  bf16 conv weight gradients, {name} at ({BATCH}, 3, {side}, {side}): "
+              f"{len(seen)} convs ({formats}) within 2 bf16 ulps + 1e-3 max of float32's, the "
+              f"largest at {worst[0]:.3f}x the bound ({worst[1]})", flush=True)
+        del m, seen
+        torch.cuda.empty_cache()
 
 
 def imagenet_phase(device) -> dict:
@@ -1623,6 +1676,7 @@ def imagenet_phase(device) -> dict:
           f"{b.get('mfu_pct_of_bf16_peak', float('nan')):.1f}% of bf16 peak), equal to plain "
           f"modules within {diff:.2g}; data {res['data_seconds']:.1f} s", flush=True)
     model_check(device, test)
+    conv_wgrad_check(device)
     res["k1_launches"] = launches
     return res
 

@@ -2,9 +2,9 @@
 and the benchmark's readers of the counters: spans off record and annotate
 nothing; spans on share the profiler's host clock and nest by parent and
 request; the per-call counters keep the last calls and count what they
-drop; a sampler's epochs, ``logits_all``'s calls and the captured launches
-are counted where they happen; each reader takes the window's calls from
-the counter's tail, before the traced ones."""
+drop; a sampler's epochs, ``logits_all``'s calls, the captured launches and
+the convs' layouts are counted where they happen; each reader takes the
+window's calls from the counter's tail, before the traced ones."""
 
 import statistics
 import sys
@@ -145,6 +145,27 @@ def test_a_captured_launch_counts_once_a_replay(monkeypatch):
     for _ in range(4):
         tracing.replayed(outer)
     assert tracing_test_kernel.launches == 5
+
+
+def test_conv_layout_counts_each_call_once_and_not_at_replays(monkeypatch):
+    """``conv.layout`` counts a conv's forward when it is called: under a
+    capture too, once, and a replay of the graph adds nothing; ``reset()``
+    clears it."""
+    module = tmodels.get_model("PreResNet8").build(10)
+    convs = sum(isinstance(m, tmodels.Conv2d) for m in module.modules())
+    x = torch.rand(2, 3, 32, 32)
+    with torch.no_grad():
+        module.eval()(x)
+        capturing = [True]
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+        with tracing.record() as captured_launches:
+            module(x)
+        capturing[0] = False
+    for _ in range(3):
+        tracing.replayed(captured_launches)
+    assert tracing.counters()["conv.layout"] == {"channels_last": 0, "nchw": 2 * convs}
+    tracing.reset()
+    assert tracing.counters()["conv.layout"] == {"channels_last": 0, "nchw": 0}
 
 
 def test_a_sampler_counts_and_spans_each_epoch():

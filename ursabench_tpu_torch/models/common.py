@@ -14,6 +14,21 @@ and ``BatchNorm`` do with ``dtype`` set. With ``dtype=None`` nothing is
 cast: the layer computes in the type of what it is given, as flax promotes
 its inputs.
 
+Activations are (N, C, H, W) tensors. A conv whose compute dtype is a
+16-bit float runs them channels-last (NHWC in memory) on a CUDA device: it
+casts its input and its kernel with ``memory_format=torch.channels_last``,
+which cuDNN's 16-bit tensor-core convolutions read without a transpose, and
+everything after it (the bias add, ReLU, the residual add, ``BatchNorm2d``)
+keeps that format. There a 1x1 conv that narrows its channels casts to NCHW
+instead: cuDNN's NHWC weight gradient of such a conv can round further from
+float32 than its NCHW one (on an H100 at batch 128, six of ResNet-50's
+fifteen read 1.2-4.1x ``chip_smoke.py``'s 2-ulp bound, against 0.26-0.44x
+in NCHW), where every other conv of ResNet-50 and WideResNet-28-10 reads
+within half the bound in both. A float32 conv, a conv on another device, or
+one called under a ``torch.func`` transform (whose batched tensors cannot be
+channels-last) keeps its input's format, NCHW from the data path.
+``tracing``'s ``conv.layout`` counts the calls of each.
+
 ``Dropout`` draws its mask from a ``torch.Generator`` that the caller binds
 with ``dropout_generator(module, gen)``, never from the global RNG; an
 active dropout layer without one raises. Under ``torch.func.vmap`` (chains
@@ -34,9 +49,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
 from ..data.transforms import ImageSpec
 
 _REGISTRY: Dict[str, "ModelCfg"] = {}
+_CHANNELS_LAST_DTYPES = (torch.bfloat16, torch.float16)
+# the device types whose 16-bit convs run channels-last. Not the CPU: the
+# CPU's channels-last BatchNorm, float32 inside as the NCHW one, flips other
+# bf16 roundings, and in training mode that carries a small ResNet's logits
+# past the CPU parity tests' bound from its float32 forward, which the NCHW
+# forward meets on their input with little room
+_CHANNELS_LAST_DEVICES = ("cuda",)
 
 
 @dataclass(frozen=True)
@@ -79,7 +102,12 @@ class Conv2d(nn.Conv2d):
     ``dtype`` when it is set: the input, the float32 kernel and the bias are
     cast to it first, and the bias is added to the rounded convolution, as
     flax's ``Conv(dtype=...)`` adds it (a fused bias would round once, and
-    the gradients would then drift from flax's by a second bf16 error)."""
+    the gradients would then drift from flax's by a second bf16 error).
+
+    A 16-bit ``dtype`` casts the input and the kernel in the memory format
+    ``memory_format`` gives (the module docstring); the float32 parameter
+    keeps its layout, and autograd adds the kernel gradient into its
+    ``.grad`` in place."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype: Optional[torch.dtype] = None,
@@ -87,11 +115,25 @@ class Conv2d(nn.Conv2d):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=bias)
         self.compute_dtype = dtype
 
+    def memory_format(self, x: torch.Tensor) -> torch.memory_format:
+        """The memory format this conv runs ``x`` in: channels-last, NCHW
+        (``contiguous_format``), or ``x``'s own (``preserve_format``)."""
+        if (self.compute_dtype not in _CHANNELS_LAST_DTYPES
+                or x.device.type not in _CHANNELS_LAST_DEVICES
+                or torch._C._functorch.peek_interpreter_stack() is not None):
+            return torch.preserve_format
+        if self.kernel_size == (1, 1) and self.in_channels > self.out_channels:
+            return torch.contiguous_format
+        return torch.channels_last
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
+        fmt = self.memory_format(x)
+        tracing.conv_layout("channels_last" if fmt == torch.channels_last else "nchw")
         if d is None:
             return super().forward(x)
-        y = self._conv_forward(x.to(d), self.weight.to(d), None)
+        y = self._conv_forward(x.to(d, memory_format=fmt), self.weight.to(d, memory_format=fmt),
+                               None)
         return y if self.bias is None else y + self.bias.to(d).view(1, -1, 1, 1)
 
 
@@ -219,9 +261,10 @@ def batch_stats_out(layers) -> Iterator[list]:
 
 
 class BatchNorm2d(nn.Module):
-    """Batch normalization over NCHW with flax ``nn.BatchNorm`` semantics:
-    the running variance averages the *biased* batch variance, and
-    ``momentum`` is torch's convention (flax's 0.9 is 0.1 here):
+    """Batch normalization over (N, C, H, W), in either memory format, with
+    flax ``nn.BatchNorm`` semantics: the running variance averages the
+    *biased* batch variance, and ``momentum`` is torch's convention (flax's
+    0.9 is 0.1 here):
     ``running = (1 - momentum) * running + momentum * batch``.
 
     ``torch.nn.BatchNorm2d`` keeps the unbiased variance instead, so the

@@ -1,4 +1,4 @@
-"""WideResNet-28x10 and its always-on-dropout twin, NCHW.
+"""WideResNet-28x10 and its always-on-dropout twin, on (N, C, H, W) batches.
 
 Counterpart of ``ursabench_tpu/models/wideresnet.py``: pre-activation wide
 basic blocks (BN, ReLU, 3x3 conv, [dropout,] BN, ReLU, strided 3x3 conv,
@@ -6,7 +6,9 @@ plus a strided 1x1 conv shortcut when the shape changes); every conv has a
 bias, and kernels and biases take torch's default initialisation. BatchNorm
 momentum is flax's 0.9 in the blocks (0.1 here, torch's convention) and
 flax's 0.1 in the head (0.9 here). Global average pooling and the head run
-in float32; ``dtype`` is flax's compute dtype (``models/common.py``).
+in float32; ``dtype`` is flax's compute dtype (``models/common.py``). With
+a 16-bit ``dtype`` the stem's conv turns the batch channels-last and every
+activation after it stays so, up to the pooled (N, C) features.
 
 The ``_dropout`` twins put dropout 0.1 in every block and on the pooled
 features, active in eval mode too (flax ``deterministic=False``), which is

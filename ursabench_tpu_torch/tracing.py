@@ -17,6 +17,11 @@
 - ``bma.pass``: the BMA passes (``accumulate_split``): their seconds (to
   the host copy of the sums), their images and their count by program path
   (``"graph"`` or ``"eager"``);
+- ``conv.layout``: each forward call of a ``models.common.Conv2d``, by
+  the memory format it ran in: ``"channels_last"`` (a 16-bit conv on a
+  CUDA device) or ``"nchw"`` (float32, the CPU, under a ``torch.func``
+  transform, or a 16-bit 1x1 conv that narrows its channels). It counts when the forward is called: a captured program's
+  calls count once, at its capture, and not at its replays;
 - a hand-written kernel wrapper's ``.launches``: it counts a launch
   through ``count``; a launch made while the current stream is being
   captured runs nothing then and counts once at each replay of the graph
@@ -96,6 +101,7 @@ _events: Dict[int, List[torch.cuda.Event]] = {}  # the free timing events, by de
 _logits_all = Calls()
 _captures = Calls()
 _bma = {"seconds": 0.0, "images": 0, "passes": {"graph": 0, "eager": 0}}
+_conv_layout = {"channels_last": 0, "nchw": 0}
 _recording: List[List[Callable]] = []
 
 
@@ -166,6 +172,12 @@ def bma_pass(seconds: float, images: int, path: str) -> None:
     _bma["passes"][path] += 1
 
 
+def conv_layout(layout: str) -> None:
+    """One forward call of a conv in ``layout``, ``"channels_last"`` or
+    ``"nchw"``."""
+    _conv_layout[layout] += 1
+
+
 def count(wrapper: Callable) -> None:
     """One launch of ``wrapper``'s kernel (its ``.launches``); under a
     capture, noted for ``record`` instead."""
@@ -199,6 +211,7 @@ def counters() -> dict:
     ``ensemble.logits_all`` ((total ns, members ns) a call),
     ``program.capture`` ((program, ms, warm-up steps) a capture) as lists,
     oldest first; ``bma.pass`` ({"seconds", "images", "passes": {path: n}});
+    ``conv.layout`` ({layout: calls});
     ``dropped`` ({counter: calls dropped}). Waits for the epochs still
     running on a card."""
     _read_epochs(wait=True)
@@ -207,6 +220,7 @@ def counters() -> dict:
         "ensemble.logits_all": list(_logits_all.values),
         "program.capture": list(_captures.values),
         "bma.pass": {**_bma, "passes": dict(_bma["passes"])},
+        "conv.layout": dict(_conv_layout),
         "dropped": {"sampler.epoch": _epochs.dropped,
                     "ensemble.logits_all": _logits_all.dropped,
                     "program.capture": _captures.dropped},
@@ -220,6 +234,7 @@ def reset() -> None:
     for calls in (_epochs, _logits_all, _captures, _spans):
         calls.clear()
     _bma.update(seconds=0.0, images=0, passes={"graph": 0, "eager": 0})
+    _conv_layout.update(channels_last=0, nchw=0)
 
 
 # -- spans ---------------------------------------------------------------------------
