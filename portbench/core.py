@@ -5,10 +5,11 @@ checked number with its limit, and the result line.
 Everything that belongs to one cell, configuration, traffic mix, traffic
 kind or metric sits in a file of its own under a root directory, found by
 name: ``workloads/<cell>.json``, ``configs/<config>.json``,
-``traffic/<traffic>.json``, ``drivers/<kind>.py`` and ``metrics/<metric>.py``.
+``traffic/<traffic>.json``, ``drivers/<kind>.py``, ``metrics/<metric>.py``
+and ``reference/<architecture>.py`` (a configuration's ``"reference"``).
 A ``Registry`` looks in its roots in order (the package's own directory
-last), so a cell, a configuration, a mix, a kind or a metric is added by
-adding files.
+last), so a cell, a configuration, a mix, a kind, a metric or a reference
+architecture is added by adding files.
 """
 
 from __future__ import annotations
@@ -60,6 +61,11 @@ class Registry:
             self._modules[path] = mod
         return self._modules[path]
 
+    def model(self, cfg: dict):
+        """The reference model of configuration ``cfg``: the ``Architecture``
+        of the module ``reference/<cfg["reference"]>.py``."""
+        return self.module("reference", cfg["reference"]).Architecture(cfg)
+
     def benchmark(self) -> dict:
         return json.loads(self.benchmark_path.read_text())
 
@@ -97,6 +103,10 @@ class Cell:
 
     def driver(self):
         return self.registry.module("drivers", self.traffic["kind"]).Driver(self)
+
+    def model(self):
+        """The reference model of the cell's configuration."""
+        return self.registry.model(self.config)
 
 
 def image_spec(cfg: dict, augment: bool):

@@ -50,7 +50,7 @@ def ensemble(cell, members: dict):
 class Driver:
     def __init__(self, cell):
         self.cell = cell
-        self.model = Model(cell.config)
+        self.model = cell.model()
 
     def setup(self, marks: list) -> None:
         """Set-up; appends ``(phase, time it ended)`` to ``marks``."""

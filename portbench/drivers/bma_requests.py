@@ -27,14 +27,13 @@ import torch
 from portbench import core
 from portbench.reference import bma
 from portbench.reference.layers import Precision
-from portbench.reference.models import Model
 from portbench.drivers.bma_pass import ensemble, test_split
 
 
 class Driver:
     def __init__(self, cell):
         self.cell = cell
-        self.model = Model(cell.config)
+        self.model = cell.model()
         self.batch = int(cell.traffic["batch_size"])
 
     def setup(self, marks: list) -> None:

@@ -74,7 +74,7 @@ class Driver:
     def __init__(self, cell):
         self.cell = cell
         self.cfg, self.tr = cell.config, cell.traffic
-        self.model = Model(self.cfg)
+        self.model = cell.model()
         self.changes = [int(k) for k in self.tr["check_changes"]]
         self.steps = max(self.changes + [int(self.tr["check_losses"])])
 
@@ -221,4 +221,4 @@ class Driver:
                 start[leaf.name] = torch.full(leaf.shape, 1.0 if leaf.init == "ones" else 0.0,
                                               device=dev)
         return sghmc_steps(self.model, start, images, labels, draws, tr["hyperparameters"],
-                           images.shape[0], cfg, self.steps, precision, half_batch)
+                           images.shape[0], self.steps, precision, half_batch)

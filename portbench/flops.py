@@ -5,13 +5,13 @@ A copy of the method of the port's ``profiling/hw.py`` (``train_step_flops``,
 work on the meta device, which computes nothing and counts convolutions
 and matrix products at two FLOPs a multiply-add. It counts the benchmark's
 own reference models, not the program's, so a change to the program cannot
-change the yardstick.
+change the yardstick, and feeds each the example input and target of its
+architecture (``Model.example``): images or token ids alike.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from .reference.models import Model
@@ -23,22 +23,20 @@ def _meta_tensors(model: Model, grad: bool) -> dict:
 
 
 def train_step_flops(model: Model, batch: int) -> int:
-    """FLOPs of one training step: the train-mode forward, the mean cross
-    entropy and the backward to every parameter, on a batch of ``batch``."""
-    h, w, c = model.image
+    """FLOPs of one training step: the train-mode forward, the
+    architecture's loss and the backward to every parameter, on a batch of
+    ``batch``."""
     tensors = _meta_tensors(model, True)
-    x = torch.empty((batch, c, h, w), device="meta")
+    x, target = model.example(batch)
     with FlopCounterMode(display=False) as counter:
-        logits = model.forward(tensors, x, True)
-        F.cross_entropy(logits, torch.zeros(batch, dtype=torch.long, device="meta")).backward()
+        model.loss(model.forward(tensors, x, True), target).backward()
     return int(counter.get_total_flops())
 
 
 def forward_flops(model: Model, batch: int) -> int:
     """FLOPs of one eval-mode forward on a batch of ``batch``."""
-    h, w, c = model.image
     tensors = _meta_tensors(model, False)
-    x = torch.empty((batch, c, h, w), device="meta")
+    x, _ = model.example(batch)
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         model.forward(tensors, x, False)
     return int(counter.get_total_flops())

@@ -4,12 +4,11 @@ reference model, ``flops.forward_flops``) x members x images scored in the
 window, over the window's seconds and the peak."""
 
 from portbench.flops import forward_flops
-from portbench.reference.models import Model
 
 
 def read(run):
     w = run.window
     if "members" not in w:
         return None
-    flops = forward_flops(Model(run.cell.config), 1) * w["forward_images"]
+    flops = forward_flops(run.cell.model(), 1) * w["forward_images"]
     return 100.0 * flops / w["seconds"] / run.peaks[run.cell.config["precision"]]

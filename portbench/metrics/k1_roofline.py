@@ -4,7 +4,6 @@ byte bound (each parameter of each chain reads p, v, g and writes p, v:
 of the traced ``sghmc_update`` kernels. None where the trace holds none."""
 
 from portbench.reference.layers import parameter_leaves
-from portbench.reference.models import Model
 
 
 def read(run):
@@ -13,6 +12,6 @@ def read(run):
     count, seconds = run.trace.kernels("sghmc_update")
     if not count:
         return None
-    params = sum(leaf.numel for leaf in parameter_leaves(Model(run.cell.config).leaves))
+    params = sum(leaf.numel for leaf in parameter_leaves(run.cell.model().leaves))
     bound = 20.0 * params * run.window["chains"] / run.peaks["hbm_bytes_per_s"]
     return 100.0 * bound / (seconds / count)

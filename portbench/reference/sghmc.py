@@ -1,6 +1,6 @@
 """SGHMC's first steps, in plain PyTorch: the batches, crops, flips and noise
-seeds of a chain's first epoch, the train-mode forward, the mean cross
-entropy and its gradient, and the update (Chen et al., "Stochastic Gradient
+seeds of a chain's first epoch, the train-mode forward, the architecture's
+loss and its gradient, and the update (Chen et al., "Stochastic Gradient
 Hamiltonian Monte Carlo", ICML 2014, as the reference URSABench's
 ``inference/sghmc.py`` runs it):
 
@@ -20,6 +20,9 @@ below 1/2), from one generator seeded with ``derive_seed(run, "data")``; the
 steps' noise seeds are int64 draws in [0, 2**63 - 1) from a host generator
 seeded with ``derive_seed(run, "noise")``. The noise of a CUDA run is
 ``philox.normals``; of a CPU run ``torch.randn`` under the step's seed.
+The architecture prepares each step's rows (``Model.train_batch``: for an
+image classifier its normalization, crop and flip) and gives the loss
+(``Model.loss``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,6 @@ import math
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from .layers import Precision, Tensors, parameter_leaves
 from .models import Model
@@ -68,32 +70,6 @@ def first_epoch_draws(seed: int, n: int, batch: int, crop_pad: int, flip: bool,
     return out
 
 
-def train_batch(images: torch.Tensor, labels: torch.Tensor, draws: dict, i: int, mean, std,
-                crop_pad: int):
-    """Batch i of the plan: uint8 NHWC images normalized ((x/255 - mean)/std),
-    padded by ``crop_pad`` with the value a black pixel normalizes to,
-    cropped at (ox, oy) and flipped where drawn; NCHW float32, and labels."""
-    rows = draws["plan"][i]
-    x = images.index_select(0, rows).to(torch.float32) / 255.0
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(std, dtype=torch.float32, device=x.device)
-    x = ((x - m) / s).permute(0, 3, 1, 2)  # NCHW
-    b, c, h, w = x.shape
-    if crop_pad:
-        canvas = (-m / s).view(1, c, 1, 1).expand(b, c, h + 2 * crop_pad, w + 2 * crop_pad).clone()
-        canvas[:, :, crop_pad:crop_pad + h, crop_pad:crop_pad + w] = x
-        r = draws["ox"][i].view(b, 1) + torch.arange(h, device=x.device)
-        col = torch.arange(w, device=x.device).expand(b, w)
-        if draws["flip"] is not None:
-            col = torch.where(draws["flip"][i].view(b, 1), w - 1 - col, col)
-        col = draws["oy"][i].view(b, 1) + col
-        bi = torch.arange(b, device=x.device).view(b, 1, 1)
-        x = canvas.permute(0, 2, 3, 1)[bi, r.view(b, h, 1), col.view(b, 1, w)].permute(0, 3, 1, 2)
-    elif draws["flip"] is not None:
-        x = torch.where(draws["flip"][i].view(b, 1, 1, 1), x.flip(3), x)
-    return x.contiguous(), labels.index_select(0, rows)
-
-
 def _noise(seed: int, total: int, device) -> torch.Tensor:
     if torch.device(device).type == "cuda":
         return normals(seed, total, device)
@@ -101,17 +77,18 @@ def _noise(seed: int, total: int, device) -> torch.Tensor:
     return torch.randn(total, generator=gen)
 
 
-def sghmc_steps(model: Model, start: Tensors, images: torch.Tensor, labels: torch.Tensor,
-                draws: dict, hyp: dict, n_train: int, cfg: dict, steps: int,
+def sghmc_steps(model: Model, start: Tensors, inputs: torch.Tensor, labels: torch.Tensor,
+                draws: dict, hyp: dict, n_train: int, steps: int,
                 precision: Precision = Precision(), half_batch: bool = False) -> dict:
-    """The chain's first ``steps`` steps from the tensors ``start``.
+    """The chain's first ``steps`` steps from the tensors ``start`` over the
+    train split ``inputs`` and ``labels``.
 
     Returns ``losses`` [steps] (floats), ``grads`` (the first step's
     gradient, by parameter name) and ``params[k]`` (the parameters after
     k + 1 steps, by name). ``half_batch`` takes each loss over the first
     half of the batch only (a fault the comparison has to catch)."""
     leaves = parameter_leaves(model.leaves)
-    device = images.device
+    device = inputs.device
     params = {leaf.name: start[leaf.name].detach().clone().float() for leaf in leaves}
     buffers = {leaf.name: start[leaf.name].detach().clone().float()
                for leaf in model.leaves if leaf.buffer}
@@ -126,12 +103,12 @@ def sghmc_steps(model: Model, start: Tensors, images: torch.Tensor, labels: torc
     total = sum(leaf.numel for leaf in leaves)
     out: dict = {"losses": [], "grads": None, "params": []}
     for i in range(steps):
-        x, y = train_batch(images, labels, draws, i, cfg["mean"], cfg["std"], cfg["crop_pad"])
+        x, y = model.train_batch(inputs, labels, draws, i)
         if half_batch:
             x, y = x[: x.shape[0] // 2], y[: y.shape[0] // 2]
         leaves_now = {k: v.requires_grad_() for k, v in params.items()}
         with precision.active():
-            loss = F.cross_entropy(model.forward({**leaves_now, **buffers}, x, True, precision), y)
+            loss = model.loss(model.forward({**leaves_now, **buffers}, x, True, precision), y)
             grads = torch.autograd.grad(loss, list(leaves_now.values()))
         grads = dict(zip(leaves_now, grads))
         out["losses"].append(float(loss.detach()))

@@ -1,7 +1,8 @@
-"""The harness on the CPU: its files load, a cell added as files is found,
-the result line keeps its schema, the reference models are the port's, no
-run loads JAX, and the tiny cells come out correct, and not correct once
-the program is broken underneath."""
+"""The harness on the CPU: its files load, a cell and an architecture added
+as files are found, a configuration records its cuts, the result line keeps
+its schema, the reference models are the port's and their FLOP counts hold,
+no run loads JAX, and each cell's CPU twin comes out correct, and not
+correct once the program is broken underneath."""
 
 import functools
 import json
@@ -12,15 +13,16 @@ import types
 import pytest
 import torch
 
-from portbench import core, run
-from portbench.reference.models import Model
+from portbench import core, flops, inputs, run
 from portbench.reference.philox import philox4x32_10
+from portbench.reference.sghmc import first_epoch_draws, sghmc_steps
 from portbench.tests import tiny
 from portbench.trace import UNTRACED, reduce
 
 BENCH = json.loads((core.CHECKOUT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
 METRICS = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+TWINNED = [c for c in CELLS if tiny.twin(c) is not None]
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +43,7 @@ def test_every_cell_file_loads_and_agrees_with_the_benchmark(cell):
     cfg, tr = reg.json("configs", wl["config"]), reg.json("traffic", wl["traffic"])
     assert reg.path("drivers", tr["kind"], ".py").is_file()
     assert wl["limits"] and all(v > 0 for v in wl["limits"].values())
-    assert Model(cfg).parameter_count == cfg["parameters"]
+    assert reg.model(cfg).parameter_count == cfg["parameters"]
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -49,10 +51,30 @@ def test_every_metric_has_a_reader(metric):
     assert callable(core.Registry().module("metrics", metric).read)
 
 
+def unrecorded_cuts(entry: dict, cfg: dict) -> list:
+    """What a ``configs`` entry of ``BENCHMARK.json`` and its file leave
+    unrecorded of the configuration's cuts. Each key in ``reduced`` has its
+    published value under the file's ``published``, and runs at another;
+    every key under ``published`` is in ``reduced``; a configuration with a
+    cut states in one line the deployment whose share it runs
+    (``deployment``, say "8-way expert parallel, 4 pipeline stages")."""
+    published, reduced = cfg.get("published", {}), entry["reduced"]
+    out = [f"{k}: in reduced, no published value" for k in reduced if k not in published]
+    out += [f"{k}: in reduced, runs at its published value {published[k]!r}" for k in reduced
+            if k in published and cfg.get(k) == published[k]]
+    out += [f"{k}: cut from {published[k]!r}, not in reduced" for k in published
+            if k not in reduced]
+    deployment = cfg.get("deployment")
+    if reduced and not (isinstance(deployment, str) and deployment.strip()
+                        and "\n" not in deployment):
+        out.append("cut, but no one-line deployment")
+    return out
+
+
 def test_configs_are_the_benchmark_files():
     for c in BENCH["configs"]:
         cfg = json.loads((core.CHECKOUT / c["file"]).read_text())
-        assert cfg["name"] == c["name"] and c["reduced"] == []
+        assert cfg["name"] == c["name"] and unrecorded_cuts(c, cfg) == []
 
 
 def test_a_cell_added_as_files_is_found(tmp_path):
@@ -60,7 +82,8 @@ def test_a_cell_added_as_files_is_found(tmp_path):
     found by name, with no edit of the harness."""
     for sub in ("configs", "traffic", "workloads", "metrics"):
         (tmp_path / sub).mkdir()
-    (tmp_path / "configs" / "new-cfg.json").write_text(json.dumps(tiny.CONFIGS["tiny-preresnet"]))
+    (tmp_path / "configs" / "new-cfg.json").write_text(
+        (tiny.ROOT / "configs" / "tiny-preresnet.json").read_text())
     (tmp_path / "traffic" / "new-mix.json").write_text(json.dumps({"kind": "bma_pass"}))
     (tmp_path / "workloads" / "new-cfg.new-mix.json").write_text(json.dumps(
         {"config": "new-cfg", "traffic": "new-mix", "chips": 1, "why": "x", "limits": {}}))
@@ -80,6 +103,100 @@ def test_a_cell_added_as_files_is_found(tmp_path):
     assert reg.module("metrics", "new_metric.x").read(None) == 7.0
     assert [m["name"] for m in reg.metrics("new-cfg.new-mix", trace=False)] == [
         "bma_images_per_s", "setup_s"]
+
+
+# an architecture over token ids, as a later change would add its own file:
+# an embedding and a linear head over the vocabulary, next-token cross entropy
+TOY_TOKENS = '''
+import torch
+import torch.nn.functional as F
+
+from portbench.reference.layers import Leaf, Precision
+from portbench.reference.models import Model
+
+
+class Architecture(Model):
+    def __init__(self, cfg):
+        self.vocab, self.width = int(cfg["vocab_size"]), int(cfg["hidden_size"])
+        self.seq = int(cfg["seq_len"])
+        self.leaves = [Leaf("embed.weight", (self.vocab, self.width), "uniform", 1, self.width),
+                       Leaf("head.weight", (self.vocab, self.width), "uniform", self.width,
+                            self.vocab)]
+
+    def forward(self, tensors, x, train, precision=Precision()):
+        h = F.embedding(x, tensors["embed.weight"])
+        return F.linear(precision.operand(h), precision.operand(tensors["head.weight"])).float()
+
+    def example(self, batch, device="meta"):
+        ids = torch.zeros((batch, self.seq), dtype=torch.long, device=device)
+        return ids, ids
+
+    def train_batch(self, inputs, labels, draws, i):
+        rows = inputs.index_select(0, draws["plan"][i])
+        return rows[:, :-1], rows[:, 1:]
+
+    def loss(self, logits, target):
+        return F.cross_entropy(logits.flatten(0, 1), target.flatten())
+'''
+TOY_CONFIG = {"name": "toy-tokens", "reference": "toy_tokens", "vocab_size": 96,
+              "hidden_size": 16, "seq_len": 8, "published": {"vocab_size": 768},
+              "deployment": "the head's vocabulary split 8 ways, this chip's slice"}
+TOY_ENTRY = {"name": "toy-tokens", "source": "a test", "file": "configs/toy-tokens.json",
+             "reduced": ["vocab_size"], "why": "a token model added as files"}
+
+
+@pytest.fixture
+def toy_root(tmp_path):
+    for sub in ("configs", "traffic", "workloads", "reference"):
+        (tmp_path / sub).mkdir()
+    (tmp_path / "reference" / "toy_tokens.py").write_text(TOY_TOKENS)
+    (tmp_path / "configs" / "toy-tokens.json").write_text(json.dumps(TOY_CONFIG))
+    (tmp_path / "traffic" / "toy-sghmc.json").write_text(
+        (core.PACKAGE / "traffic" / "sghmc.json").read_text())
+    (tmp_path / "workloads" / "toy-tokens.toy-sghmc.json").write_text(json.dumps(
+        {"config": "toy-tokens", "traffic": "toy-sghmc", "chips": 1, "why": "x", "limits": {}}))
+    bench = dict(BENCH, configs=BENCH["configs"] + [TOY_ENTRY])
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return tmp_path
+
+
+def test_an_architecture_added_as_files_is_found(toy_root):
+    """A token architecture, its cut and recorded configuration, a mix and
+    a cell in another directory: found by name, counted, and stepped by the
+    reference sampler, with no edit of the harness."""
+    reg = core.Registry([toy_root], toy_root / "BENCHMARK.json")
+    model = core.Cell.load(reg, "toy-tokens.toy-sghmc", 3, "cpu").model()
+    assert type(model).__module__ == "portbench_reference_toy_tokens"
+    entry = next(c for c in reg.benchmark()["configs"] if c["name"] == "toy-tokens")
+    assert unrecorded_cuts(entry, reg.json("configs", "toy-tokens")) == []
+    v, d, t = 96, 16, 8
+    assert model.parameter_count == 2 * v * d
+    assert flops.forward_flops(model, 4) == 2 * 4 * t * d * v
+    assert flops.train_step_flops(model, 4) == 3 * 2 * 4 * t * d * v
+    n, batch = 40, 8
+    ids = torch.randint(0, v, (n, t + 1), generator=torch.Generator().manual_seed(0))
+    start = {k: w[0] for k, w in inputs.weights(model.leaves, 3, "chain0", "cpu").items()}
+    draws = first_epoch_draws(3, n, batch, 0, False, "cpu")
+    out = sghmc_steps(model, start, ids, None, draws, {"lr": 0.1, "prior_std": 1.0,
+                      "alpha": 0.1, "burn_in_epochs": 1, "num_samples": 5}, n, 2)
+    assert len(out["losses"]) == 2 and all(0 < x < 10 for x in out["losses"])
+    assert set(out["grads"]) == {"embed.weight", "head.weight"}
+    assert not torch.equal(out["params"][1]["head.weight"], start["head.weight"])
+
+
+@pytest.mark.parametrize("unrecorded", ["not in reduced", "no published value",
+                                        "no deployment", "published value"])
+def test_an_unrecorded_cut_fails_the_configuration_check(unrecorded):
+    entry, cfg = dict(TOY_ENTRY), dict(TOY_CONFIG)
+    if unrecorded == "not in reduced":
+        entry["reduced"] = []
+    elif unrecorded == "no published value":
+        cfg["published"] = {}
+    elif unrecorded == "no deployment":
+        del cfg["deployment"]
+    else:
+        cfg["vocab_size"] = 768
+    assert unrecorded_cuts(entry, cfg)
 
 
 def test_result_line_schema():
@@ -110,7 +227,7 @@ def test_reference_models_are_the_ports(arch, name, kw, cfg):
     reference's logits in train and eval mode from the same tensors."""
     from ursabench_tpu_torch import models
 
-    model = Model({"reference": arch, "image": [32, 32, 3], **cfg})
+    model = core.Registry().model({"reference": arch, "image": [32, 32, 3], **cfg})
     port = models.get_model(name).build(cfg["num_classes"], **kw)
     port.init_parameters(torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -130,14 +247,27 @@ def test_reference_models_are_the_ports(arch, name, kw, cfg):
 
 
 def test_full_size_models_have_the_ports_leaves():
-    from ursabench_tpu_torch import models
-
+    """The port's model as the run builds it (``core.served_model``, the
+    configuration's ``model_kwargs`` with it) has the reference's leaves."""
     for c in BENCH["configs"]:
         cfg = json.loads((core.CHECKOUT / c["file"]).read_text())
         with torch.device("meta"):
-            port = models.get_model(cfg["model"]).build(cfg["num_classes"])
+            port = core.served_model(cfg)
         assert {k: tuple(v.shape) for k, v in port.state_dict().items()} == {
-            leaf.name: leaf.shape for leaf in Model(cfg).leaves}
+            leaf.name: leaf.shape for leaf in core.Registry().model(cfg).leaves}
+
+
+# the FLOP counts of the two configurations at the batches the metrics use
+# (``step_mfu_pct``: a training step at 128; ``bma_mfu_pct``: a forward of one
+# image), as counted before the architectures were found by name
+FLOPS = {"preresnet20-cifar10": (31_231_279_104, 81_626_368),
+         "wrn28x10-cifar100": (4_570_389_282_816, 11_902_350_336)}
+
+
+@pytest.mark.parametrize("config", sorted(FLOPS))
+def test_flop_counts_hold(config):
+    model = core.Registry().model(core.Registry().json("configs", config))
+    assert (flops.train_step_flops(model, 128), flops.forward_flops(model, 1)) == FLOPS[config]
 
 
 def test_philox_known_answers():
@@ -219,7 +349,8 @@ def test_a_cells_imports_load_no_jax(cell):
 
 def test_the_reference_imports_nothing_of_the_program():
     code = ("import portbench.reference.models, portbench.reference.sghmc, "
-            "portbench.reference.bma, portbench.reference.philox, portbench.flops")
+            "portbench.reference.bma, portbench.reference.philox, portbench.flops, "
+            "portbench.reference.preresnet, portbench.reference.wideresnet")
     mods = _modules_after(code)
     assert not [m for m in mods if m.split(".")[0] in ("ursabench_tpu_torch", "ursabench_tpu",
                                                        "jax")]
@@ -278,7 +409,12 @@ def test_jax_loaded_after_the_window_leaves_no_result(registry, where, monkeypat
 # -- whole runs on the CPU -----------------------------------------------------------
 
 
-@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_has_a_cpu_twin():
+    """A cell of ``BENCHMARK.json`` brings its CPU run as files (``tiny``)."""
+    assert [c for c in CELLS if tiny.twin(c) is None] == []
+
+
+@pytest.mark.parametrize("cell", TWINNED)
 @pytest.mark.parametrize("trace", [False, True])
 def test_a_tiny_cell_runs_correct(registry, cell, trace, monkeypatch):
     if trace:  # the profiler's device trace is the card's: read a stand-in
@@ -288,7 +424,7 @@ def test_a_tiny_cell_runs_correct(registry, cell, trace, monkeypatch):
     assert out["attempted"] > 0 and out["failed"] == 0
     want = {m["name"] for m in registry.metrics(tiny.tiny_name(cell), trace)}
     assert set(out["metrics"]) <= want and (trace or set(out["metrics"]) == want)
-    assert set(out["checks"]) == set(tiny.LIMITS[cell])
+    assert set(out["checks"]) == set(tiny.twin(cell)["limits"])
 
 
 def _fake_trace(fn):
@@ -349,9 +485,11 @@ def _half_batch_eval(monkeypatch):
 
 FAULTS = {"state unchanged": _drop_update, "half the batch": _half_batch_train,
           "an answer altered": _alter_one_answer, "half the batch left out": _half_batch_eval}
-CELL_FAULTS = [(c, f) for c in CELLS for f in (
-    ("state unchanged", "half the batch") if c.endswith("sghmc")
-    else ("an answer altered", "half the batch left out"))]
+# the faults a cell can have, by its twin's traffic kind
+KIND_FAULTS = {"sampler": ("state unchanged", "half the batch"),
+               "bma_pass": ("an answer altered", "half the batch left out"),
+               "bma_requests": ("an answer altered", "half the batch left out")}
+CELL_FAULTS = [(c, f) for c in TWINNED for f in KIND_FAULTS[tiny.kind(c)]]
 
 
 @pytest.mark.parametrize("cell,fault", CELL_FAULTS)
