@@ -9,7 +9,8 @@ name: ``workloads/<cell>.json``, ``configs/<config>.json``,
 and ``reference/<architecture>.py`` (a configuration's ``"reference"``).
 A ``Registry`` looks in its roots in order (the package's own directory
 last), so a cell, a configuration, a mix, a kind, a metric or a reference
-architecture is added by adding files.
+architecture is added by adding files. The CPU twins' root
+(``tests/tiny/``) holds each kind's faults, ``faults/<kind>.py``, too.
 """
 
 from __future__ import annotations

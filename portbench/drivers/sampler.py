@@ -18,6 +18,13 @@ The check follows chain 0's first steps in the reference from the same
 weights and the same draws: each step's loss, the first gradient by leaf,
 and the change of the parameters by leaf after each step of
 ``check_changes``.
+
+What depends on the data sits behind four methods: ``train_data`` (the host
+inputs and labels from the seed), ``served_split`` (the program's split of
+them), ``draws`` (the reference's draws of a chain's first epoch) and
+``data_count`` (the N that SGHMC's prior and noise divide by), here an
+image classifier's. SG-MCMC over other data is a kind of its own: a driver
+file whose ``Driver`` subclasses this one and overrides them.
 """
 
 from __future__ import annotations
@@ -83,16 +90,11 @@ class Driver:
     def setup(self, marks: list) -> None:
         """Set-up; appends ``(phase, time it ended)`` to ``marks``."""
         from ursabench_tpu_torch import inference
-        from ursabench_tpu_torch.data.arrays import DataSplit
 
         cfg, tr, dev, seed = self.cfg, self.tr, self.cell.device, self.cell.seed
-        x, y = inputs.images(seed, "train", int(cfg["n_train"]), cfg["image"],
-                             int(cfg["num_classes"]), dev)
-        self.images, self.labels = x.cpu().numpy(), y.cpu().numpy()
-        del x, y
+        self.train_inputs, self.train_labels = self.train_data()
         marks.append(("inputs", time.perf_counter()))
-        split = DataSplit(self.images, self.labels, int(tr["batch_size"]),
-                          core.image_spec(cfg, augment=True), shuffle=True)
+        split = self.served_split(self.train_inputs, self.train_labels)
         module = core.served_model(cfg)
         method = getattr(inference, tr["method"])
         self.sampler = method(dict(tr["hyperparameters"]), model=module, train=split, seed=seed,
@@ -210,15 +212,43 @@ class Driver:
                 "start": self.start}
 
     def reference(self, precision: Precision = Precision(), half_batch: bool = False) -> dict:
-        cfg, tr, dev = self.cfg, self.tr, self.cell.device
-        images = torch.from_numpy(self.images).to(dev)
-        labels = torch.from_numpy(self.labels).to(dev)
-        draws = first_epoch_draws(self.cell.seed, images.shape[0], int(tr["batch_size"]),
-                                  int(cfg["crop_pad"]), bool(cfg["flip"]), dev)
+        dev = self.cell.device
+        data = torch.from_numpy(self.train_inputs).to(dev)
+        labels = torch.from_numpy(self.train_labels).to(dev)
+        draws = self.draws(data.shape[0], dev)
         start = {k: v.to(dev) for k, v in self.start.items()}
         for leaf in self.model.leaves:
             if leaf.buffer:
                 start[leaf.name] = torch.full(leaf.shape, 1.0 if leaf.init == "ones" else 0.0,
                                               device=dev)
-        return sghmc_steps(self.model, start, images, labels, draws, tr["hyperparameters"],
-                           images.shape[0], self.steps, precision, half_batch)
+        return sghmc_steps(self.model, start, data, labels, draws, self.tr["hyperparameters"],
+                           self.data_count(), self.steps, precision, half_batch)
+
+    # -- the data: what a kind over other data overrides ---------------------------
+
+    def train_data(self) -> tuple:
+        """The train split's inputs and labels on the host, made from the seed:
+        uint8 NHWC images and their labels (numpy)."""
+        cfg = self.cfg
+        x, y = inputs.images(self.cell.seed, "train", int(cfg["n_train"]), cfg["image"],
+                             int(cfg["num_classes"]), self.cell.device)
+        return x.cpu().numpy(), y.cpu().numpy()
+
+    def served_split(self, data, labels):
+        """The program's train split of the host ``data`` and ``labels``:
+        shuffled batches, normalized, cropped and flipped in the step."""
+        from ursabench_tpu_torch.data.arrays import DataSplit
+
+        return DataSplit(data, labels, int(self.tr["batch_size"]),
+                         core.image_spec(self.cfg, augment=True), shuffle=True)
+
+    def draws(self, n: int, device) -> dict:
+        """The reference's draws of a chain's first epoch over ``n`` rows
+        (``first_epoch_draws``), with the configuration's crop and flip."""
+        return first_epoch_draws(self.cell.seed, n, int(self.tr["batch_size"]),
+                                 int(self.cfg["crop_pad"]), bool(self.cfg["flip"]), device)
+
+    def data_count(self) -> int:
+        """The N that SGHMC's prior and noise divide by: the rows of the
+        train split."""
+        return int(self.train_inputs.shape[0])

@@ -1,7 +1,7 @@
 """The inputs a run hands to the program and to the reference alike, made
 from ``--seed`` on the device in a few large calls: uint8 NHWC images and
-their labels, and weights (a chain's starting point, or an ensemble's
-members) at each leaf's initial scale.
+their labels, token ids, and weights (a chain's starting point, or an
+ensemble's members) at each leaf's initial scale.
 
 Sub-seeds are sha256 of the seed and a tag, so the same seed gives the same
 inputs in every run, and different tags give unrelated streams.
@@ -36,6 +36,13 @@ def images(seed: int, tag: str, n: int, image, classes: int, device):
                       dtype=torch.uint8)
     y = torch.randint(0, classes, (n,), generator=gen, device=device, dtype=torch.int64)
     return x, y
+
+
+def tokens(seed: int, tag: str, n: int, length: int, vocab: int, device) -> torch.Tensor:
+    """``n`` sequences of ``length`` uniform int64 token ids below ``vocab``,
+    (n, length), on ``device``."""
+    gen = generator(device, seed, "tokens", tag)
+    return torch.randint(0, vocab, (n, length), generator=gen, device=device, dtype=torch.int64)
 
 
 def weights(leaves: List[Leaf], seed: int, tag: str, device, count: int = 1,

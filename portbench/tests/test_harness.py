@@ -1,8 +1,9 @@
-"""The harness on the CPU: its files load, a cell and an architecture added
-as files are found, a configuration records its cuts, the result line keeps
-its schema, the reference models are the port's and their FLOP counts hold,
-no run loads JAX, and each cell's CPU twin comes out correct, and not
-correct once the program is broken underneath."""
+"""The harness on the CPU: its files load, a cell, an architecture and a
+traffic kind added as files are found, a configuration records its cuts,
+the result line keeps its schema, the reference models are the port's and
+their FLOP counts hold, no run loads JAX, and each cell's CPU twin comes out
+correct, and not correct once the program is broken underneath by each
+fault of its kind."""
 
 import functools
 import json
@@ -17,7 +18,7 @@ from portbench import core, flops, inputs, run
 from portbench.reference.philox import philox4x32_10
 from portbench.reference.sghmc import first_epoch_draws, sghmc_steps
 from portbench.tests import tiny
-from portbench.trace import UNTRACED, reduce
+from portbench.trace import UNTRACED, kernel_class, reduce
 
 BENCH = json.loads((core.CHECKOUT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -313,6 +314,48 @@ def test_trace_reduce_takes_the_union_and_names_the_gaps():
     assert tr.gaps == {UNTRACED: pytest.approx(10e-9)}
 
 
+# the kernel-class table before the attention class
+OLD_KERNEL_CLASSES = (
+    ("K1 (sghmc_update)", ("sghmc_update",)),
+    ("batchnorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
+    ("layout transforms", ("nchwToNhwc", "nhwcToNchw", "transpose")),
+    ("convolutions and GEMMs", ("conv", "gemm", "sm90_", "sm80_", "cutlass", "xmma", "wgrad",
+                                "dgrad", "implicit")),
+    ("dropout and random", ("bernoulli", "philox", "random", "distribution")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "index", "copy", "fill")),
+)
+
+
+def test_attention_kernels_have_a_class_of_their_own(monkeypatch):
+    """Flash, fused multi-head and SDPA kernels classify as ``attention``,
+    not as GEMMs; every substring of the old table, and kernels of today's
+    cells, classify as they did."""
+    for name in ("void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<128, 64>>",
+                 "fmha_cutlassF_bf16_aligned_64x128_rf_sm80",
+                 "cudnn_generated_fort_native_sdpa_sm90_flash_fprop_wgmma_f16_knob_3",
+                 "void mla_attention_decode_kernel<128>"):
+        assert kernel_class(name) == "attention", name
+    names = [k for _, keys in OLD_KERNEL_CLASSES for k in keys] + [
+        "sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64",
+        "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>",
+        "void cudnn::bn_fw_tr_1C11_kernel_NCHW<float, float, int, 512, true, 1>",
+        "void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>",
+        "sghmc_update_kernel", "Memcpy DtoH (Device -> Pinned)", "Memset (Device)"]
+    now = [kernel_class(n) for n in names]
+    monkeypatch.setattr("portbench.trace.KERNEL_CLASSES", OLD_KERNEL_CLASSES)
+    assert now == [kernel_class(n) for n in names]
+
+
+def test_token_ids_come_from_the_seed():
+    seed = 2 ** 31 + 3
+    ids = inputs.tokens(seed, "train", 6, 33, 97, "cpu")
+    assert ids.shape == (6, 33) and ids.dtype == torch.int64
+    assert 0 <= int(ids.min()) and int(ids.max()) < 97
+    assert torch.equal(ids, inputs.tokens(seed, "train", 6, 33, 97, "cpu"))
+    assert not torch.equal(ids, inputs.tokens(seed, "test", 6, 33, 97, "cpu"))
+
+
 # -- JAX stays out -------------------------------------------------------------------
 
 
@@ -435,67 +478,104 @@ def _fake_trace(fn):
                  gaps={"cudaGraphLaunch": 0.1})
 
 
-def _drop_update(monkeypatch):
-    from ursabench_tpu_torch.inference import sgmcmc
-
-    monkeypatch.setattr(sgmcmc.SGHMC, "_UPDATE_FN", staticmethod(lambda *a, **k: None))
-
-
-def _half_batch_train(monkeypatch):
-    from ursabench_tpu_torch.inference import engine
-
-    real = engine._chains_loss_backward
-
-    def half(state, batches, **kw):
-        batches = [(x[: x.shape[0] // 2], y[: y.shape[0] // 2]) for x, y in batches]
-        aug = kw.get("aug")
-        if aug is not None:
-            kw["aug"] = [tuple(None if a is None else a[: a.shape[0] // 2] for a in c)
-                         for c in aug]
-        return real(state, batches, **kw)
-
-    monkeypatch.setattr(engine, "_chains_loss_backward", half)
+def test_every_kind_has_its_faults(registry):
+    """Each twinned cell's kind brings the faults its runs have to fail on
+    (``faults/<kind>.py``), and some."""
+    kinds = {tiny.kind(c) for c in TWINNED}
+    assert kinds and sorted(k for k in kinds if not tiny.kind_faults(k, registry)) == []
 
 
-def _member_logits(monkeypatch, change):
-    from ursabench_tpu_torch.inference.ensemble import Ensemble
-
-    real = Ensemble.member_logits
-    monkeypatch.setattr(Ensemble, "member_logits",
-                        lambda self, x, *a, **k: change(real(self, x, *a, **k)))
-
-
-def _alter_one_answer(monkeypatch):
-    def alter(logits):
-        logits = logits.clone()
-        logits[0, 0, 0] += 3.0
-        return logits
-
-    _member_logits(monkeypatch, alter)
-
-
-def _half_batch_eval(monkeypatch):
-    def half(logits):
-        logits = logits.clone()
-        logits[:, logits.shape[1] // 2:] = 0.0
-        return logits
-
-    _member_logits(monkeypatch, half)
-
-
-FAULTS = {"state unchanged": _drop_update, "half the batch": _half_batch_train,
-          "an answer altered": _alter_one_answer, "half the batch left out": _half_batch_eval}
-# the faults a cell can have, by its twin's traffic kind
-KIND_FAULTS = {"sampler": ("state unchanged", "half the batch"),
-               "bma_pass": ("an answer altered", "half the batch left out"),
-               "bma_requests": ("an answer altered", "half the batch left out")}
-CELL_FAULTS = [(c, f) for c in TWINNED for f in KIND_FAULTS[tiny.kind(c)]]
+# each twin's faults, by its kind; a kind without any leaves its cells none
+# here (``test_every_kind_has_its_faults`` fails for it)
+CELL_FAULTS = [(c, f) for c in TWINNED for f in tiny.kind_faults(tiny.kind(c))]
 
 
 @pytest.mark.parametrize("cell,fault", CELL_FAULTS)
 def test_a_broken_program_is_not_correct(registry, cell, fault, monkeypatch):
     """The run, with the look for the card skipped and the timed path broken
     underneath, reads ``correct`` false."""
-    FAULTS[fault](monkeypatch)
+    tiny.kind_faults(tiny.kind(cell), registry)[fault](monkeypatch)
     out = run.run_cell(tiny.tiny_name(cell), 2 ** 31 + 6, 0.2, False, registry, device="cpu")
     assert not out["correct"], out["checks"]
+
+
+# a traffic kind over other data, as a later change would add its files: a
+# driver that subclasses the sampler's and overrides its data methods (here
+# ``data_count`` alone, to the same value, counting its calls), its faults
+# (the sampler's), and a twin over a tiny PreResNet
+TOY_KIND_DRIVER = '''
+from portbench.drivers import sampler
+
+
+class Driver(sampler.Driver):
+    calls = 0
+
+    def data_count(self):
+        Driver.calls += 1
+        return len(self.train_labels)
+'''
+TOY_KIND_FAULTS = "from portbench.tests.tiny.faults.sampler import FAULTS  # noqa: F401\n"
+TOY_TWIN = "tiny.toy-preresnet.toy-sghmc"
+
+
+def add_kind(root, base: core.Registry, kind: str, faults: str = None) -> core.Registry:
+    """Under ``root``: the driver of traffic kind ``kind``, its faults (none
+    where ``faults`` is None), a mix of it and a twin of it over the tiny
+    PreResNet, with the sampler twin's limits and metrics; a registry that
+    finds them before ``base``'s roots."""
+    for sub in ("drivers", "faults", "traffic", "workloads"):
+        (root / sub).mkdir(exist_ok=True)
+    (root / "drivers" / f"{kind}.py").write_text(TOY_KIND_DRIVER)
+    if faults is not None:
+        (root / "faults" / f"{kind}.py").write_text(faults)
+    like = tiny.tiny_name("preresnet20-cifar10.sghmc")
+    (root / "traffic" / "toy-sghmc.json").write_text(
+        json.dumps(dict(base.json("traffic", "tiny-sghmc"), kind=kind)))
+    (root / "workloads" / f"{TOY_TWIN}.json").write_text(json.dumps(
+        dict(base.json("workloads", like), traffic="toy-sghmc", why="a kind added as files")))
+    bench = base.benchmark()
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if like in m.get("workloads", []):
+            m["workloads"].append(TOY_TWIN)
+    bench["workloads"].append(dict(next(w for w in bench["workloads"] if w["name"] == like),
+                                   name=TOY_TWIN, traffic="toy-sghmc"))
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return core.Registry([root] + base.roots[:-1], root / "BENCHMARK.json")
+
+
+@pytest.fixture(scope="module")
+def toy_kind(registry, tmp_path_factory):
+    return add_kind(tmp_path_factory.mktemp("toy_kind"), registry, "toy_sampler",
+                    TOY_KIND_FAULTS)
+
+
+def test_a_kind_added_as_files_is_found_and_runs_correct(toy_kind):
+    """A new kind's driver, faults and twin in another directory: found by
+    name and run correct on the CPU, with no edit of the harness."""
+    cell = core.Cell.load(toy_kind, TOY_TWIN, 1, "cpu")
+    assert cell.traffic["kind"] == "toy_sampler"
+    assert list(tiny.kind_faults("toy_sampler", toy_kind)) == list(tiny.kind_faults("sampler"))
+    driver = cell.driver()
+    assert type(driver).__module__ == "portbench_drivers_toy_sampler"
+    out = run.run_cell(TOY_TWIN, 2 ** 31 + 5, 0.2, False, toy_kind, device="cpu")
+    assert out["correct"], out["checks"]
+    assert out["attempted"] > 0 and set(out["checks"]) == set(tiny.twin(
+        "preresnet20-cifar10.sghmc")["limits"])
+    assert type(driver).calls > 0  # the reference took N from the kind's own method
+
+
+@pytest.mark.parametrize("fault", list(tiny.kind_faults("sampler")))
+def test_a_kind_added_as_files_fails_on_its_faults(toy_kind, fault, monkeypatch):
+    tiny.kind_faults("toy_sampler", toy_kind)[fault](monkeypatch)
+    out = run.run_cell(TOY_TWIN, 2 ** 31 + 6, 0.2, False, toy_kind, device="cpu")
+    assert not out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("faults", [None, "FAULTS = {}\n"], ids=["no file", "empty"])
+def test_a_kind_without_faults_is_found_out(registry, tmp_path, faults):
+    """A twinned kind with no faults file, or an empty one, is what
+    ``test_every_kind_has_its_faults`` fails for; it leaves its cells no
+    fault cases, and the test modules still load."""
+    reg = add_kind(tmp_path, registry, "toy_bare", faults)
+    assert core.Cell.load(reg, TOY_TWIN, 1, "cpu").traffic["kind"] == "toy_bare"
+    assert tiny.kind_faults("toy_bare", reg) == {}

@@ -2,10 +2,17 @@
 as files in this directory, which is a root of the harness's registry.
 
 A cell's twin is ``workloads/tiny.<cell>.json``: a tiny configuration under
-``configs/`` (PreResNet-8 or WideResNet-10-1 on a few hundred images), a
+``configs/`` (the cell's architecture, cut to run in seconds on the CPU), a
 tiny mix under ``traffic/`` of the cell's traffic kind, and the limits of
 the run on the CPU. A cell added to ``BENCHMARK.json`` brings its twin as
-files; a test fails for a cell that has none.
+files; a test fails for a cell that has none. The faults a cell of a kind
+can have are ``faults/<kind>.py`` (``FAULTS``); a test fails for a twinned
+kind that has none.
+
+A traffic kind is added as files too: its driver, ``drivers/<kind>.py``
+(for SG-MCMC over other data than images, a ``Driver`` that subclasses the
+``sampler`` kind's and overrides its data methods), its faults,
+``faults/<kind>.py``, and a twin of a cell of that kind here.
 """
 
 from __future__ import annotations
@@ -32,6 +39,18 @@ def twin(cell: str) -> Optional[dict]:
 def kind(cell: str) -> str:
     """The traffic kind of ``cell``'s twin."""
     return json.loads((ROOT / "traffic" / f"{twin(cell)['traffic']}.json").read_text())["kind"]
+
+
+def kind_faults(kind: str, registry: Optional[core.Registry] = None) -> dict:
+    """The faults of traffic kind ``kind``: ``FAULTS`` of ``faults/<kind>.py``
+    under the registry's roots (by default this directory's and the
+    package's), or none where the kind has no such file."""
+    registry = registry or core.Registry([ROOT])
+    try:
+        registry.path("faults", kind, ".py")
+    except FileNotFoundError:
+        return {}
+    return registry.module("faults", kind).FAULTS
 
 
 def write_root(root: Path) -> core.Registry:

@@ -9,9 +9,12 @@ the first event to the last. Each idle gap of the device is put down to the
 innermost host event under way at its midpoint (of those begun, the last
 that has not ended), or to "host, untraced" where none is.
 
-``KERNEL_CLASSES`` is a copy of the kernel-class table of the port's
-``profiling/step_profile.py``: a kernel's class is the first whose
-substrings its name holds.
+``KERNEL_CLASSES`` began as a copy of the kernel-class table of the port's
+``profiling/step_profile.py`` and now differs from it: it has an
+``attention`` class (flash, fused multi-head and SDPA kernels) ahead of
+"convolutions and GEMMs", so an attention kernel, whose names often hold
+``gemm`` or ``cutlass`` too, is not counted as a GEMM. A kernel's class is
+the first whose substrings its name holds.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ KERNEL_CLASSES = (
     ("K1 (sghmc_update)", ("sghmc_update",)),
     ("batchnorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
     ("layout transforms", ("nchwToNhwc", "nhwcToNchw", "transpose")),
+    ("attention", ("flash", "fmha", "sdpa", "attention")),
     ("convolutions and GEMMs", ("conv", "gemm", "sm90_", "sm80_", "cutlass", "xmma", "wgrad",
                                 "dgrad", "implicit")),
     ("dropout and random", ("bernoulli", "philox", "random", "distribution")),
