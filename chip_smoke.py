@@ -76,6 +76,21 @@ Phases, each ending with its seconds:
 9. the conv1x1 probe entry point (profiling/conv1x1_probe.run): its gates,
    then K3a, K3b, their plain versions and cuBLAS at the probe's shape;
    both kernels must have been launched there;
+   then "eval epilogue" (csrc/eval_epilogue.cu): WideResNet-28x10's
+   fused BN-ReLU and bias-residual-add kernels at every shape of its
+   forward, batch 128 and 1, bit-equal to their plain versions with
+   aten's eval BatchNorm (cuDNN off) and, against the unfused ops as they
+   run (cuDNN's NHWC BatchNorm), the share bit-equal and within 1 bf16 ulp
+   and the largest gap, each within 1 ulp plus 8 float32 ulps of the
+   normalization's terms; at batch 128 each kernel's time from CUDA graphs
+   over inputs larger than L2 beside its bound (bytes at 3.35 TB/s) and the
+   unfused ops' time, and their sums over a forward; one WideResNet-28x10
+   bf16 eval forward (batch 128) fused against unfused, eager and replayed
+   from a CUDA graph: the logits within one bf16 rounding of their scale,
+   ``bn.eval`` 25 fused a forward, each graph's device ms; each kernel's
+   launches in a graphed BMA pass of 2 WideResNet-28x10 bf16 members over 4
+   batches, all replays, counted from 0 just before it (25 and 12 a
+   member-batch);
 10. the ImageNet slice (profiling/imagenet_train.run): TVResNet-50 in bf16
    at 224x224 / 1000 classes, batch 128, SGHMC over 2,048 images (a warm-up
    epoch, 3 timed epochs, 2 sampling epochs: K1 once per step), finite
@@ -296,6 +311,7 @@ start of every run, so no entry of an earlier run is read.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -4665,6 +4681,268 @@ def mesh_phase(device, row_len: int) -> dict:
     return out
 
 
+# WideResNet-28x10's eval epilogue at batch b: (stage side, C, conv bias
+# folded in) of every fused BN-ReLU call and (side, C, shortcut conv) of
+# every bias-residual add, one entry a distinct shape (``EPILOGUE_CALLS``
+# counts them in a forward)
+EPILOGUE_BN = ((32, 16, False), (32, 160, True), (32, 160, False), (32, 320, True),
+               (16, 320, False), (16, 320, True), (16, 640, True), (8, 640, False),
+               (8, 640, True))
+EPILOGUE_ADD = ((32, 160, True), (32, 160, False), (16, 320, True), (16, 320, False),
+                (8, 640, True), (8, 640, False))
+EPILOGUE_CALLS = {"bn": (1, 4, 4, 1, 4, 3, 1, 4, 3), "add": (1, 3, 1, 3, 1, 3)}
+EPILOGUE_BATCHES = (BATCH, 1)
+EPILOGUE_MEMBERS = 2  # members of the BMA pass whose launches are counted
+L2_BYTES = 50e6  # an H100's L2: timed calls rotate over more than twice this
+
+
+@contextlib.contextmanager
+def _cudnn_off():
+    """cuDNN off for the block, every other cuDNN setting (deterministic,
+    TF32) left as it is; ``torch.backends.cudnn.flags`` would set them all."""
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = was
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| in bf16 ulps of the larger magnitude of the two."""
+    large = torch.maximum(got.float().abs(), want.float().abs())
+    return (got.float() - want.float()).abs() / bf16_ulp(large)
+
+
+def _epilogue_case(device, gen, kind: str, batch: int, side: int, c: int, folded: bool):
+    """(fused call, unfused call, bytes a call moves, allowance) on fresh
+    inputs. The allowance is, by element, how far two float32 evaluations
+    of the BatchNorm may part before their bf16 rounding: 8 float32 ulps of
+    |w (t - mean) / sqrt(var + eps)| + |b| (0 for the adds, which round
+    alike)."""
+    from ursabench_tpu_torch.kernels import eval_epilogue as ee
+
+    def act():
+        return (torch.randn(batch, c, side, side, generator=gen, device=device) * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def vec(lo, hi):
+        return torch.rand(c, generator=gen, device=device) * (hi - lo) + lo
+
+    numel = batch * c * side * side
+    cb = vec(-0.5, 0.5) if folded else None
+    if kind == "bn":
+        t, p = act(), (vec(0.5, 1.5), vec(-0.3, 0.3), vec(-0.5, 0.5), vec(0.5, 2.0))
+
+        def allowance():
+            w, b, m, v = (u.view(1, -1, 1, 1) for u in p)
+            x = (t if cb is None else t + cb.to(t.dtype).view(1, -1, 1, 1)).float()
+            return 2 ** -21 * ((w * (x - m)).abs() * torch.rsqrt(v + 1e-5) + b.abs())
+
+        return (lambda: ee.fused_batchnorm_eval_relu(t, *p, 1e-5, cb),
+                lambda: ee.fused_batchnorm_eval_relu_reference(t, *p, 1e-5, cb),
+                2 * 2 * numel + 4 * c * (5 if folded else 4), allowance)
+    y, r, b = act(), act(), vec(-0.5, 0.5)
+    return (lambda: ee.bias_residual_add(y, b, r, cb),
+            lambda: ee.bias_residual_add_reference(y, b, r, cb),
+            3 * 2 * numel + 4 * c * (2 if folded else 1), lambda: 0.0)
+
+
+def _wrn_forward_check(device) -> dict:
+    """One WideResNet-28x10 bf16 eval forward (random weights and BatchNorm
+    statistics, batch 128) fused against unfused (the rule patched to
+    refuse), eager and replayed from CUDA graphs; each graph's device ms."""
+    from unittest import mock
+
+    from ursabench_tpu_torch import models, tracing
+    from ursabench_tpu_torch.models import wideresnet
+    from ursabench_tpu_torch.models.common import BatchNorm2d
+    from ursabench_tpu_torch.profiling.hw import event_ms
+
+    m = models.get_model("WideResNet28x10").build(WRN_CLASSES, dtype=torch.bfloat16)
+    m.init_parameters(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for bn in m.modules():
+            if isinstance(bn, BatchNorm2d):
+                bn.weight.uniform_(0.5, 1.5, generator=gen)
+                bn.bias.normal_(0.0, 0.2, generator=gen)
+                bn.running_mean.normal_(0.0, 0.5, generator=gen)
+                bn.running_var.uniform_(0.5, 2.0, generator=gen)
+    m = m.to(device).eval()
+    x = torch.randn(BATCH, 3, 32, 32, generator=torch.Generator(device=device).manual_seed(2),
+                    device=device)
+    unfused_rule = mock.patch.object(wideresnet, "eval_epilogue_fused", lambda *a: False)
+
+    def graphed(fused: bool):
+        """(eager logits, replayed logits, graph) of one forward on x."""
+        with torch.no_grad(), (contextlib.nullcontext() if fused else unfused_rule):
+            eager = m(x)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                m(x)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with tracing.record() as captured, torch.cuda.graph(graph):
+                out = m(x)
+        graph.replay()
+        tracing.replayed(captured)
+        torch.cuda.synchronize()
+        check(torch.equal(out, eager), f"a replayed forward (fused {fused}) differs from eager")
+        return eager, graph
+
+    def bn_eval(before: dict) -> dict:
+        """``bn.eval``'s calls since its reading ``before``."""
+        return {k: v - before.get(k, 0) for k, v in tracing.counters()["bn.eval"].items()}
+
+    before = bn_eval({})
+    fused, fused_graph = graphed(True)
+    counts = bn_eval(before)
+    check(counts == {"fused": 75, "unfused": 0}, f"bn.eval of 3 fused forwards: {counts}")
+    before = bn_eval({})
+    unfused, unfused_graph = graphed(False)
+    counts = bn_eval(before)
+    check(counts == {"fused": 0, "unfused": 75}, f"bn.eval of 3 unfused forwards: {counts}")
+    scale = float(unfused.abs().max())
+    gap = float((fused - unfused).abs().max())
+    check(gap <= 2 ** -8 * scale, f"fused logits {gap:.3g} from unfused, scale {scale:.3g}")
+    ms = {"fused": event_ms(fused_graph.replay, 20, 3),
+          "unfused": event_ms(unfused_graph.replay, 20, 3)}
+    return {"logit_gap": gap, "logit_scale": scale,
+            "logits_equal": float((fused == unfused).float().mean()), "forward_ms": ms}
+
+
+def _wrn_bma_launches(device) -> dict:
+    """Each kernel's launches in one BMA pass (``accumulate_split``) of
+    ``EPILOGUE_MEMBERS`` WideResNet-28x10 bf16 members over ``WARMUP_STEPS``
+    + 1 batches of synthetic CIFAR-100 test images: the pass after the one
+    whose warm-up steps and capture built the program, every step a
+    replay, with the wrappers' counts set to 0 just before it."""
+    from ursabench_tpu_torch import data, models
+    from ursabench_tpu_torch.data.transforms import CIFAR_TEST, CIFAR_TRAIN
+    from ursabench_tpu_torch.inference.engine import WARMUP_STEPS
+    from ursabench_tpu_torch.inference.ensemble import Ensemble
+    from ursabench_tpu_torch.kernels import eval_epilogue as ee
+    from ursabench_tpu_torch.tasks.base import accumulate_split
+    from ursabench_tpu_torch.util import make_generator
+
+    splits, _ = data.loaders("CIFAR100", None, batch_size=BATCH, use_validation=False,
+                             transform_train=CIFAR_TRAIN, transform_test=CIFAR_TEST,
+                             synthetic_n_train=BATCH,
+                             synthetic_n_test=(WARMUP_STEPS + 1) * BATCH)
+    test = splits["test"]
+    build = lambda: models.get_model("WideResNet28x10").build(  # noqa: E731
+        WRN_CLASSES, dtype=torch.bfloat16)
+    states = []
+    for i in range(EPILOGUE_MEMBERS):
+        m = build()
+        m.init_parameters(make_generator("cpu", 0, "member", i))
+        states.append({k: v.detach().clone() for k, v in m.state_dict().items()})
+    ens = Ensemble.from_list(build().to(device), states)
+    ens.state = {k: v.to(device) for k, v in ens.state.items()}
+    check(ens.strategy(BATCH, (3, 32, 32)) == "scan", "WRN-28x10 bf16 members not in turn")
+    passes = bma_passes()
+    accumulate_split(ens, test, False)  # the warm-up steps and the capture
+    wrappers = (ee.fused_batchnorm_eval_relu, ee.bias_residual_add)
+    for w in wrappers:
+        w.launches = 0
+    accumulate_split(ens, test, False)
+    launches = {w.__name__: w.launches for w in wrappers}
+    _bma_ran(ens, test, False, passes, 2)
+    steps = EPILOGUE_MEMBERS * test.num_batches  # member-batches
+    want = {"fused_batchnorm_eval_relu": 25 * steps, "bias_residual_add": 12 * steps}
+    check(launches == want, f"launches of a graphed WRN-28x10 BMA pass: {launches}, {want} "
+          "expected")
+    print(f"  a graphed BMA pass of {EPILOGUE_MEMBERS} WRN-28x10 bf16 members over "
+          f"{test.num_batches} batches of {BATCH}, every step a replay, launches counted from 0 "
+          "before it: " + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches
+
+
+def eval_epilogue_phase(device) -> dict:
+    """The two eval-epilogue kernels (csrc/eval_epilogue.cu) against their
+    plain versions at WideResNet-28x10's shapes, batch 128 and 1: bit-equal
+    to them with aten's own eval BatchNorm (cuDNN off); against the unfused
+    ops as they run (cuDNN's NHWC BatchNorm, which rounds its float32 another
+    way) the share of bit-equal elements, of those within 1 bf16 ulp and the
+    largest gap in ulps, each gap within 1 ulp plus 8 float32 ulps of the
+    normalization's terms; at batch 128 each kernel's device time
+    from CUDA graphs, rotating over inputs larger than L2, beside its bound
+    (bytes at 3.35 TB/s) and the unfused ops' time; then one
+    WideResNet-28x10 forward fused against unfused, and each kernel's
+    launches in a graphed BMA pass of WideResNet-28x10 members
+    (``_wrn_bma_launches``), the kernels line's count."""
+    from ursabench_tpu_torch.kernels import eval_epilogue as ee
+    from ursabench_tpu_torch.profiling.int8_microbench import graph_ms
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows, worst = [], 0.0
+    for kind, shapes in (("bn", EPILOGUE_BN), ("add", EPILOGUE_ADD)):
+        for (side, c, folded), calls in zip(shapes, EPILOGUE_CALLS[kind]):
+            for batch in EPILOGUE_BATCHES:
+                fused, unfused, nbytes, allowance = _epilogue_case(device, gen, kind, batch,
+                                                                   side, c, folded)
+                got, want = fused(), unfused()
+                with _cudnn_off():
+                    aten = unfused()
+                torch.cuda.synchronize()
+                check(got.is_contiguous(memory_format=torch.channels_last)
+                      and got.dtype == torch.bfloat16, f"{kind} output layout or dtype")
+                where = f"{kind} C={c} {side}^2 b={batch}"
+                check(torch.equal(got, aten), f"{where} differs from aten's eval kernel")
+                ulps = _ulps(got, want)
+                gap = (got.float() - want.float()).abs()
+                check(bool((gap <= bf16_ulp(want) + allowance()).all()),
+                      f"{where}: beyond 1 ulp and the float32 allowance")
+                worst = max(worst, float(ulps.max()))
+                row = {"kind": kind, "batch": batch, "side": side, "c": c, "folded": folded,
+                       "calls": calls, "equal": float((got == want).float().mean()),
+                       "within_1ulp": float((ulps <= 1).float().mean()),
+                       "max_ulps": float(ulps.max()), "max_abs": float(gap.max()),
+                       "bytes": nbytes}
+                if batch == BATCH:
+                    n = max(1, math.ceil(2 * L2_BYTES / nbytes))
+                    cases = [_epilogue_case(device, gen, kind, batch, side, c, folded)
+                             for _ in range(n)]
+                    row["us"] = graph_ms([case[0] for case in cases], 10 * n) * 1e3
+                    row["plain_us"] = graph_ms([case[1] for case in cases], 10 * n) * 1e3
+                    row["bound_us"] = bound(nbytes, 0, "bf16")[0] * 1e3
+                    del cases
+                rows.append(row)
+    pass_ = {}
+    for kind in ("bn", "add"):
+        mine = [r for r in rows if r["kind"] == kind and r["batch"] == BATCH]
+        pass_[kind] = {k: sum(r[k] * r["calls"] for r in mine)
+                       for k in ("us", "plain_us", "bound_us", "bytes")}
+        for r in mine:
+            print(f"  {kind} C={r['c']} {r['side']}^2{' +bias' if r['folded'] else ''} x"
+                  f"{r['calls']}: {r['us']:.2f} us ({100 * r['bound_us'] / r['us']:.1f}% of "
+                  f"{r['bound_us']:.2f} us bound), unfused {r['plain_us']:.2f} us; against the "
+                  f"unfused ops {100 * r['equal']:.4f}% bit-equal, {100 * r['within_1ulp']:.5f}%"
+                  f" within 1 ulp, max {r['max_ulps']:.3g} ulp",
+                  flush=True)
+    small = [r for r in rows if r["batch"] == 1]
+    print(f"  batch 1: bit-equal {100 * min(r['equal'] for r in small):.4f}% or more, "
+          f"{100 * min(r['within_1ulp'] for r in small):.5f}% within 1 ulp, max "
+          f"{max(r['max_ulps'] for r in small):.3g} ulp", flush=True)
+    for kind, p in pass_.items():
+        print(f"  {kind} a WRN-28x10 forward at batch {BATCH}: {p['us']:.1f} us, bound "
+              f"{p['bound_us']:.1f} us ({100 * p['bound_us'] / p['us']:.1f}%), unfused "
+              f"{p['plain_us']:.1f} us, {p['bytes'] / 1e6:.1f} MB", flush=True)
+    fwd = _wrn_forward_check(device)
+    print(f"  WRN-28x10 bf16 eval forward, batch {BATCH}: fused logits within "
+          f"{fwd['logit_gap']:.3g} of unfused (scale {fwd['logit_scale']:.3g}; "
+          f"{100 * fwd['logits_equal']:.2f}% bit-equal), bn.eval 25 fused a forward; device ms "
+          "a graphed forward "
+          + ", ".join(f"{k} {v:.3f}" for k, v in fwd["forward_ms"].items()), flush=True)
+    launches = _wrn_bma_launches(device)
+    return {"rows": rows, "pass": pass_, "forward": fwd, "max_ulps": worst,
+            "max_abs": {kind: max(r["max_abs"] for r in rows if r["kind"] == kind)
+                        for kind in ("bn", "add")},
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", flush=True)
@@ -4685,11 +4963,12 @@ def main() -> int:
     os.environ["URSA_SYNTH_CACHE"] = cache
 
     from ursabench_tpu_torch import models
-    from ursabench_tpu_torch.kernels import build, conv1x1, int8_gemv, sghmc, stream_probe
+    from ursabench_tpu_torch.kernels import (build, conv1x1, eval_epilogue, int8_gemv, sghmc,
+                                             stream_probe)
     from ursabench_tpu_torch.profiling import conv1x1_probe
 
     t0 = time.perf_counter()
-    kernel_modules = (sghmc, int8_gemv, stream_probe, conv1x1)
+    kernel_modules = (sghmc, int8_gemv, stream_probe, conv1x1, eval_epilogue)
     seconds = build.build([module.SOURCE for module in kernel_modules])
     for module in kernel_modules:
         module.load_library()
@@ -4721,6 +5000,7 @@ def main() -> int:
     phase("profile_prediction", prediction_phase, device, splits)
     k3 = phase("K3 kernels", k3_kernel_phase, device)
     probe = phase("conv1x1 probe", probe_phase, device)
+    epilogue = phase("eval epilogue", eval_epilogue_phase, device)
     imagenet = phase("imagenet slice", imagenet_phase, device)
     samplers = phase("samplers", samplers_phase, device)
     experiment = phase("experiment", experiment_phase, device)
@@ -4776,6 +5056,14 @@ def main() -> int:
                         "plain_ms": rows[f"{name}_plain"]["us"] / 1e3,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": rows[library]["us"] / 1e3})
+    for name, kind in (("fused_batchnorm_eval_relu", "bn"), ("bias_residual_add", "add")):
+        p = epilogue["pass"][kind]  # one WRN-28x10 forward's calls at batch 128, summed
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "ursabench_tpu_torch/csrc/eval_epilogue.cu",
+                        "replaces": None, "launches": epilogue["launches"][name],
+                        "max_abs_err": epilogue["max_abs"][kind], "ms": p["us"] / 1e3,
+                        "plain_ms": p["plain_us"] / 1e3, "bound_ms": p["bound_us"] / 1e3,
+                        "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -166,3 +166,19 @@ def test_cuda_sampler_never_falls_back_to_cpu():
         sgmcmc.SGHMC(HYP, model=tmodels.get_model("PreResNet8").build(c),
                      train=splits["train"], chains=2, device="cpu",
                      chain_strategy="lockstep")
+
+
+@pytest.mark.parametrize("unused,free,emptied", [(79, 2, True), (1, 75, False)])
+def test_a_capture_returns_the_cache_only_when_it_outgrows_the_free_memory(
+        monkeypatch, unused, free, emptied):
+    """Before a capture, whose allocations cannot release the allocator's
+    unused blocks, those blocks go back to the device where they hold more
+    than it has free (a long process near the card's end), and stay cached
+    otherwise (GB here)."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (free, 80))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: unused + 2)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: 2)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: calls.append(1))
+    engine._return_unused_cache(torch.device("cuda"))
+    assert calls == ([1] if emptied else [])

@@ -597,6 +597,19 @@ def _per_chain(aug: Optional[tuple], chains: int) -> Optional[list]:
 WARMUP_STEPS = 3
 
 
+def _return_unused_cache(device: torch.device) -> None:
+    """Returns the caching allocator's unused blocks to ``device`` where
+    they hold more memory than the device has free. An allocation inside a
+    capture cannot release them: where the device is full it fails, or a
+    library such as cuDNN takes a path with less workspace than the eager
+    step took, so the graph no longer computes the eager step's bits. A
+    long process can fill the card with such blocks, program after
+    program; in one that cannot, this returns nothing."""
+    free, _ = torch.cuda.mem_get_info(device)
+    if torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device) > free:
+        torch.cuda.empty_cache()
+
+
 class _Captured:
     """A program's step, run once a call for each of its batches: on the
     card the first ``WARMUP_STEPS`` steps run eagerly on a side stream (real
@@ -690,11 +703,13 @@ class _Captured:
     def _capture(self) -> None:
         # capture_begin on the side stream, not torch.cuda.graph, which first
         # empties the allocator's cache: every later eager allocation of the
-        # process would pay for that. As torch.cuda.graph does, garbage is
-        # collected first, and no collection runs during the capture: one
-        # that freed another graph there would invalidate the capture
+        # process would pay for that (it is emptied only where its unused
+        # blocks outgrow the device's free memory). As torch.cuda.graph does,
+        # garbage is collected first, and no collection runs during the
+        # capture: one that freed another graph there would invalidate it
         torch.cuda.synchronize(self.device)
         gc.collect()
+        _return_unused_cache(self.device)
         reserved = torch.cuda.memory_reserved(self.device)  # the pool maps segments of its own
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()

@@ -29,6 +29,14 @@ one called under a ``torch.func`` transform (whose batched tensors cannot be
 channels-last) keeps its input's format, NCHW from the data path.
 ``tracing``'s ``conv.layout`` counts the calls of each.
 
+In eval mode a bf16 WideResNet block's epilogue, each BatchNorm with its
+ReLU, the conv biases and the residual add, runs as the two fused kernels of
+``kernels/eval_epilogue.py`` where ``eval_epilogue_fused`` finds that it
+applies (on the card, channels-last, autograd off, no transform, no active
+dropout); ``Conv2d.convolve`` gives the convolution without its bias for
+it. ``tracing``'s ``bn.eval`` counts each eval-mode 16-bit BatchNorm call
+by the path it took.
+
 ``Dropout`` draws its mask from a ``torch.Generator`` that the caller binds
 with ``dropout_generator(module, gen)``, never from the global RNG; an
 active dropout layer without one raises. Under ``torch.func.vmap`` (chains
@@ -126,14 +134,25 @@ class Conv2d(nn.Conv2d):
             return torch.contiguous_format
         return torch.channels_last
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        d = self.compute_dtype
+    def _counted_format(self, x: torch.Tensor) -> torch.memory_format:
+        """``memory_format(x)``, counted in ``tracing``'s ``conv.layout``."""
         fmt = self.memory_format(x)
         tracing.conv_layout("channels_last" if fmt == torch.channels_last else "nchw")
+        return fmt
+
+    def convolve(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution in ``dtype``, rounded to it, without the bias:
+        ``forward`` less its bias add (``dtype`` set)."""
+        d, fmt = self.compute_dtype, self._counted_format(x)
+        return self._conv_forward(x.to(d, memory_format=fmt), self.weight.to(d, memory_format=fmt),
+                                  None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
         if d is None:
+            self._counted_format(x)
             return super().forward(x)
-        y = self._conv_forward(x.to(d, memory_format=fmt), self.weight.to(d, memory_format=fmt),
-                               None)
+        y = self.convolve(x)
         return y if self.bias is None else y + self.bias.to(d).view(1, -1, 1, 1)
 
 
@@ -167,8 +186,13 @@ class Dropout(nn.Module):
         self.mask: Optional[torch.Tensor] = None  # bound by dropout_masks
         self.calls: Optional[list] = None  # bound by dropout_calls
 
+    @property
+    def active(self) -> bool:
+        """Whether a forward now drops anything."""
+        return self.p != 0.0 and (self.training or self.always)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.p == 0.0 or not (self.training or self.always):
+        if not self.active:
             return x
         if self.calls is not None:  # a shape probe: record, draw nothing
             self.calls.append((self, tuple(x.shape)))
@@ -304,6 +328,8 @@ class BatchNorm2d(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training and self.compute_dtype in _CHANNELS_LAST_DTYPES:
+            tracing.bn_eval("unfused")
         out = self._normalize(x)
         return out if self.compute_dtype is None else out.to(self.compute_dtype)
 
@@ -334,3 +360,28 @@ class BatchNorm2d(nn.Module):
             self.running_mean.mul_(1.0 - m).add_(batch[0], alpha=m)
             self.running_var.mul_(1.0 - m).add_(batch[1], alpha=m * (n - 1) / n)
         return out
+
+
+def eval_epilogue_fused(x: torch.Tensor, bns, dropout: Optional[Dropout] = None) -> bool:
+    """Whether the eval-mode epilogue that starts from the activation ``x``
+    (the ``BatchNorm2d`` layers ``bns``, each with its ReLU, and the bias
+    and residual adds around them: a WideResNet block, or its head) runs as
+    ``kernels/eval_epilogue.py``'s fused kernels, which compute what the
+    layers compute, rounded at the same points. It does where nothing needs
+    the unfused ops: autograd records nothing, no ``torch.func`` transform
+    or compiler traces the forward, every BN is in eval mode and computes
+    in bf16, ``dropout`` (the epilogue's dropout layer, or None) drops
+    nothing, and ``x`` is a plain bf16 tensor, channels-last contiguous, on
+    a device whose 16-bit convs run channels-last (the card). The fused
+    ``bns`` count in ``tracing``'s ``bn.eval``; unfused, each BN counts
+    itself."""
+    if (torch.is_grad_enabled() or x.dtype != torch.bfloat16 or type(x) is not torch.Tensor
+            or x.device.type not in _CHANNELS_LAST_DEVICES
+            or torch._C._functorch.peek_interpreter_stack() is not None
+            or torch.compiler.is_compiling()
+            or any(bn.training or bn.compute_dtype != torch.bfloat16 for bn in bns)
+            or (dropout is not None and dropout.active)
+            or not x.is_contiguous(memory_format=torch.channels_last)):
+        return False
+    tracing.bn_eval("fused", len(bns))
+    return True

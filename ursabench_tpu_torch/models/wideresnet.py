@@ -8,7 +8,11 @@ momentum is flax's 0.9 in the blocks (0.1 here, torch's convention) and
 flax's 0.1 in the head (0.9 here). Global average pooling and the head run
 in float32; ``dtype`` is flax's compute dtype (``models/common.py``). With
 a 16-bit ``dtype`` the stem's conv turns the batch channels-last and every
-activation after it stays so, up to the pooled (N, C) features.
+activation after it stays so, up to the pooled (N, C) features. In eval mode
+on the card, a bf16 block runs its epilogue (BN-ReLU twice, the conv
+biases, the residual add) as ``kernels/eval_epilogue.py``'s two fused
+kernels, and the head its BN-ReLU, where ``common.eval_epilogue_fused``
+finds that they apply; elsewhere the same ops run unfused.
 
 The ``_dropout`` twins put dropout 0.1 in every block and on the pooled
 features, active in eval mode too (flax ``deterministic=False``), which is
@@ -28,7 +32,8 @@ from torch import nn
 
 from ..data.transforms import CIFAR_TEST, CIFAR_TRAIN
 from ..nn.init import torch_conv_, torch_linear_
-from .common import BatchNorm2d, Conv2d, Dropout, ModelCfg, register
+from ..kernels.eval_epilogue import bias_residual_add, fused_batchnorm_eval_relu
+from .common import BatchNorm2d, Conv2d, Dropout, ModelCfg, eval_epilogue_fused, register
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, dtype=None) -> Conv2d:
@@ -48,11 +53,27 @@ class WideBasic(nn.Module):
                          if stride != 1 or in_planes != planes else None)
 
     def forward(self, x):
+        if eval_epilogue_fused(x, (self.bn1, self.bn2), self.dropout):
+            return self._fused_forward(x)
         out = self.conv1(F.relu(self.bn1(x)))
         if self.dropout is not None:
             out = self.dropout(out)
         out = self.conv2(F.relu(self.bn2(out)))
         return out + (x if self.shortcut is None else self.shortcut(x))
+
+    def _fused_forward(self, x):
+        """``forward`` in eval mode with its epilogue fused: the convs'
+        biases are added inside the kernels that read their outputs."""
+        h = self.conv1.convolve(_bn_relu(self.bn1, x))
+        h = self.conv2.convolve(_bn_relu(self.bn2, h, self.conv1.bias))
+        if self.shortcut is None:
+            return bias_residual_add(h, self.conv2.bias, x)
+        return bias_residual_add(h, self.conv2.bias, self.shortcut.convolve(x), self.shortcut.bias)
+
+
+def _bn_relu(bn: BatchNorm2d, t, conv_bias=None):
+    return fused_batchnorm_eval_relu(t, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                     bn.eps, conv_bias)
 
 
 class WideResNet(nn.Module):
@@ -96,7 +117,9 @@ class WideResNet(nn.Module):
         out = self.conv1(x)
         for blk in self.blocks:
             out = blk(out)
-        out = F.relu(self.bn(out)).to(torch.float32).mean(dim=(2, 3))
+        out = (_bn_relu(self.bn, out) if eval_epilogue_fused(out, (self.bn,), self.dropout)
+               else F.relu(self.bn(out)))
+        out = out.to(torch.float32).mean(dim=(2, 3))
         if self.dropout is not None:
             out = self.dropout(out)
         return self.fc(out)

@@ -22,6 +22,10 @@
   CUDA device) or ``"nchw"`` (float32, the CPU, under a ``torch.func``
   transform, or a 16-bit 1x1 conv that narrows its channels). It counts when the forward is called: a captured program's
   calls count once, at its capture, and not at its replays;
+- ``bn.eval``: each eval-mode call of a 16-bit ``models.common.BatchNorm2d``,
+  by the path it took: ``"fused"`` (a WideResNet block's or head's
+  epilogue as ``kernels/eval_epilogue.py``'s kernels) or ``"unfused"``
+  (its own forward). It counts as ``conv.layout`` does, once at a capture;
 - a hand-written kernel wrapper's ``.launches``: it counts a launch
   through ``count``; a launch made while the current stream is being
   captured runs nothing then and counts once at each replay of the graph
@@ -102,6 +106,7 @@ _logits_all = Calls()
 _captures = Calls()
 _bma = {"seconds": 0.0, "images": 0, "passes": {"graph": 0, "eager": 0}}
 _conv_layout = {"channels_last": 0, "nchw": 0}
+_bn_eval = {"fused": 0, "unfused": 0}
 _recording: List[List[Callable]] = []
 
 
@@ -178,6 +183,12 @@ def conv_layout(layout: str) -> None:
     _conv_layout[layout] += 1
 
 
+def bn_eval(path: str, calls: int = 1) -> None:
+    """``calls`` eval-mode calls of a 16-bit BatchNorm on ``path``,
+    ``"fused"`` or ``"unfused"``."""
+    _bn_eval[path] += calls
+
+
 def count(wrapper: Callable) -> None:
     """One launch of ``wrapper``'s kernel (its ``.launches``); under a
     capture, noted for ``record`` instead."""
@@ -211,7 +222,7 @@ def counters() -> dict:
     ``ensemble.logits_all`` ((total ns, members ns) a call),
     ``program.capture`` ((program, ms, warm-up steps) a capture) as lists,
     oldest first; ``bma.pass`` ({"seconds", "images", "passes": {path: n}});
-    ``conv.layout`` ({layout: calls});
+    ``conv.layout`` ({layout: calls}); ``bn.eval`` ({path: calls});
     ``dropped`` ({counter: calls dropped}). Waits for the epochs still
     running on a card."""
     _read_epochs(wait=True)
@@ -221,6 +232,7 @@ def counters() -> dict:
         "program.capture": list(_captures.values),
         "bma.pass": {**_bma, "passes": dict(_bma["passes"])},
         "conv.layout": dict(_conv_layout),
+        "bn.eval": dict(_bn_eval),
         "dropped": {"sampler.epoch": _epochs.dropped,
                     "ensemble.logits_all": _logits_all.dropped,
                     "program.capture": _captures.dropped},
@@ -235,6 +247,7 @@ def reset() -> None:
         calls.clear()
     _bma.update(seconds=0.0, images=0, passes={"graph": 0, "eager": 0})
     _conv_layout.update(channels_last=0, nchw=0)
+    _bn_eval.update(fused=0, unfused=0)
 
 
 # -- spans ---------------------------------------------------------------------------
